@@ -18,12 +18,14 @@
 //
 // Design: the TPU grid has one program per KV head (32 programs at 7B), which
 // would fill 32 of the 132 SMs at batch 1.  Here the cache is split along
-// its length (flash-decoding): one block per (64-row chunk, kv head) stages
-// the chunk's K and V in shared memory, computes that chunk's partial
-// (max, sum, P.V) for all query rows of the head, and writes them to scratch;
-// a second kernel merges the partials per row.  The grid is sized from
-// max_len, so the host never needs the live length: blocks whose chunk
-// starts at or past tree_start + T_reg exit at once.  Plain CUDA cores, no
+// its length (flash-decoding): one block per (kv head, 64-row chunk, group of
+// 16 query rows) stages the chunk's K and V in shared memory, computes the
+// chunk's partial (max, sum, P.V) for its rows, and writes them to scratch;
+// a second kernel merges the partials per row.  Splitting the rows as well
+// keeps GQA (groups x S rows per head) from serialising in one block.  The
+// grid is sized from max_len, so the host never needs the live length:
+// blocks whose chunk starts at or past tree_start + T_reg exit at once.
+// Staging uses 16-byte loads, all in flight at once.  Plain CUDA cores, no
 // tensor cores or TMA yet.
 
 #include <cuda_bf16.h>
@@ -34,7 +36,7 @@
 namespace {
 
 constexpr int TILE = 64;      // KV rows per block (one split-KV chunk)
-constexpr int ROWS = 16;      // query rows per pass over the staged chunk
+constexpr int ROWS = 16;      // query rows per block
 constexpr int THREADS = 128;
 constexpr int RSTEP = THREADS / TILE;  // query rows a column-thread steps by
 constexpr int WARPS = THREADS / 32;
@@ -49,11 +51,65 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
+// 16-byte vectors of the input dtype, widened to float
+template <typename T> __device__ __forceinline__ void unpack(const uint4& u, float* out);
+template <> __device__ __forceinline__ void unpack<float>(const uint4& u, float* out) {
+  out[0] = __uint_as_float(u.x);
+  out[1] = __uint_as_float(u.y);
+  out[2] = __uint_as_float(u.z);
+  out[3] = __uint_as_float(u.w);
+}
+template <> __device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& u, float* out) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // little-endian: element 2i is the low half
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// Copy NROWS rows of D elements (the first ``valid`` of them real, the rest
+// zero) from device memory into float shared memory rows of ``dst_stride``,
+// times ``scale``.  All of a thread's 16-byte loads are issued before any is
+// used, so their latencies overlap.
+template <typename T, int D, int NROWS>
+__device__ __forceinline__ void stage(const T* __restrict__ src, int valid,
+                                      float* __restrict__ dst, int dst_stride,
+                                      float scale) {
+  constexpr int PER = 16 / sizeof(T);
+  constexpr int VPR = D / PER;  // vectors per row
+  constexpr int TOTAL = NROWS * VPR;
+  constexpr int ITER = (TOTAL + THREADS - 1) / THREADS;
+  static_assert(D % PER == 0, "a row is a whole number of 16-byte vectors");
+  uint4 buf[ITER];
+#pragma unroll
+  for (int it = 0; it < ITER; ++it) {
+    const int v = threadIdx.x + it * THREADS;
+    buf[it] = (v < TOTAL && v / VPR < valid)
+                  ? __ldg(reinterpret_cast<const uint4*>(src + (size_t)(v / VPR) * D) + v % VPR)
+                  : make_uint4(0u, 0u, 0u, 0u);
+  }
+#pragma unroll
+  for (int it = 0; it < ITER; ++it) {
+    const int v = threadIdx.x + it * THREADS;
+    if (v < TOTAL) {
+      float f[PER];
+      unpack<T>(buf[it], f);
+      float* row = dst + (v / VPR) * dst_stride + (v % VPR) * PER;
+#pragma unroll
+      for (int e = 0; e < PER; ++e) row[e] = f[e] * scale;
+    }
+  }
+}
+
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (TILE * (D + 1) + TILE * D + ROWS * D + ROWS * TILE);
 }
 
+// One block per (kv head, chunk, group of ROWS query rows).  Heads vary
+// fastest, so the live chunks at the front of the cache are scheduled first
+// and the blocks past the live rows come last.
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) partial_kernel(
     const T* __restrict__ q,            // [Hkv, GS, D]
@@ -67,9 +123,11 @@ __global__ void __launch_bounds__(THREADS) partial_kernel(
     float* __restrict__ part_acc,       // [Hkv, NC, GS, D] chunk P.V
     int gs, int s_len, int t_reg, int max_len, long long layer_stride,
     float scale) {
-  const int chunk = blockIdx.x;
-  const int nc = gridDim.x;
-  const int hk = blockIdx.y;
+  const int hk = blockIdx.x;
+  const int chunk = blockIdx.y;
+  const int nc = gridDim.y;
+  const int r0 = blockIdx.z * ROWS;
+  const int nr = min(ROWS, gs - r0);
   const int start = *start_ptr;
   const int total = min(start + t_reg, max_len);
   const int col0 = chunk * TILE;
@@ -85,88 +143,74 @@ __global__ void __launch_bounds__(THREADS) partial_kernel(
 
   const size_t base =
       (size_t)(layer * layer_stride) + ((size_t)hk * max_len + col0) * D;
-  for (int i = threadIdx.x; i < TILE * D; i += THREADS) {
-    const int c = i / D, d = i % D;
-    float kv = 0.f, vv = 0.f;
-    if (c < ncols) {
-      kv = to_f(k[base + i]);
-      vv = to_f(v[base + i]);
-    }
-    ks[c * (D + 1) + d] = kv;
-    vs[i] = vv;
-  }
+  stage<T, D, TILE>(k + base, ncols, ks, D + 1, 1.f);
+  stage<T, D, TILE>(v + base, ncols, vs, D, 1.f);
+  stage<T, D, ROWS>(q + ((size_t)hk * gs + r0) * D, nr, qs, D, scale);
+  __syncthreads();
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  const size_t part_row0 = ((size_t)hk * nc + chunk) * gs;
+  const size_t part_row0 = ((size_t)hk * nc + chunk) * gs + r0;
 
-  for (int r0 = 0; r0 < gs; r0 += ROWS) {
-    const int nr = min(ROWS, gs - r0);
-    __syncthreads();  // chunk staged; the previous pass is done with qs/ps
-    for (int i = tid; i < ROWS * D; i += THREADS) {
-      const int r = i / D;
-      qs[i] = r < nr ? to_f(q[((size_t)hk * gs + r0) * D + i]) * scale : 0.f;
+  // scores: this thread owns column c for rows rr, rr + RSTEP, ...
+  {
+    const int c = tid % TILE;
+    const int rr = tid / TILE;
+    float acc[ROWS / RSTEP];
+#pragma unroll
+    for (int j = 0; j < ROWS / RSTEP; ++j) acc[j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      const float kd = ks[c * (D + 1) + d];
+#pragma unroll
+      for (int j = 0; j < ROWS / RSTEP; ++j) acc[j] += qs[(rr + j * RSTEP) * D + d] * kd;
     }
-    __syncthreads();
-
-    // scores: this thread owns column c for rows rr, rr + RSTEP, ...
-    {
-      const int c = tid % TILE;
-      const int rr = tid / TILE;
-      float acc[ROWS / RSTEP];
+    const int col = col0 + c;
 #pragma unroll
-      for (int j = 0; j < ROWS / RSTEP; ++j) acc[j] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        const float kd = ks[c * (D + 1) + d];
-#pragma unroll
-        for (int j = 0; j < ROWS / RSTEP; ++j) acc[j] += qs[(rr + j * RSTEP) * D + d] * kd;
-      }
-      const int col = col0 + c;
-#pragma unroll
-      for (int j = 0; j < ROWS / RSTEP; ++j) {
-        const int r = rr + j * RSTEP;
-        bool ok = false;
-        if (r < nr && c < ncols) {
-          if (col < start) {
-            ok = true;
-          } else {
-            const int s = (r0 + r) % s_len;
-            ok = mask[(size_t)s * t_reg + (col - start)] != 0;
-          }
+    for (int j = 0; j < ROWS / RSTEP; ++j) {
+      const int r = rr + j * RSTEP;
+      bool ok = false;
+      if (r < nr && c < ncols) {
+        if (col < start) {
+          ok = true;
+        } else {
+          const int s = (r0 + r) % s_len;
+          ok = mask[(size_t)s * t_reg + (col - start)] != 0;
         }
-        ps[r * TILE + c] = ok ? acc[j] : -INFINITY;
       }
+      ps[r * TILE + c] = ok ? acc[j] : -INFINITY;
     }
-    __syncthreads();
+  }
+  __syncthreads();
 
-    // chunk softmax statistics: one warp per row, two columns per lane
-    for (int r = warp; r < nr; r += WARPS) {
-      const float a = ps[r * TILE + lane], b = ps[r * TILE + lane + 32];
-      float m = fmaxf(a, b);
+  // chunk softmax statistics: one warp per row, two columns per lane
+  for (int r = warp; r < nr; r += WARPS) {
+    const float a = ps[r * TILE + lane], b = ps[r * TILE + lane + 32];
+    float m = fmaxf(a, b);
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      // masked columns contribute exactly 0 (also when the whole row is masked)
-      const float pa = a == -INFINITY ? 0.f : expf(a - m);
-      const float pb = b == -INFINITY ? 0.f : expf(b - m);
-      float l = pa + pb;
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    // masked columns contribute exactly 0 (also when the whole row is masked)
+    const float pa = a == -INFINITY ? 0.f : expf(a - m);
+    const float pb = b == -INFINITY ? 0.f : expf(b - m);
+    float l = pa + pb;
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
-      // p is rounded to the value dtype before P.V, as in the plain version
-      ps[r * TILE + lane] = to_f(from_f<T>(pa));
-      ps[r * TILE + lane + 32] = to_f(from_f<T>(pb));
-      if (lane == 0) {
-        part_m[part_row0 + r0 + r] = m;
-        part_l[part_row0 + r0 + r] = l;
-      }
+    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+    // p is rounded to the value dtype before P.V, as in the plain version
+    ps[r * TILE + lane] = to_f(from_f<T>(pa));
+    ps[r * TILE + lane + 32] = to_f(from_f<T>(pb));
+    if (lane == 0) {
+      part_m[part_row0 + r] = m;
+      part_l[part_row0 + r] = l;
     }
-    __syncthreads();
+  }
+  __syncthreads();
 
-    for (int i = tid; i < nr * D; i += THREADS) {
-      const int r = i / D, d = i % D;
-      float a = 0.f;
-      for (int c = 0; c < ncols; ++c) a += ps[r * TILE + c] * vs[c * D + d];
-      part_acc[(part_row0 + r0 + r) * D + d] = a;
-    }
+  for (int i = tid; i < nr * D; i += THREADS) {
+    const int r = i / D, d = i % D;
+    float a = 0.f;
+#pragma unroll 8
+    for (int c = 0; c < ncols; ++c) a += ps[r * TILE + c] * vs[c * D + d];
+    part_acc[(part_row0 + r) * D + d] = a;
   }
 }
 
@@ -207,7 +251,7 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
   cudaError_t err = cudaFuncSetAttribute(
       partial_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  partial_kernel<T, D><<<dim3(nc, hkv), THREADS, smem, stream>>>(
+  partial_kernel<T, D><<<dim3(hkv, nc, (gs + ROWS - 1) / ROWS), THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)mask,
       (const int*)start, (const int*)layer, (float*)part_m, (float*)part_l,
       (float*)part_acc, gs, s_len, t_reg, max_len, layer_stride,

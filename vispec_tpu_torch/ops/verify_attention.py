@@ -148,6 +148,8 @@ def verify_attention(
     if not (q.is_contiguous() and k_cache.is_contiguous()
             and v_cache.is_contiguous() and tree_mask.is_contiguous()):
         raise ValueError("verify_attention: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+        raise ValueError("verify_attention: q and the caches must be 16-byte aligned")
     start = _device_index(tree_start, q.device, "tree_start")
     if k_cache.dim() == 4:
         if layer_idx is None:
