@@ -1,6 +1,7 @@
 """The port's verify_attention (plain version on the CPU) against the JAX
-package's Pallas kernel in interpret mode and its XLA ``attend`` oracle, and
-the CUDA kernel against the plain version on the card.
+package's Pallas kernel in interpret mode and its XLA ``attend`` oracle.
+The CUDA kernel is held against the plain version on the card in
+tests/test_torch_kernels_gpu.py.
 
 Tolerance: 2e-4 abs/rel in float32, as tests/test_pallas_attention.py holds
 the Pallas kernel to the same oracle (summation order differs)."""
@@ -99,34 +100,3 @@ def test_cpu_wrapper_runs_the_plain_version_without_a_launch():
         torch.from_numpy(tm)))
     np.testing.assert_array_equal(out, ref)
     assert tva.verify_attention.launches == before
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype,d,groups,layers,tol", [
-    (torch.float32, 128, 1, 3, 1e-4),
-    (torch.bfloat16, 128, 4, None, 2e-2),
-    (torch.float32, 16, 2, 2, 1e-4),
-])
-def test_kernel_matches_plain_version(cuda_device, dtype, d, groups, layers, tol):
-    """f32: summation order only (1e-4); bf16: p rounded to bf16 at another
-    point of the softmax than the plain version, and a bf16 output (2e-2)."""
-    q, k, v, tm, start = _case(4, groups, 30, 30, 301, layers=layers, d=d,
-                               max_len=1024, seed=4)
-    args = [torch.from_numpy(x).to(cuda_device, dtype) for x in (q, k, v)]
-    mask = torch.from_numpy(tm).to(cuda_device)
-    st = torch.tensor(start, dtype=torch.int32, device=cuda_device)
-    layer = None if layers is None else torch.tensor(1, dtype=torch.int32,
-                                                     device=cuda_device)
-    before = tva.verify_attention.launches
-    out = tva.verify_attention(*args, st, mask, layer_idx=layer)
-    ref = tva.verify_attention_ref(*args, st, mask, layer_idx=layer)
-    torch.cuda.synchronize()
-    assert tva.verify_attention.launches == before + 1
-    assert (out.float() - ref.float()).abs().max().item() <= tol

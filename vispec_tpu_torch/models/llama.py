@@ -18,8 +18,6 @@ index here, and each layer writes its new K/V rows into the cache in place.
 
 from __future__ import annotations
 
-from typing import Tuple
-
 import torch
 import torch.nn.functional as F
 
@@ -79,6 +77,8 @@ def forward_hidden(
     cache with the new block written at cache.length — call
     ``kv_cache.advance`` afterwards).  With ``return_new_kv`` also returns
     the appended K/V blocks, each [L, H_kv, S, D]."""
+    if cfg.mrope_section is not None:
+        raise NotImplementedError("M-RoPE (Qwen2.5-VL) targets are not ported yet")
     cos, sin = rope_ops.cos_sin(
         position_ids,
         cfg.head_dim,

@@ -17,14 +17,6 @@ import torch
 NEG_INF = -1e9
 
 
-def pick_block(max_len: int) -> int:
-    """Largest power-of-two KV block <= 512 dividing max_len."""
-    for b in (512, 256, 128, 64, 32, 16, 8):
-        if max_len % b == 0 and max_len >= b:
-            return b
-    return max_len
-
-
 def repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
     """[H_kv, S, D] -> [H_kv*groups, S, D] (GQA broadcast)."""
     if groups == 1:

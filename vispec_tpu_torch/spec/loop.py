@@ -10,7 +10,7 @@ counters it reads.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
@@ -51,12 +51,10 @@ class SamplingParams(NamedTuple):
     temperature: float = 0.0
     top_p: float = 0.0
     top_k: int = 0
-    repetition_penalty: float = 1.0
-    per_request: bool = False
 
     @property
     def greedy(self) -> bool:
-        return (not self.per_request) and self.temperature <= 1e-5
+        return self.temperature <= 1e-5
 
 
 def _require_greedy(sampling: SamplingParams) -> None:
@@ -277,15 +275,13 @@ def ar_prefill(
     inputs_embeds: torch.Tensor,  # [pad_len, hidden]
     real_len,
     cache: kv.KVCache,
-    position_ids: Optional[torch.Tensor] = None,
 ):
     """Prompt prefill for the AR baseline; returns (first token, cache)."""
     _require_greedy(sampling)
     pad_len = inputs_embeds.shape[0]
     device = inputs_embeds.device
     real_len = torch.as_tensor(real_len, device=device)
-    pos = (torch.arange(pad_len, dtype=torch.int32, device=device)
-           if position_ids is None else position_ids)
+    pos = torch.arange(pad_len, dtype=torch.int32, device=device)
     mask = causal_mask(pad_len, cache.max_len, 0, device)
     hidden, cache = target_forward(tparams, tcfg, inputs_embeds, pos, cache, mask,
                                    seq_len=real_len)
