@@ -3,18 +3,23 @@
 // nvcc into a shared library with a plain C interface, loaded with ctypes.
 //
 // Replaces the Pallas TPU kernel vispec_tpu/ops/pallas_attention.py::_kernel
-// (built by _build_call, entered through verify_attention), in its bf16/f32
-// single-request form.  Same contract:
+// (built by _build_call, entered through verify_attention), in its
+// single-request form: bf16/f32 caches (table row 1a) and int8 caches with
+// per-row f32 scales (``quantized=True``, row 1b).  Same contract:
 //   q [H, S, D]; cache [L?, Hkv, max_len, D]; tree_start and layer_idx read
 //   from device memory; region mask [S, T_reg] (bool bytes).  Query row s of
 //   head h sees every column < tree_start and region column tree_start + t
 //   where mask[s, t]; nothing at or past tree_start + T_reg is read.  Head h
 //   uses kv-head h / groups, rows group-major (row = g * S + s).  Scale
 //   D^-0.5, f32 scores, online softmax and accumulator, output in q's dtype.
+//   An int8 cache carries scales [L?, Hkv, max_len]: the key scale multiplies
+//   its score column after q.k, the value scale multiplies p (f32, not
+//   rounded) before P.V; no dequantized copy of the cache is built.
 //
 // Bound on an H100 SXM: the work is a few flops per cache byte, so it is
 // bound by the KV bytes it reads, 2 * (tree_start + T_reg) * Hkv * D * elem
-// bytes over 3.35 TB/s (at 7B, a 300-row prefix in bf16: 4.9 MB, 1.5 us).
+// bytes (+ 8 scale bytes per row when int8) over 3.35 TB/s (at 7B, a 331-row
+// verify: 5.4 MB, 1.8 us in bf16; 2.7 MB + 85 KB, about 1 us in int8).
 //
 // Design: the TPU grid has one program per KV head (32 programs at 7B), which
 // would fill 32 of the 132 SMs at batch 1.  Here the cache is split along
@@ -25,13 +30,17 @@
 // keeps GQA (groups x S rows per head) from serialising in one block.  The
 // grid is sized from max_len, so the host never needs the live length:
 // blocks whose chunk starts at or past tree_start + T_reg exit at once.
-// Staging uses 16-byte loads, all in flight at once.  Plain CUDA cores, no
-// tensor cores or TMA yet.
+// Staging uses 16-byte loads, all in flight at once (8 bf16, 4 f32 or 16
+// int8 values each), widened to f32 in registers; an int8 chunk's scale rows
+// are staged in shared memory beside its tiles.  Plain CUDA cores, no tensor
+// cores or TMA yet.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -41,6 +50,7 @@ constexpr int THREADS = 128;
 constexpr int RSTEP = THREADS / TILE;  // query rows a column-thread steps by
 constexpr int WARPS = THREADS / 32;
 static_assert(TILE == 64, "the row statistics give each lane two columns");
+static_assert(THREADS == 2 * TILE, "one thread stages each key and value scale");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -66,6 +76,14 @@ template <> __device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& u
     out[2 * i] = __uint_as_float(w[i] << 16);
     out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
+}
+template <> __device__ __forceinline__ void unpack<int8_t>(const uint4& u, float* out) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)  // element 4i + b is byte b of word i
+      out[4 * i + b] = (float)(int8_t)((w[i] >> (8 * b)) & 0xffu);
 }
 
 // Copy NROWS rows of D elements (the first ``valid`` of them real, the rest
@@ -104,17 +122,20 @@ __device__ __forceinline__ void stage(const T* __restrict__ src, int valid,
 
 template <int D>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (TILE * (D + 1) + TILE * D + ROWS * D + ROWS * TILE);
+  return sizeof(float) * (TILE * (D + 1) + TILE * D + ROWS * D + ROWS * TILE + 2 * TILE);
 }
 
 // One block per (kv head, chunk, group of ROWS query rows).  Heads vary
 // fastest, so the live chunks at the front of the cache are scheduled first
-// and the blocks past the live rows come last.
-template <typename T, int D>
+// and the blocks past the live rows come last.  T is q's and the output's
+// type, TC the cache's (T, or int8_t with per-row scales).
+template <typename T, typename TC, int D>
 __global__ void __launch_bounds__(THREADS) partial_kernel(
     const T* __restrict__ q,            // [Hkv, GS, D]
-    const T* __restrict__ k,            // [L?, Hkv, max_len, D]
-    const T* __restrict__ v,
+    const TC* __restrict__ k,           // [L?, Hkv, max_len, D]
+    const TC* __restrict__ v,
+    const float* __restrict__ k_scale,  // [L?, Hkv, max_len] (int8 cache only)
+    const float* __restrict__ v_scale,
     const uint8_t* __restrict__ mask,   // [S, T_reg]
     const int* __restrict__ start_ptr,  // committed prefix length
     const int* __restrict__ layer_ptr,  // layer index, or null for a 3-D cache
@@ -122,7 +143,8 @@ __global__ void __launch_bounds__(THREADS) partial_kernel(
     float* __restrict__ part_l,         // [Hkv, NC, GS] chunk row sum
     float* __restrict__ part_acc,       // [Hkv, NC, GS, D] chunk P.V
     int gs, int s_len, int t_reg, int max_len, long long layer_stride,
-    float scale) {
+    long long scale_layer_stride, float scale) {
+  constexpr bool QUANT = std::is_same<TC, int8_t>::value;
   const int hk = blockIdx.x;
   const int chunk = blockIdx.y;
   const int nc = gridDim.y;
@@ -140,15 +162,24 @@ __global__ void __launch_bounds__(THREADS) partial_kernel(
   float* vs = ks + TILE * (D + 1);  // [TILE][D]
   float* qs = vs + TILE * D;        // [ROWS][D], pre-scaled
   float* ps = qs + ROWS * D;        // [ROWS][TILE] scores, then probabilities
-
-  const size_t base =
-      (size_t)(layer * layer_stride) + ((size_t)hk * max_len + col0) * D;
-  stage<T, D, TILE>(k + base, ncols, ks, D + 1, 1.f);
-  stage<T, D, TILE>(v + base, ncols, vs, D, 1.f);
-  stage<T, D, ROWS>(q + ((size_t)hk * gs + r0) * D, nr, qs, D, scale);
-  __syncthreads();
+  float* ksc = ps + ROWS * TILE;    // [TILE] key row scales (int8 cache)
+  float* vsc = ksc + TILE;          // [TILE] value row scales
 
   const int tid = threadIdx.x;
+  const size_t base =
+      (size_t)(layer * layer_stride) + ((size_t)hk * max_len + col0) * D;
+  stage<TC, D, TILE>(k + base, ncols, ks, D + 1, 1.f);
+  stage<TC, D, TILE>(v + base, ncols, vs, D, 1.f);
+  stage<T, D, ROWS>(q + ((size_t)hk * gs + r0) * D, nr, qs, D, scale);
+  if constexpr (QUANT) {
+    const size_t sbase =
+        (size_t)(layer * scale_layer_stride) + (size_t)hk * max_len + col0;
+    const int c = tid % TILE;
+    const float* src = tid < TILE ? k_scale : v_scale;
+    (tid < TILE ? ksc : vsc)[c] = c < ncols ? src[sbase + c] : 0.f;
+  }
+  __syncthreads();
+
   const int warp = tid / 32, lane = tid % 32;
   const size_t part_row0 = ((size_t)hk * nc + chunk) * gs + r0;
 
@@ -178,7 +209,8 @@ __global__ void __launch_bounds__(THREADS) partial_kernel(
           ok = mask[(size_t)s * t_reg + (col - start)] != 0;
         }
       }
-      ps[r * TILE + c] = ok ? acc[j] : -INFINITY;
+      // int8: the key scale is constant over the contracted D axis
+      ps[r * TILE + c] = ok ? (QUANT ? acc[j] * ksc[c] : acc[j]) : -INFINITY;
     }
   }
   __syncthreads();
@@ -195,9 +227,15 @@ __global__ void __launch_bounds__(THREADS) partial_kernel(
     float l = pa + pb;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
-    // p is rounded to the value dtype before P.V, as in the plain version
-    ps[r * TILE + lane] = to_f(from_f<T>(pa));
-    ps[r * TILE + lane + 32] = to_f(from_f<T>(pb));
+    if constexpr (QUANT) {
+      // the value row scales fold into p (f32), constant over P.V's rows
+      ps[r * TILE + lane] = pa * vsc[lane];
+      ps[r * TILE + lane + 32] = pb * vsc[lane + 32];
+    } else {
+      // p is rounded to the value dtype before P.V, as in the plain version
+      ps[r * TILE + lane] = to_f(from_f<T>(pa));
+      ps[r * TILE + lane + 32] = to_f(from_f<T>(pb));
+    }
     if (lane == 0) {
       part_m[part_row0 + r] = m;
       part_l[part_row0 + r] = l;
@@ -241,20 +279,23 @@ __global__ void __launch_bounds__(D) combine_kernel(
   out[(size_t)row * D + d] = from_f<T>(acc / fmaxf(l, 1e-20f));
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* mask,
-           const void* start, const void* layer, void* part_m, void* part_l,
-           void* part_acc, void* out, int hkv, int gs, int s_len, int t_reg,
-           int max_len, long long layer_stride, cudaStream_t stream) {
+template <typename T, typename TC, int D>
+int launch(const void* q, const void* k, const void* v, const void* k_scale,
+           const void* v_scale, const void* mask, const void* start,
+           const void* layer, void* part_m, void* part_l, void* part_acc,
+           void* out, int hkv, int gs, int s_len, int t_reg, int max_len,
+           long long layer_stride, long long scale_layer_stride,
+           cudaStream_t stream) {
   const int nc = (max_len + TILE - 1) / TILE;
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      partial_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      partial_kernel<T, TC, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  partial_kernel<T, D><<<dim3(hkv, nc, (gs + ROWS - 1) / ROWS), THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)mask,
-      (const int*)start, (const int*)layer, (float*)part_m, (float*)part_l,
-      (float*)part_acc, gs, s_len, t_reg, max_len, layer_stride,
+  partial_kernel<T, TC, D><<<dim3(hkv, nc, (gs + ROWS - 1) / ROWS), THREADS, smem, stream>>>(
+      (const T*)q, (const TC*)k, (const TC*)v, (const float*)k_scale,
+      (const float*)v_scale, (const uint8_t*)mask, (const int*)start,
+      (const int*)layer, (float*)part_m, (float*)part_l, (float*)part_acc, gs,
+      s_len, t_reg, max_len, layer_stride, scale_layer_stride,
       1.0f / sqrtf((float)D));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -272,25 +313,40 @@ extern "C" {
 int vispec_verify_attention_tile() { return TILE; }
 
 // Returns a cudaError_t code (0 on success), or -1 for an unsupported
-// head_dim / dtype pair.  Launches on ``stream``; does not synchronise.
+// head_dim / dtype pair.  q and the output are bf16 (is_bf16) or f32; the
+// cache is q's type, or int8 (cache_int8) with scales k_scale / v_scale
+// (null otherwise).  Launches on ``stream``; does not synchronise.
 int vispec_verify_attention(const void* q, const void* k, const void* v,
+                            const void* k_scale, const void* v_scale,
                             const void* mask, const void* start,
                             const void* layer, void* part_m, void* part_l,
                             void* part_acc, void* out, int hkv, int gs,
                             int s_len, int t_reg, int max_len,
-                            long long layer_stride, int head_dim, int is_bf16,
-                            void* stream) {
+                            long long layer_stride,
+                            long long scale_layer_stride, int head_dim,
+                            int is_bf16, int cache_int8, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define VISPEC_LAUNCH(T, D)                                                    \
-  return launch<T, D>(q, k, v, mask, start, layer, part_m, part_l, part_acc, \
-                      out, hkv, gs, s_len, t_reg, max_len, layer_stride, st)
+#define VISPEC_LAUNCH(T, TC, D)                                                \
+  return launch<T, TC, D>(q, k, v, k_scale, v_scale, mask, start, layer,      \
+                          part_m, part_l, part_acc, out, hkv, gs, s_len,      \
+                          t_reg, max_len, layer_stride, scale_layer_stride, st)
+#define VISPEC_HEAD_DIMS(T, TC)                \
+  if (head_dim == 16) VISPEC_LAUNCH(T, TC, 16); \
+  if (head_dim == 128) VISPEC_LAUNCH(T, TC, 128);
   if (is_bf16) {
-    if (head_dim == 16) VISPEC_LAUNCH(__nv_bfloat16, 16);
-    if (head_dim == 128) VISPEC_LAUNCH(__nv_bfloat16, 128);
+    if (cache_int8) {
+      VISPEC_HEAD_DIMS(__nv_bfloat16, int8_t)
+    } else {
+      VISPEC_HEAD_DIMS(__nv_bfloat16, __nv_bfloat16)
+    }
   } else {
-    if (head_dim == 16) VISPEC_LAUNCH(float, 16);
-    if (head_dim == 128) VISPEC_LAUNCH(float, 128);
+    if (cache_int8) {
+      VISPEC_HEAD_DIMS(float, int8_t)
+    } else {
+      VISPEC_HEAD_DIMS(float, float)
+    }
   }
+#undef VISPEC_HEAD_DIMS
 #undef VISPEC_LAUNCH
   return -1;
 }

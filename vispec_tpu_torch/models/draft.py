@@ -11,6 +11,10 @@ Weight names and layouts are the JAX package's:
   img_fc_w:   [2*hidden, hidden], img_fc_b: [hidden]
   adaptor:    q: [num_q, heads, head_dim], wk/wv: [hidden, heads*head_dim]
               (+ bk/bv if qkv_bias), wo: [heads*head_dim, hidden]
+The layer matrices (and a ``rank_head`` ranking copy of the target head)
+may be int8 ``QTensor``s or int4 ``Q4Tensor``s
+(``ops.quant.quantize_draft_params``); every product goes through
+``ops.quant.qdot`` with a float32 result, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from ..ops import kv_cache as kvc
 from ..ops import rope as rope_ops
 from ..ops.attention import attend, attend_region
 from ..ops.kv_cache import KVCache, advance, init_cache
+from ..ops.quant import Q4Tensor, QTensor, qdot, quantize_q4, quantize_q8
 from ..ops.topk import top_k
 from ..ops.tree import Tree, build_tree
 from .llama import rms_norm, swiglu_mlp
@@ -153,8 +158,8 @@ def img_adaptor(params: dict, cfg: DraftConfig, span_embeds: torch.Tensor,
     returns [num_q, hidden]."""
     h, d = cfg.num_attention_heads, cfg.head_dim
     a = params["adaptor"]
-    k = torch.matmul(span_embeds, a["wk"])
-    v = torch.matmul(span_embeds, a["wv"])
+    k = qdot(span_embeds, a["wk"]).to(span_embeds.dtype)
+    v = qdot(span_embeds, a["wv"]).to(span_embeds.dtype)
     if cfg.qkv_bias:
         k = k + a["bk"].to(k.dtype)
         v = v + a["bv"].to(v.dtype)
@@ -164,20 +169,26 @@ def img_adaptor(params: dict, cfg: DraftConfig, span_embeds: torch.Tensor,
     mask = span_mask[None, :].expand(cfg.num_q, span_mask.shape[0])
     out = attend(q, k, v, mask)
     out = out.transpose(0, 1).reshape(cfg.num_q, h * d)
-    return torch.matmul(out, a["wo"])
+    return qdot(out, a["wo"]).to(span_embeds.dtype)
 
 
 def fuse_weight_mats(params: dict, cfg: DraftConfig):
     """The request-independent decode fuse matrices W_e = F1 and
-    W_h = G1 @ F2 (or F2 for EAGLE), see decode_fuse_weights."""
+    W_h = G1 @ F2 (or F2 for EAGLE), see decode_fuse_weights; quantized as
+    the layer is (int4 or int8) when the draft is quantized."""
     d = cfg.hidden_size
     f1 = params["fc_w"][:d]
     f2 = params["fc_w"][d:]
     if "img_fc_w" in params:
         g1 = params["img_fc_w"][:d]
-        w_h = torch.matmul(g1.float(), f2.float()).to(f1.dtype)
+        w_h = qdot(g1, f2).to(f1.dtype)
     else:
         w_h = f2
+    wq = params["layer"].get("wq")
+    if isinstance(wq, Q4Tensor):
+        return quantize_q4(f1), quantize_q4(w_h.float())
+    if isinstance(wq, QTensor):
+        return quantize_q8(f1), quantize_q8(w_h.float())
     return f1, w_h
 
 
@@ -213,8 +224,7 @@ def decode_fuse_weights(params: dict, cfg: DraftConfig, last_img: torch.Tensor):
 
 
 def fused_input(w_e, w_h, b_eff, embeds: torch.Tensor, hidden: torch.Tensor) -> torch.Tensor:
-    out = (torch.matmul(embeds, w_e).float() + torch.matmul(hidden, w_h).float()
-           + b_eff)
+    out = qdot(embeds, w_e) + qdot(hidden, w_h) + b_eff
     return out.to(hidden.dtype)
 
 
@@ -231,7 +241,7 @@ def _fuse_img_only(params: dict, hidden: torch.Tensor,
     if "img_fc_w" not in params:
         return hidden
     img_in = torch.cat([hidden, last_img_per_tok.to(hidden.dtype)], dim=-1)
-    fused = torch.matmul(img_in, params["img_fc_w"]).float()
+    fused = qdot(img_in, params["img_fc_w"])
     if "img_fc_b" in params:
         fused = fused + params["img_fc_b"].float()
     return fused.to(hidden.dtype)
@@ -239,7 +249,7 @@ def _fuse_img_only(params: dict, hidden: torch.Tensor,
 
 def _fc(params: dict, embeds: torch.Tensor, fused: torch.Tensor) -> torch.Tensor:
     fc_in = torch.cat([embeds.to(fused.dtype), fused], dim=-1)
-    out = torch.matmul(fc_in, params["fc_w"]).float()
+    out = qdot(fc_in, params["fc_w"])
     if "fc_b" in params:
         out = out + params["fc_b"].float()
     return out.to(fused.dtype)
@@ -262,9 +272,9 @@ def layer_forward(
     s = x.shape[0]
     h, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
-    q = torch.matmul(x, lp["wq"])
-    k = torch.matmul(x, lp["wk"])
-    v = torch.matmul(x, lp["wv"])
+    q = qdot(x, lp["wq"]).to(x.dtype)
+    k = qdot(x, lp["wk"]).to(x.dtype)
+    v = qdot(x, lp["wv"]).to(x.dtype)
     if cfg.qkv_bias:
         q = q + lp["bq"].to(q.dtype)
         k = k + lp["bk"].to(k.dtype)
@@ -279,7 +289,7 @@ def layer_forward(
     kvc.write_rows(v_full, 1, write_at, v)
     attn = attend_region(q.contiguous(), k_full, v_full, attn_mask, region)
     attn = attn.transpose(0, 1).reshape(s, h * d)
-    hidden = x + torch.matmul(attn, lp["wo"])
+    hidden = x + qdot(attn, lp["wo"]).to(x.dtype)
     normed = rms_norm(hidden, lp["post_norm"], cfg.rms_norm_eps)
     hidden = hidden + swiglu_mlp(normed, lp["w_gate"], lp["w_up"], lp["w_down"])
     return hidden, cache
@@ -408,7 +418,7 @@ def expand_tree(
     seed_hidden: torch.Tensor,  # [hidden] — draft output at the frontier token
     sample_token: torch.Tensor,  # [] int32 — committed root token
     last_img: torch.Tensor,  # [hidden]
-    head_w: torch.Tensor,  # [hidden, vocab] target lm_head
+    head_w,  # [hidden, vocab] ranking head: rank_head or the target's lm_head
     cache: KVCache,
     fuse_w=None,  # optional (w_e, w_h, b_eff) from decode_fuse_weights
 ) -> Tuple[Tree, KVCache]:
@@ -423,7 +433,7 @@ def expand_tree(
     vdtype = seed_hidden.dtype
     device = seed_hidden.device
 
-    logp0 = torch.log_softmax(torch.matmul(seed_hidden, head_w).float(), dim=-1)
+    logp0 = torch.log_softmax(qdot(seed_hidden, head_w), dim=-1)
     top_p0, top_i0 = top_k(logp0, k_beam)
 
     tokens_flat = torch.zeros((num_cand,), dtype=torch.int32, device=device)
@@ -460,7 +470,7 @@ def expand_tree(
         hidden, cache = layer_forward(params, cfg, x, pos_ids, cache, write_at, None,
                                       region=(stable_len, reg_mask))
 
-        logp = torch.log_softmax(torch.matmul(hidden, head_w).float(), dim=-1)
+        logp = torch.log_softmax(qdot(hidden, head_w), dim=-1)
         top_p, top_i = top_k(logp, k_beam)  # [K, K]
         cu = top_p + beam_scores[:, None]
 

@@ -12,6 +12,12 @@ stacked over layers, ``[in, out]`` matrices, float32 norms.
   final_norm: [hidden] (float32)
   lm_head:    [hidden, vocab]
 
+The seven layer matrices and ``lm_head`` may be int8 ``QTensor``s
+(``ops.quant.quantize_target_params``): every product goes through
+``ops.quant.qdot``, which returns float32 as the JAX package's
+``qdot(..., preferred_element_type=jnp.float32)`` does, and is cast to the
+activation dtype exactly where the JAX lines cast.
+
 The JAX ``lax.scan`` over stacked layers is a Python loop over the layer
 index here, and each layer writes its new K/V rows into the cache in place.
 """
@@ -26,6 +32,7 @@ from ..ops import kv_cache as kvc
 from ..ops import rope as rope_ops
 from ..ops.attention import attend
 from ..ops.kv_cache import KVCache
+from ..ops.quant import qdot
 from ..ops.verify_attention import verify_attention
 
 
@@ -38,27 +45,41 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def swiglu_mlp(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
-    gate = torch.matmul(x, w_gate).float()
-    up = torch.matmul(x, w_up).float()
+    gate = qdot(x, w_gate)
+    up = qdot(x, w_up)
     inter = (F.silu(gate) * up).to(x.dtype)
-    return torch.matmul(inter, w_down)
+    return qdot(inter, w_down).to(x.dtype)
 
 
-def append_kv(k_cache, v_cache, k_new, v_new, layer_idx: int, write_at) -> None:
+def append_kv(k_cache, v_cache, k_scale, v_scale, k_new, v_new, layer_idx: int,
+              write_at) -> None:
     """Write this layer's new K/V rows [Hkv, S, D] into the stacked cache
-    buffers at row ``write_at``, in place."""
+    buffers at row ``write_at``, in place; an int8 cache (``k_scale`` not
+    None) gets the rows quantized per row and their scales."""
+    if k_scale is not None:
+        k_new, ks = kvc.quantize_rows(k_new)
+        v_new, vs = kvc.quantize_rows(v_new)
+        kvc.write_rows(k_scale[layer_idx], 1, write_at, ks)
+        kvc.write_rows(v_scale[layer_idx], 1, write_at, vs)
     kvc.write_rows(k_cache[layer_idx], 1, write_at, k_new)
     kvc.write_rows(v_cache[layer_idx], 1, write_at, v_new)
 
 
-def cached_attend(q, k_cache, v_cache, layer_idx: int, layer_ids, attn_mask, region):
+def cached_attend(q, k_cache, v_cache, k_scale, v_scale, layer_idx: int, layer_ids,
+                  attn_mask, region):
     """Attention of one layer over the stacked cache: with a region, the
-    length-aware ``verify_attention`` reads the stacked cache at the layer
-    index held on the device (``layer_ids[layer_idx]``); without one, plain
-    masked ``attend`` over the layer's slice."""
+    length-aware ``verify_attention`` reads the stacked cache (int8 tiles
+    and scales directly, when quantized) at the layer index held on the
+    device (``layer_ids[layer_idx]``); without one, plain masked ``attend``
+    over the layer's slice, dequantized first when quantized."""
     if region is not None:
         return verify_attention(q, k_cache, v_cache, region[0], region[1],
-                                layer_idx=layer_ids[layer_idx])
+                                layer_idx=layer_ids[layer_idx], k_scale=k_scale,
+                                v_scale=v_scale)
+    if k_scale is not None:
+        k_l = kvc.dequantize_rows(k_cache[layer_idx], k_scale[layer_idx], q.dtype)
+        v_l = kvc.dequantize_rows(v_cache[layer_idx], v_scale[layer_idx], q.dtype)
+        return attend(q, k_l, v_l, attn_mask)
     return attend(q, k_cache[layer_idx], v_cache[layer_idx], attn_mask)
 
 
@@ -101,9 +122,9 @@ def forward_hidden(
         lp = {name: w[li] for name, w in lp_all.items()}
         residual = hidden
         normed = rms_norm(hidden, lp["input_norm"], cfg.rms_norm_eps)
-        q = torch.matmul(normed, lp["wq"])
-        k = torch.matmul(normed, lp["wk"])
-        v = torch.matmul(normed, lp["wv"])
+        q = qdot(normed, lp["wq"]).to(normed.dtype)
+        k = qdot(normed, lp["wk"]).to(normed.dtype)
+        v = qdot(normed, lp["wv"]).to(normed.dtype)
         if cfg.qkv_bias:
             q = q + lp["bq"].to(q.dtype)
             k = k + lp["bk"].to(k.dtype)
@@ -114,10 +135,12 @@ def forward_hidden(
         q, k_new = rope_ops.apply_rope(q, k_new, cos, sin)
         q = q.contiguous()
 
-        append_kv(cache.k, cache.v, k_new, v_new, li, write_at)
-        out = cached_attend(q, cache.k, cache.v, li, layer_ids, attn_mask, region)
+        append_kv(cache.k, cache.v, cache.k_scale, cache.v_scale, k_new, v_new, li,
+                  write_at)
+        out = cached_attend(q, cache.k, cache.v, cache.k_scale, cache.v_scale, li,
+                            layer_ids, attn_mask, region)
         out = out.transpose(0, 1).reshape(s, h * d)
-        hidden = residual + torch.matmul(out, lp["wo"])
+        hidden = residual + qdot(out, lp["wo"]).to(normed.dtype)
         normed = rms_norm(hidden, lp["post_norm"], cfg.rms_norm_eps)
         hidden = hidden + swiglu_mlp(normed, lp["w_gate"], lp["w_up"], lp["w_down"])
         if return_new_kv:
@@ -137,7 +160,7 @@ def embed(params: dict, token_ids: torch.Tensor) -> torch.Tensor:
 
 def lm_head(params: dict, hidden: torch.Tensor) -> torch.Tensor:
     """[..., hidden] -> [..., vocab] float32 logits."""
-    return torch.matmul(hidden, params["lm_head"]).float()
+    return qdot(hidden, params["lm_head"])
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator, device="cuda",

@@ -12,11 +12,16 @@ device: the draft's image compression stores fewer rows (``length``) than the
 sequence has positions (``real_length``).  Both stay on the device, and every
 write at a device-held offset uses ``index_copy_`` with indices computed on
 the device, so the decode loop never reads a length back to the host.
+
+``init_cache(quantized=True)`` holds int8 K/V with per-row float32 scales
+(the int8-KV serving mode): rows are quantized as they are written, and the
+attention kernel reads the int8 tiles directly.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Optional
 
 import torch
 
@@ -28,12 +33,16 @@ class KVCache:
     k, v: [num_layers, num_kv_heads, max_len, head_dim]
     length: int32 scalar tensor — committed (attendable) rows.
     real_length: int32 scalar tensor — logical sequence position count.
+    k_scale, v_scale: [num_layers, num_kv_heads, max_len] float32 per-row
+        dequantization scales, present iff k/v are int8.
     """
 
     k: torch.Tensor
     v: torch.Tensor
     length: torch.Tensor
     real_length: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def max_len(self) -> int:
@@ -54,17 +63,46 @@ def init_cache(
     head_dim: int,
     dtype=torch.bfloat16,
     device="cuda",
+    quantized: bool = False,
 ) -> KVCache:
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"KV cache dtype must be bfloat16 or float32, got {dtype}")
+    """``quantized=True`` allocates int8 k/v plus per-row float32 scales
+    (half the bytes of a bf16 cache); ``dtype`` is then unused."""
     shape = (num_layers, num_kv_heads, max_len, head_dim)
     zero = torch.zeros((), dtype=torch.int32, device=device)
+    if quantized:
+        sshape = (num_layers, num_kv_heads, max_len)
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            length=zero,
+            real_length=zero.clone(),
+            k_scale=torch.zeros(sshape, dtype=torch.float32, device=device),
+            v_scale=torch.zeros(sshape, dtype=torch.float32, device=device),
+        )
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"KV cache dtype must be bfloat16 or float32, got {dtype}")
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
         length=zero,
         real_length=zero.clone(),
     )
+
+
+def quantize_rows(x: torch.Tensor):
+    """Symmetric per-row int8: ``x [..., D] -> (int8 [..., D], scale [...])``,
+    bit-identical to the JAX package's.  The scale of a row factors out of
+    both attention products: scores scale per key column, P.V per row of p."""
+    xf = x.float()
+    amax = torch.amax(torch.abs(xf), dim=-1)
+    scale = torch.clamp_min(amax, 1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_rows(q: torch.Tensor, scale: torch.Tensor,
+                    dtype=torch.float32) -> torch.Tensor:
+    return (q.float() * scale[..., None].float()).to(dtype)
 
 
 def reset(cache: KVCache) -> KVCache:
@@ -104,10 +142,20 @@ def commit_from_blocks(
     num_accepted: torch.Tensor,
 ) -> KVCache:
     """Accept-compaction: gather the accepted rows from the small tree blocks
-    and write them back at the committed frontier ``tree_start``."""
+    and write them back at the committed frontier ``tree_start``.  An int8
+    cache re-quantizes the accepted (pre-quantization) rows, which gives the
+    same bytes as an append of the same rows, so spec and AR caches agree on
+    every committed row."""
     idx = node_indices.to(torch.int64)
-    write_rows(cache.k, 2, tree_start, k_blocks.index_select(2, idx))
-    write_rows(cache.v, 2, tree_start, v_blocks.index_select(2, idx))
+    k_sel = k_blocks.index_select(2, idx)
+    v_sel = v_blocks.index_select(2, idx)
+    if cache.k_scale is not None:
+        k_sel, ks_sel = quantize_rows(k_sel)
+        v_sel, vs_sel = quantize_rows(v_sel)
+        write_rows(cache.k_scale, 2, tree_start, ks_sel)
+        write_rows(cache.v_scale, 2, tree_start, vs_sel)
+    write_rows(cache.k, 2, tree_start, k_sel)
+    write_rows(cache.v, 2, tree_start, v_sel)
     new_len = (tree_start + num_accepted).to(torch.int32)
     delta = new_len - cache.length
     return cache._replace(length=new_len,

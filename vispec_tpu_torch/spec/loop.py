@@ -68,6 +68,12 @@ def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return x.index_select(0, i.reshape(1).to(torch.int64))[0]
 
 
+def _rank_head(tparams: dict, dparams: dict):
+    """The draft's ranking head: its quantized copy when it has one, else
+    the target's own head."""
+    return dparams["rank_head"] if "rank_head" in dparams else tparams["lm_head"]
+
+
 # ---------------------------------------------------------------------------
 # Target prefill + first tree
 # ---------------------------------------------------------------------------
@@ -112,8 +118,8 @@ def spec_prefill(
         dparams, dcfg, hidden, shifted, plan, draft_cache, max_span)
     w_e, w_h, b_eff = draft_mod.decode_fuse_weights(dparams, dcfg, last_img)
     tree, draft_cache = draft_mod.expand_tree(
-        dparams, dcfg, spec, last_hidden, first_token, last_img, tparams["lm_head"],
-        draft_cache, fuse_w=(w_e, w_h, b_eff))
+        dparams, dcfg, spec, last_hidden, first_token, last_img,
+        _rank_head(tparams, dparams), draft_cache, fuse_w=(w_e, w_h, b_eff))
 
     def zero(dtype):
         return torch.zeros((), dtype=dtype, device=device)
@@ -209,8 +215,8 @@ def decode_round(
         dparams, dcfg, accept_hidden, tok_next, acc + 1, state.last_img,
         state.draft_cache, fuse_w=fuse_w)
     new_tree, draft_cache = draft_mod.expand_tree(
-        dparams, dcfg, spec, seed, bonus, state.last_img, tparams["lm_head"],
-        draft_cache, fuse_w=fuse_w)
+        dparams, dcfg, spec, seed, bonus, state.last_img,
+        _rank_head(tparams, dparams), draft_cache, fuse_w=fuse_w)
 
     new_state = state._replace(
         tree=new_tree, target_cache=target_cache, draft_cache=draft_cache,

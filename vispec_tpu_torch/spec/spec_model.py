@@ -21,6 +21,7 @@ from ..configs import DraftConfig, LlamaConfig, SpecConfig
 from ..models import draft as draft_mod
 from ..models import llama
 from ..ops import kv_cache as kv
+from ..ops.quant import quantize_draft_params, quantize_target_params
 from . import loop as spec_loop
 
 
@@ -73,14 +74,23 @@ class SpecModel:
         dtype=torch.bfloat16,
         eos_token_id: int = 2,
         device="cuda",
+        quantize_draft=False,  # False | True/"int8" | "int4" | "int4_head" | "mixed" | "auto"
+        quantize_kv: bool = False,  # int8 target KV cache with per-row scales
     ):
         if max_len % 128 != 0:
             raise ValueError(
                 f"max_len must be a multiple of 128 (prompt buckets assume it); "
                 f"got {max_len}")
+        self.quantize_draft = False
+        self.quantize_target = False  # set by quantize_target_inplace
+        self.quantize_kv = bool(quantize_kv)
         self.tcfg, self.dcfg, self.spec = tcfg, dcfg, spec
         self.tparams, self.dparams = tparams, dparams
-        self._derive_fuse_mats()
+        if quantize_draft:
+            self.quantize_draft_inplace(
+                "int8" if quantize_draft is True else quantize_draft)
+        else:
+            self._derive_fuse_mats()
         self.max_len = max_len
         self.dtype = dtype
         self.eos_token_id = eos_token_id
@@ -96,7 +106,8 @@ class SpecModel:
         if self._target_cache is None:
             self._target_cache = kv.init_cache(
                 self.tcfg.num_hidden_layers, self.tcfg.num_key_value_heads,
-                self.max_len, self.tcfg.head_dim, self.dtype, self.device)
+                self.max_len, self.tcfg.head_dim, self.dtype, self.device,
+                quantized=self.quantize_kv)
         return self._target_cache
 
     @target_cache.setter
@@ -121,6 +132,28 @@ class SpecModel:
         w_e, w_h = draft_mod.fuse_weight_mats(self.dparams, self.dcfg)
         self.dparams = dict(self.dparams)
         self.dparams["fuse_we"], self.dparams["fuse_wh"] = w_e, w_h
+
+    def quantize_draft_inplace(self, mode: str = "int8") -> None:
+        """Switch the draft to weight-only quantization
+        (``ops.quant.quantize_draft_params``): ``int8``, ``int4`` (the int4
+        kernel at decode shapes), ``int4_head``, ``mixed`` or ``auto``.
+        Verification is untouched, so greedy output still equals the
+        target's own; only the proposals (tau) can change.  A draft
+        quantized after the target ranks with the target's int8 head."""
+        base = {k: v for k, v in self.dparams.items()
+                if k not in ("fuse_we", "fuse_wh")}
+        self.dparams = quantize_draft_params(base, self.tparams["lm_head"], mode=mode)
+        self.quantize_draft = mode
+        self._derive_fuse_mats()
+
+    def quantize_target_inplace(self, mode: str = "int8") -> None:
+        """Weight-only int8 target quantization
+        (``ops.quant.quantize_target_params``), replacing the entries of the
+        caller's parameter dicts so each bf16 matrix can be freed.  Outputs
+        change (the verifier itself is quantized), but speculative output
+        still equals autoregressive output on the same weights."""
+        quantize_target_params(self.tparams, mode=mode, inplace=True)
+        self.quantize_target = mode
 
     def _cache_slack(self) -> int:
         """Rows of headroom beyond prompt + generated tokens: the verify tree
