@@ -10,7 +10,11 @@ Vicuna-7B-width model (speculative output must equal autoregressive), the
 full 32-layer bfloat16 model with random weights from a seed, and the
 quantized serving mode (int8 KV cache, int4 draft, int8 target) at 2 layers
 in float32 (spec == AR) and at 32 layers in bfloat16 (the same model,
-quantized in place).  Prints one JSON line per phase, a
+quantized in place).  The serving half runs too: batched decoding equal to
+per-request decoding (2 layers, float32, bf16-free and quantized), the
+trained toy checkpoint through the continuous-batching engine, and the
+engine at 32 layers in bfloat16 and quantized, with the batched-grid
+kernel's launches counted per round.  Prints one JSON line per phase, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failed phase raises and
 the script exits non-zero without that line; so does a machine without a
@@ -236,6 +240,130 @@ def phase_kernel_int8(dev):
     ]
 
 
+def kernel_case_batched(name, seed, dev, dtype, h, hkv, s, t_reg, starts, layers, masks,
+                        flush, int8=False, n_layers=32, max_len=2048, d=128):
+    """Kernel 1c (the batched grid) at one main-path geometry: B slots, each
+    with its own cache, start, layer and region mask.  Against its plain
+    version; times of the kernel, the plain version, the library yardstick
+    (one SDPA call over [B, H, S, Lmax], Lmax = max start + T_reg, with a
+    dense bool mask over each slot's live rows of its layer, selected before
+    timing; int8: dequantize + SDPA, printed beside a null library_ms as for
+    row 1b) and B launches of the single-request kernel on the same data."""
+    import torch.nn.functional as F
+
+    from vispec_tpu_torch.ops import kv_cache as kvc
+    from vispec_tpu_torch.ops import verify_attention as va
+    from vispec_tpu_torch.ops.attention import tree_verify_mask
+
+    b = len(starts)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (b, hkv, max_len, d) if layers is None else (b, n_layers, hkv, max_len, d)
+    q = torch.randn((b, h, s, d), generator=g, device=dev, dtype=dtype)
+    k = torch.randn(shape, generator=g, device=dev, dtype=dtype)
+    v = torch.randn(shape, generator=g, device=dev, dtype=dtype)
+    ks = vs = None
+    if int8:
+        k, ks = kvc.quantize_rows(k)
+        v, vs = kvc.quantize_rows(v)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    layer = None if layers is None else torch.tensor(layers, dtype=torch.int32, device=dev)
+    args = (q, k, v, st, masks, layer, ks, vs)
+    out = va.verify_attention_batched(*args)
+    ref = va.verify_attention_batched_ref(*args)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+
+    def one_a_per_slot():
+        for i in range(b):
+            va.verify_attention(q[i], k[i], v[i], st[i], masks[i],
+                                None if layer is None else layer[i],
+                                None if ks is None else ks[i], None if vs is None else vs[i])
+
+    lmax = max(starts) + t_reg
+    slots = torch.arange(b, device=dev)
+
+    def live(x):  # each slot's layer, live rows only
+        x = x if layer is None else x[slots, layer.long()]
+        return x[..., :lmax, :] if x.dim() == 4 else x[..., :lmax]
+
+    k_l, v_l = live(k), live(v)
+    ks_l, vs_l = (live(ks), live(vs)) if int8 else (None, None)
+    dense = torch.stack([tree_verify_mask(masks[i], st[i], max_len)[:, :lmax]
+                         for i in range(b)])[:, None]
+
+    def library():
+        kk = kvc.dequantize_rows(k_l, ks_l, dtype) if int8 else k_l
+        vv = kvc.dequantize_rows(v_l, vs_l, dtype) if int8 else v_l
+        F.scaled_dot_product_attention(q, kk, vv, attn_mask=dense, enable_gqa=h != hkv)
+
+    ms = timed_ms(lambda: va.verify_attention_batched(*args), flush)
+    plain_ms = timed_ms(lambda: va.verify_attention_batched_ref(*args), flush)
+    yard_ms = timed_ms(library, flush)
+    one_a_ms = timed_ms(one_a_per_slot, flush)
+    rows = sum(starts) + b * t_reg
+    elem = 1 if int8 else q.element_size()
+    moved = (2 * rows * hkv * d * elem + (2 * rows * hkv * 4 if int8 else 0)
+             + 2 * q.numel() * q.element_size() + masks.numel())
+    ops = 4 * h * s * rows * d
+    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[dtype] * 1e3
+    row = {"case": name, "kernel": "1c", "dtype": str(dtype).replace("torch.", ""),
+           "cache": "int8" if int8 else str(dtype).replace("torch.", ""), "B": b, "H": h,
+           "Hkv": hkv, "S": s, "T_reg": t_reg, "tree_starts": list(starts),
+           "layers": layers, "max_len": max_len, "D": d, "live_rows": rows,
+           "max_abs_err": err, "tol": TOL[dtype], "ms": ms, "plain_ms": plain_ms,
+           "library_ms": None if int8 else yard_ms, "one_a_x_b_ms": one_a_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    if int8:
+        row.update(library_note="no single PyTorch call attends over int8 rows with "
+                                "per-row scales", dequant_sdpa_ms=yard_ms)
+    emit({"phase": "kernel_vs_plain", **row})
+    assert err <= TOL[dtype], f"{name}: max abs err {err} > {TOL[dtype]}"
+    del q, k, v, ks, vs, k_l, v_l, ks_l, vs_l
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_kernel_batched(dev):
+    """Table row 1c at the batched round's geometries, B = 4 at 7B width:
+    the target verify over the 32-layer cache (slots at starts 301, 129,
+    777, 1500 and layers 0, 5, 17, 31), the draft append and expansion over
+    the layerless draft cache, GQA with 4 groups, float32, and the int8 KV
+    cache at the verify and at S = 1."""
+    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
+    g = torch.Generator().manual_seed(2)
+    b, starts, layers = 4, (301, 129, 777, 1500), (0, 5, 17, 31)
+    tree = torch.tril(torch.rand((b, 30, 30), generator=g) < 0.3)
+    tree |= torch.eye(30, dtype=torch.bool)
+    tree[:, :, 0] = True
+    expand = torch.zeros((b, 8, 24), dtype=torch.bool)
+    expand[:, :, :16] = torch.rand((b, 8, 16), generator=g) < 0.3
+    expand[:, torch.arange(8), 16 + torch.arange(8)] = True
+    tri = torch.tril(torch.ones((b, 5, 5), dtype=torch.bool))
+    ones = torch.ones((b, 1, 1), dtype=torch.bool)
+    tree, expand, tri, ones = (t.to(dev).contiguous() for t in (tree, expand, tri, ones))
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = [
+        kernel_case_batched("batched_target_verify", 20, dev, bf16, 32, 32, 30, 30, starts,
+                            layers, tree, flush),
+        kernel_case_batched("batched_draft_append", 21, dev, bf16, 32, 32, 5, 5, starts,
+                            None, tri, flush),
+        kernel_case_batched("batched_draft_expand", 22, dev, bf16, 32, 32, 8, 24, starts,
+                            None, expand, flush),
+        kernel_case_batched("batched_gqa_groups4", 23, dev, bf16, 32, 8, 30, 30, starts,
+                            layers, tree, flush),
+        kernel_case_batched("batched_target_verify_f32", 24, dev, f32, 32, 32, 30, 30,
+                            starts, layers, tree, flush),
+    ]
+    rows_int8 = [
+        kernel_case_batched("batched_target_verify_int8", 25, dev, bf16, 32, 32, 30, 30,
+                            starts, layers, tree, flush, int8=True),
+        kernel_case_batched("batched_step_int8", 26, dev, bf16, 32, 32, 1, 1, starts,
+                            layers, ones, flush, int8=True),
+    ]
+    return rows, rows_int8
+
+
 def q4_case(dev, k, n, m, flush):
     """Kernel 2 at one draft shape: against its plain version (dequantize to
     bf16, then an f32-output GEMM) and against the same quantized math in
@@ -309,9 +437,8 @@ def phase_int8_qdot_cost(dev):
               "bf16_bound_ms": 2 * 4096 * 11008 / HBM_BYTES_PER_S * 1e3})
 
 
-def phase_tau_fixture(dev):
-    """The trained toy checkpoint (head_dim 16, GQA 2) in float32: spec equals
-    AR on tests/test_e2e_tau.py's six prompts, tau >= recorded - 0.15."""
+def _tau_model(dev):
+    """The trained toy checkpoint in tests/data/tau_fixture.npz, float32."""
     from vispec_tpu_torch.configs import DraftConfig, LlamaConfig, SpecConfig
     from vispec_tpu_torch.convert.params import from_numpy, npz_side
     from vispec_tpu_torch.spec.spec_model import SpecModel
@@ -323,9 +450,16 @@ def phase_tau_fixture(dev):
     dcfg = DraftConfig(vocab_size=96, hidden_size=64, intermediate_size=128,
                        num_attention_heads=4, num_key_value_heads=2,
                        max_position_embeddings=512)
-    model = SpecModel(tcfg, dcfg, SpecConfig(total_tokens=16, depth=3, top_k=4),
-                      from_numpy(npz_side(z, "t"), dev), from_numpy(npz_side(z, "d"), dev),
-                      max_len=512, dtype=torch.float32, eos_token_id=999, device=dev)
+    return SpecModel(tcfg, dcfg, SpecConfig(total_tokens=16, depth=3, top_k=4),
+                     from_numpy(npz_side(z, "t"), dev), from_numpy(npz_side(z, "d"), dev),
+                     max_len=512, dtype=torch.float32, eos_token_id=999, device=dev)
+
+
+def phase_tau_fixture(dev):
+    """The trained toy checkpoint (head_dim 16, GQA 2) in float32: spec equals
+    AR on tests/test_e2e_tau.py's six prompts, tau >= recorded - 0.15."""
+    z = np.load(os.path.join(ROOT, "tests", "data", "tau_fixture.npz"))
+    model = _tau_model(dev)
     taus = []
     for s in range(6):
         prompt = np.random.default_rng(100 + s).integers(1, 90, 16).tolist()
@@ -388,6 +522,64 @@ def phase_quant_exact(dev):
     assert same and spec.new_tokens >= 64, "quantized 2-layer f32: spec != AR"
     del model
     torch.cuda.empty_cache()
+
+
+def phase_batch_exact(dev):
+    """Batched decoding equals per-request decoding token for token: Vicuna-7B
+    widths, 2 target layers, float32 with TF32 off, four prompts of 40, 90,
+    130 and 200 tokens through ``generate_batch`` at B = 4 against
+    ``specgenerate`` one at a time; then the same in the quantized
+    composition (int8 KV cache, int4 draft, int8 target)."""
+    from vispec_tpu_torch.spec import batch
+
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(3, 32000, n).tolist() for n in (40, 90, 130, 200)]
+    for label, quant in (("float32", {}),
+                         ("int8 KV + int4 draft + int8 target",
+                          {"quantize_kv": True, "quantize_draft": "int4"})):
+        model = _full_width_model(dev, 2, torch.float32, seed=2, **quant)
+        if quant:
+            model.quantize_target_inplace()
+        outs = batch.generate_batch(
+            model.tparams, model.dparams, model.tcfg, model.dcfg, model.spec, prompts,
+            max_new_tokens=48, max_len=model.max_len, eos_id=model.eos_token_id,
+            dtype=torch.float32, quantize_kv=bool(quant), device=dev)
+        same, first_diff = [], []
+        for p, o in zip(prompts, outs):
+            ref = model.specgenerate(p, max_new_tokens=48).sequences[len(p):]
+            n = min(len(o), len(ref), 48)
+            same.append(n == 48 and o[:48].tolist() == ref[:48].tolist())
+            first_diff.append(int(np.argmin(np.append(o[:n] == ref[:n], False))))
+        emit({"phase": "batch_exact", "ok": all(same), "mode": label, "layers": 2,
+              "B": 4, "prompts": [len(p) for p in prompts], "new_tokens": 48,
+              "per_request_equal": same, "agreeing_prefix": first_diff})
+        assert all(same), f"batch_exact ({label}): batched != per-request"
+        del model
+        torch.cuda.empty_cache()
+
+
+def phase_tau_fixture_batch(dev):
+    """The trained toy checkpoint through ``ServingEngine(batch_size=3)``:
+    the six tau prompts equal ``specgenerate`` per prompt, and in at least
+    one round two slots accepted different lengths (per-slot offsets
+    diverge through real acceptance)."""
+    model = _tau_model(dev)
+    prompts = [np.random.default_rng(100 + s).integers(1, 90, 16).tolist()
+               for s in range(6)]
+    refs = [model.specgenerate(p, max_new_tokens=40).sequences[16:56].tolist()
+            for p in prompts]
+    eng = model.serving_engine(batch_size=3, max_new_tokens=40, chunk_rounds=4)
+    outs = eng.run_all(prompts)
+    same = [o.tolist() == r for o, r in zip(outs, refs)]
+    first = [eng.acceptance[r] for r in range(3)]  # admitted together: rounds align
+    n = min(len(a) for a in first)
+    diverged = sum(len({a[i] for a in first}) > 1 for i in range(n))
+    emit({"phase": "tau_fixture_batch", "ok": all(same) and diverged > 0, "B": 3,
+          "per_request_equal": same, "rounds_with_divergent_accepts": diverged,
+          "rounds": eng.stats["rounds"],
+          "tau": float(np.mean([a + 1 for r in eng.acceptance.values() for a in r]))})
+    assert all(same), "tau fixture batched: engine != specgenerate"
+    assert diverged > 0, "tau fixture batched: no round with divergent per-slot accepts"
 
 
 def _decode_round_without_host_sync(model, prompt):
@@ -498,6 +690,193 @@ def phase_full_width_depth(dev):
     return model, prompt, row
 
 
+def _launch_counts():
+    from vispec_tpu_torch.ops import quant
+    from vispec_tpu_torch.ops import verify_attention as va
+
+    return {"1a": va.verify_attention.launches, "1b": va.verify_attention.launches_int8,
+            "1c": va.verify_attention_batched.launches,
+            "1c_int8": va.verify_attention_batched.launches_int8,
+            "2": quant.q4_matmul.launches}
+
+
+def _zero_launch_counts():
+    from vispec_tpu_torch.ops import quant
+    from vispec_tpu_torch.ops import verify_attention as va
+
+    va.verify_attention.launches = va.verify_attention.launches_int8 = 0
+    va.verify_attention_batched.launches = va.verify_attention_batched.launches_int8 = 0
+    quant.q4_matmul.launches = 0
+
+
+def _complete(out, cap, model):
+    """A finished request ran to its cap or stopped at EOS."""
+    return len(out) == cap or (0 < len(out) < cap and out[-1] == model.eos_token_id)
+
+
+def _serving_requests(n, seed=0):
+    """``n`` requests from ``seed``: prompt lengths in 64-448, caps in 64-128."""
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(3, 32000, int(rng.integers(64, 449))).tolist(),
+             int(rng.integers(64, 129))) for _ in range(n)]
+
+
+def _warm_engine(model, dev):
+    """Warm-up: one admission wave and a chunk at B = 4 (cuBLAS handles for
+    the batched shapes), then one batched round with CUDA's sync debug mode
+    set to error: the round must not wait on the device."""
+    from vispec_tpu_torch.spec import batch
+
+    eng = model.serving_engine(batch_size=4, pad_bucket=(128, 256, 512), chunk_rounds=2)
+    eng.start_session()
+    for p, _ in _serving_requests(4, seed=1):
+        eng.submit(p, max_new_tokens=16)
+    eng.step()
+    eos = torch.tensor(model.eos_token_id, dtype=torch.int32, device=dev)
+    caps = torch.as_tensor(eng._caps, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            batch.batched_decode_rounds_chunk(
+                model.tparams, model.dparams, model.tcfg, model.dcfg, model.spec,
+                eng.sampling, eng._states, eos, caps, n_rounds=1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    del eng
+    torch.cuda.empty_cache()
+
+
+def _serve(model, reqs, **kw):
+    """Serve ``reqs`` (prompt, cap) through a fresh engine at B = 4; returns
+    the engine, its outputs in order, each request's latency from
+    submission (all submitted at once) and the wall time."""
+    eng = model.serving_engine(batch_size=4, pad_bucket=(128, 256, 512), **kw)
+    eng.start_session()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new_tokens=c) for p, c in reqs]
+    latency = {}
+    while eng.pending():
+        for rid in eng.step():
+            latency[rid] = time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    return eng, [eng.results[r] for r in rids], [latency[r] for r in rids], wall
+
+
+def _profile_engine_chunk(model, batch_size):
+    """torch.profiler over one engine step (a full chunk of 8 rounds and its
+    readback) after the admission step; launches per round."""
+    eng = model.serving_engine(batch_size=batch_size, pad_bucket=(128, 256, 512),
+                               chunk_rounds=8)
+    eng.start_session()
+    for p, _ in _serving_requests(batch_size, seed=2):
+        eng.submit(p, max_new_tokens=64)
+    eng.step()
+    before = eng.stats["rounds"]
+    row = _profile(eng.step)
+    rounds = eng.stats["rounds"] - before
+    del eng
+    torch.cuda.empty_cache()
+    return {"batch_size": batch_size, "rounds": rounds,
+            "launches_per_round": row["kernel_launches"] / rounds, **row}
+
+
+def phase_serving_full_depth(dev, model):
+    """The continuous-batching engine at Vicuna-7B, 32 layers, bfloat16,
+    max_len 2048: ``ServingEngine(batch_size=4, pad_bucket=(128, 256, 512),
+    chunk_rounds=8)`` serves 8 requests from seed 0 (prompts of 64-448
+    tokens, caps of 64-128), so slots free and refill mid-flight.  The same
+    requests through ``specgenerate`` one at a time give the serial rate and
+    the agreeing prefix per request (reported: bf16 argmax near-ties may
+    differ between batch shapes).  Requires the batched-grid kernel (1c)
+    launched 36 times per dispatched round (32 target verifies, 1 draft
+    append, 3 expansion levels) and the single-request kernel (1a) 3 times
+    per prefill (its first tree's expansion)."""
+    _warm_engine(model, dev)
+    reqs = _serving_requests(8)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launch_counts()
+    eng, outs, latency, wall = _serve(model, reqs, chunk_rounds=8)
+    counts = _launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    rounds, prefills, stats = eng.stats["rounds"], eng._n_prefills, dict(eng.stats)
+    tokens = sum(len(o) for o in outs)
+    del eng
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serial = [model.specgenerate(p, max_new_tokens=c).sequences[len(p):] for p, c in reqs]
+    serial_s = time.perf_counter() - t0
+    serial_tokens = sum(len(o) for o in serial)
+    agree = []
+    for o, r in zip(outs, serial):
+        n = min(len(o), len(r))
+        agree.append(int(np.argmin(np.append(o[:n] == r[:n], False))))
+    want = {"1a": 3 * prefills, "1b": 0, "1c": 36 * rounds, "1c_int8": 0, "2": 0}
+    row = {"phase": "serving_full_depth", "layers": 32, "dtype": "bfloat16",
+           "max_len": model.max_len, "batch_size": 4, "requests": len(reqs),
+           "prompt_lens": [len(p) for p, _ in reqs], "caps": [c for _, c in reqs],
+           "tokens": tokens, "wall_s": wall, "tok_per_s": tokens / wall,
+           "latency_p50_s": float(np.median(latency)), "latency_max_s": max(latency),
+           "rounds_dispatched": rounds, "prefills": prefills,
+           "admissions": stats["admissions"], "admit_dispatch_s": stats["admit_dispatch_s"],
+           "peak_mem_gb": peak, "serial_tokens": serial_tokens, "serial_s": serial_s,
+           "serial_tok_per_s": serial_tokens / serial_s,
+           "ratio_vs_serial": (tokens / wall) / (serial_tokens / serial_s),
+           "agreeing_prefix": agree, "launches": counts, "expected": want}
+    row["ok"] = counts == want and all(_complete(o, c, model) for o, (_, c) in zip(outs, reqs))
+    emit(row)
+    assert row["ok"], row
+    single = _profile_engine_chunk(model, 1)
+    batched = _profile_engine_chunk(model, 4)
+    emit({"phase": "profile_serving_chunk", "b4": batched, "b1": single,
+          "launches_per_round_ratio": batched["launches_per_round"]
+          / single["launches_per_round"]})
+    return row
+
+
+def phase_serving_quant_full_depth(dev, qmodel):
+    """The engine over the quantized 7B model (int8 KV cache, int4 draft,
+    int8 target): 4 requests of 64 tokens at B = 4.  Requires, per
+    dispatched round, 32 launches of 1c over the int8 target cache, 4 over
+    the bf16 draft cache and 40 int4 products (kernel 2: the draft's
+    products take the B * K rows of all slots at once); per prefill, 3 of
+    1a and 31 of kernel 2, as in the single-request mode."""
+    from vispec_tpu_torch.ops import quant
+
+    _warm_engine(qmodel, dev)
+    reqs = [(p, 64) for p, _ in _serving_requests(4, seed=3)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launch_counts()
+    eng, outs, latency, wall = _serve(qmodel, reqs, chunk_rounds=8)
+    counts = _launch_counts()
+    rounds, prefills = eng.stats["rounds"], eng._n_prefills
+    depth = qmodel.spec.depth
+    per_level = 2 + len(quant._LAYER_QUANT_KEYS) + 1
+    per_round = 2 + len(quant._LAYER_QUANT_KEYS) + 1 + depth * per_level
+    want = {"1a": 3 * prefills, "1b": 0, "1c": (1 + depth) * rounds,
+            "1c_int8": qmodel.tcfg.num_hidden_layers * rounds,
+            "2": per_round * rounds + (1 + depth * per_level) * prefills}
+    tokens = sum(len(o) for o in outs)
+    row = {"phase": "serving_quant_full_depth", "layers": 32, "dtype": "bfloat16",
+           "kv": "int8", "draft": "int4", "target": "int8", "batch_size": 4,
+           "requests": len(reqs), "prompt_lens": [len(p) for p, _ in reqs],
+           "tokens": tokens, "wall_s": wall, "tok_per_s": tokens / wall,
+           "latency_p50_s": float(np.median(latency)), "latency_max_s": max(latency),
+           "rounds_dispatched": rounds, "prefills": prefills,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "launches": counts, "expected": want}
+    row["ok"] = counts == want and all(_complete(o, 64, qmodel) for o in outs)
+    emit(row)
+    assert row["ok"], row
+    del eng
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_quant_full_depth(dev, model, prompt, bf16_row):
     """The quantized serving mode at all 32 layers in bfloat16: the previous
     phase's model, its draft quantized to int4 (with an int4 ranking head)
@@ -510,7 +889,6 @@ def phase_quant_full_depth(dev, model, prompt, bf16_row):
     attentions and 31 int4 products (the prefill's 128-row draft layer
     takes the dequantize path); per AR step, 32 int8-KV verifies."""
     from vispec_tpu_torch.ops import quant
-    from vispec_tpu_torch.ops import verify_attention as va
     from vispec_tpu_torch.spec.spec_model import SpecModel
 
     draft = {k: v for k, v in model.dparams.items() if k not in ("fuse_we", "fuse_wh")}
@@ -532,18 +910,12 @@ def phase_quant_full_depth(dev, model, prompt, bf16_row):
     torch.cuda.reset_peak_memory_stats(dev)
 
     def counts():
-        return {"1a": va.verify_attention.launches,
-                "1b": va.verify_attention.launches_int8, "2": quant.q4_matmul.launches}
+        return {k: v for k, v in _launch_counts().items() if k in ("1a", "1b", "2")}
 
-    def zero():
-        va.verify_attention.launches = 0
-        va.verify_attention.launches_int8 = 0
-        quant.q4_matmul.launches = 0
-
-    zero()
+    _zero_launch_counts()
     spec = qmodel.specgenerate(prompt, max_new_tokens=128)
     spec_counts = counts()
-    zero()
+    _zero_launch_counts()
     ar = qmodel.ar_generate(prompt, max_new_tokens=128)
     ar_counts = counts()
 
@@ -578,7 +950,7 @@ def phase_quant_full_depth(dev, model, prompt, bf16_row):
     assert row["ok"], row
     emit({"phase": "profile_quant_spec_16_tokens",
           **_profile(lambda: qmodel.specgenerate(prompt, max_new_tokens=16))})
-    return spec_counts
+    return spec_counts, qmodel
 
 
 def main():
@@ -595,13 +967,18 @@ def main():
     phase_build()
     rows = phase_kernel(dev)
     rows_int8 = phase_kernel_int8(dev)
+    rows_1c, rows_1c_int8 = phase_kernel_batched(dev)
     rows_q4 = phase_kernel_q4(dev)
     phase_int8_qdot_cost(dev)
     phase_tau_fixture(dev)
+    phase_tau_fixture_batch(dev)
     phase_full_width_exact(dev)
     phase_quant_exact(dev)
+    phase_batch_exact(dev)
     model, prompt, bf16_row = phase_full_width_depth(dev)
-    quant_counts = phase_quant_full_depth(dev, model, prompt, bf16_row)
+    serving_row = phase_serving_full_depth(dev, model)
+    quant_counts, qmodel = phase_quant_full_depth(dev, model, prompt, bf16_row)
+    serving_quant_counts = phase_serving_quant_full_depth(dev, qmodel)
 
     def entry(name, source, replaces, launches, case_rows, main_row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -612,8 +989,9 @@ def main():
                 "library_ms": main_row["library_ms"]}
 
     # each kernel's main row: the target verify (32 of 36 launches per bf16
-    # round; 32 of 36 int8-KV launches per quantized round) and the int4
-    # product at [4096, 4096], M = 8 (6 of the 10 products per expansion level)
+    # round; 32 of 36 int8-KV launches per quantized round; for 1c the B = 4
+    # verify, 32 of 36 launches per batched round) and the int4 product at
+    # [4096, 4096], M = 8 (6 of the 10 products per expansion level)
     q4_main = next(r for r in rows_q4 if r["case"] == "q4_4096x4096_m8")
     emit({"kernels": [
         entry("verify_attention", "vispec_tpu_torch/csrc/verify_attention.cu",
@@ -624,6 +1002,12 @@ def main():
               rows_int8, rows_int8[0]),
         entry("q4_matmul", "vispec_tpu_torch/csrc/q4_matmul.cu",
               "vispec_tpu/ops/quant.py:162", quant_counts["2"], rows_q4, q4_main),
+        entry("verify_attention_batched", "vispec_tpu_torch/csrc/verify_attention.cu",
+              "vispec_tpu/ops/pallas_attention.py:32", serving_row["launches"]["1c"],
+              rows_1c, rows_1c[0]),
+        entry("verify_attention_batched_int8", "vispec_tpu_torch/csrc/verify_attention.cu",
+              "vispec_tpu/ops/pallas_attention.py:32", serving_quant_counts["1c_int8"],
+              rows_1c_int8, rows_1c_int8[0]),
     ]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

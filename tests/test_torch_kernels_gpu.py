@@ -126,3 +126,59 @@ def test_q4_matmul_kernel_refuses_what_it_does_not_take(cuda_device):
     # qdot4 sends such shapes to dequantize + GEMM, by shape alone
     assert quant.qdot4(x, w4).shape == (4, 256)
     assert quant.q4_matmul.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,int8,b,d,layers", [
+    # the batched grid (table row 1c): B slots in one launch pair, each with
+    # its own cache, start, layer and mask; the same tolerances as 1a/1b
+    (torch.bfloat16, False, 1, 128, 3),
+    (torch.bfloat16, False, 4, 128, 3),
+    (torch.float32, False, 3, 128, None),  # the draft's layerless cache
+    (torch.float32, False, 2, 16, 2),  # head_dim 16 (the tau fixture's)
+    (torch.bfloat16, True, 4, 128, 3),  # int8 K/V with per-row scales
+    (torch.float32, True, 2, 16, None),
+])
+def test_verify_attention_batched_kernel_matches_plain(cuda_device, dtype, int8, b, d,
+                                                       layers):
+    dev, max_len, s, t_reg = cuda_device, 512, 12, 12
+    h, hkv = (4, 2) if d == 16 else (8, 4)
+    g = torch.Generator(device=dev).manual_seed(b * d)
+    shape = (b, hkv, max_len, d) if layers is None else (b, layers, hkv, max_len, d)
+    q = torch.randn((b, h, s, d), generator=g, device=dev, dtype=dtype)
+    k = torch.randn(shape, generator=g, device=dev, dtype=dtype)
+    v = torch.randn(shape, generator=g, device=dev, dtype=dtype)
+    ks = vs = None
+    if int8:
+        k, ks = kvc.quantize_rows(k)
+        v, vs = kvc.quantize_rows(v)
+    mask = torch.rand((b, s, t_reg), generator=g, device=dev) < 0.5
+    mask[:, torch.arange(s), torch.arange(s)] = True
+    # ragged starts: a region ending at max_len, a slot at start 0
+    st = torch.tensor([max_len - t_reg, 0, 301, 77][:b], dtype=torch.int32, device=dev)
+    layer = None if layers is None else torch.tensor(
+        [layers - 1, 0, 1, layers - 1][:b], dtype=torch.int32, device=dev)
+    args = (q, k, v, st, mask.contiguous(), layer, ks, vs)
+    counter = "launches_int8" if int8 else "launches"
+    before = getattr(va.verify_attention_batched, counter)
+    before_1a = (va.verify_attention.launches, va.verify_attention.launches_int8)
+    out = va.verify_attention_batched(*args)
+    ref = va.verify_attention_batched_ref(*args)
+    torch.cuda.synchronize()
+    assert getattr(va.verify_attention_batched, counter) == before + 1
+    assert (va.verify_attention.launches, va.verify_attention.launches_int8) == before_1a
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+def test_verify_attention_batched_refuses_a_cache_without_the_slot_dim(cuda_device):
+    (q, k, v, st, mask), layer = _case(cuda_device, torch.float32, 4, 2, 4, 4, 10, 2, 16,
+                                       max_len=64)
+    before = va.verify_attention_batched.launches
+    with pytest.raises(ValueError, match="slot dim"):
+        va.verify_attention_batched(q[None].expand(2, *q.shape).contiguous(), k, v,
+                                    st.repeat(2), mask[None].expand(2, *mask.shape)
+                                    .contiguous(), layer.repeat(2))
+    assert va.verify_attention_batched.launches == before

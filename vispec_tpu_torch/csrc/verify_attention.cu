@@ -3,9 +3,12 @@
 // nvcc into a shared library with a plain C interface, loaded with ctypes.
 //
 // Replaces the Pallas TPU kernel vispec_tpu/ops/pallas_attention.py::_kernel
-// (built by _build_call, entered through verify_attention), in its
-// single-request form: bf16/f32 caches (table row 1a) and int8 caches with
-// per-row f32 scales (``quantized=True``, row 1b).  Same contract:
+// (built by _build_call, entered through verify_attention) in all three of
+// its forms: a single request over bf16/f32 caches (table row 1a), over int8
+// caches with per-row f32 scales (``quantized=True``, row 1b), and the
+// batched grid (``batched=True``, the custom_vmap rule, row 1c), in which
+// every slot of a batch carries its own cache, region mask, tree_start and
+// layer index.  Same contract, per slot:
 //   q [H, S, D]; cache [L?, Hkv, max_len, D]; tree_start and layer_idx read
 //   from device memory; region mask [S, T_reg] (bool bytes).  Query row s of
 //   head h sees every column < tree_start and region column tree_start + t
@@ -19,7 +22,8 @@
 // Bound on an H100 SXM: the work is a few flops per cache byte, so it is
 // bound by the KV bytes it reads, 2 * (tree_start + T_reg) * Hkv * D * elem
 // bytes (+ 8 scale bytes per row when int8) over 3.35 TB/s (at 7B, a 331-row
-// verify: 5.4 MB, 1.8 us in bf16; 2.7 MB + 85 KB, about 1 us in int8).
+// verify: 5.4 MB, 1.8 us in bf16; 2.7 MB + 85 KB, about 1 us in int8), summed
+// over the slots of a batch.
 //
 // Design: the TPU grid has one program per KV head (32 programs at 7B), which
 // would fill 32 of the 132 SMs at batch 1.  Here the cache is split along
@@ -34,6 +38,14 @@
 // int8 values each), widened to f32 in registers; an int8 chunk's scale rows
 // are staged in shared memory beside its tiles.  Plain CUDA cores, no tensor
 // cores or TMA yet.
+//
+// Batched grid (row 1c): the slot is folded into grid.x (slot * Hkv + kv
+// head, heads fastest), so one launch pair serves the whole batch and the
+// grid grows with B, where the TPU grid is (B, Hkv).  q, the output and the
+// partials are [B * Hkv, ...] and need no slot stride; the cache, its scales
+// and the mask are offset by the slot strides the caller gives, and each
+// block reads its slot's tree_start and layer index from device memory.  A
+// single request is the batch of one with zero slot strides.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -131,31 +143,35 @@ constexpr size_t smem_bytes() {
 // type, TC the cache's (T, or int8_t with per-row scales).
 template <typename T, typename TC, int D>
 __global__ void __launch_bounds__(THREADS) partial_kernel(
-    const T* __restrict__ q,            // [Hkv, GS, D]
-    const TC* __restrict__ k,           // [L?, Hkv, max_len, D]
+    const T* __restrict__ q,            // [B * Hkv, GS, D]
+    const TC* __restrict__ k,           // per slot [L?, Hkv, max_len, D]
     const TC* __restrict__ v,
-    const float* __restrict__ k_scale,  // [L?, Hkv, max_len] (int8 cache only)
+    const float* __restrict__ k_scale,  // per slot [L?, Hkv, max_len] (int8 only)
     const float* __restrict__ v_scale,
-    const uint8_t* __restrict__ mask,   // [S, T_reg]
-    const int* __restrict__ start_ptr,  // committed prefix length
-    const int* __restrict__ layer_ptr,  // layer index, or null for a 3-D cache
-    float* __restrict__ part_m,         // [Hkv, NC, GS] chunk row max
-    float* __restrict__ part_l,         // [Hkv, NC, GS] chunk row sum
-    float* __restrict__ part_acc,       // [Hkv, NC, GS, D] chunk P.V
-    int gs, int s_len, int t_reg, int max_len, long long layer_stride,
-    long long scale_layer_stride, float scale) {
+    const uint8_t* __restrict__ mask,   // per slot [S, T_reg]
+    const int* __restrict__ start_ptr,  // [B] committed prefix lengths
+    const int* __restrict__ layer_ptr,  // [B] layer indices, or null (no layer dim)
+    float* __restrict__ part_m,         // [B * Hkv, NC, GS] chunk row max
+    float* __restrict__ part_l,         // [B * Hkv, NC, GS] chunk row sum
+    float* __restrict__ part_acc,       // [B * Hkv, NC, GS, D] chunk P.V
+    int hkv, int gs, int s_len, int t_reg, int max_len, long long layer_stride,
+    long long scale_layer_stride, long long slot_stride,
+    long long scale_slot_stride, long long mask_slot_stride, float scale) {
   constexpr bool QUANT = std::is_same<TC, int8_t>::value;
-  const int hk = blockIdx.x;
+  const int bh = blockIdx.x;  // slot * hkv + kv head
+  const int slot = bh / hkv;
+  const int hk = bh % hkv;
   const int chunk = blockIdx.y;
   const int nc = gridDim.y;
   const int r0 = blockIdx.z * ROWS;
   const int nr = min(ROWS, gs - r0);
-  const int start = *start_ptr;
+  const int start = start_ptr[slot];
   const int total = min(start + t_reg, max_len);
   const int col0 = chunk * TILE;
   if (col0 >= total) return;  // past the live rows: nothing to read
   const int ncols = min(TILE, total - col0);
-  const long long layer = layer_ptr ? *layer_ptr : 0;
+  const long long layer = layer_ptr ? layer_ptr[slot] : 0;
+  mask += slot * mask_slot_stride;
 
   extern __shared__ float smem[];
   float* ks = smem;                 // [TILE][D + 1] (padded: column reads)
@@ -166,14 +182,14 @@ __global__ void __launch_bounds__(THREADS) partial_kernel(
   float* vsc = ksc + TILE;          // [TILE] value row scales
 
   const int tid = threadIdx.x;
-  const size_t base =
-      (size_t)(layer * layer_stride) + ((size_t)hk * max_len + col0) * D;
+  const size_t base = (size_t)(slot * slot_stride + layer * layer_stride) +
+                      ((size_t)hk * max_len + col0) * D;
   stage<TC, D, TILE>(k + base, ncols, ks, D + 1, 1.f);
   stage<TC, D, TILE>(v + base, ncols, vs, D, 1.f);
-  stage<T, D, ROWS>(q + ((size_t)hk * gs + r0) * D, nr, qs, D, scale);
+  stage<T, D, ROWS>(q + ((size_t)bh * gs + r0) * D, nr, qs, D, scale);
   if constexpr (QUANT) {
-    const size_t sbase =
-        (size_t)(layer * scale_layer_stride) + (size_t)hk * max_len + col0;
+    const size_t sbase = (size_t)(slot * scale_slot_stride + layer * scale_layer_stride) +
+                         (size_t)hk * max_len + col0;
     const int c = tid % TILE;
     const float* src = tid < TILE ? k_scale : v_scale;
     (tid < TILE ? ksc : vsc)[c] = c < ncols ? src[sbase + c] : 0.f;
@@ -181,7 +197,7 @@ __global__ void __launch_bounds__(THREADS) partial_kernel(
   __syncthreads();
 
   const int warp = tid / 32, lane = tid % 32;
-  const size_t part_row0 = ((size_t)hk * nc + chunk) * gs + r0;
+  const size_t part_row0 = ((size_t)bh * nc + chunk) * gs + r0;
 
   // scores: this thread owns column c for rows rr, rr + RSTEP, ...
   {
@@ -252,16 +268,17 @@ __global__ void __launch_bounds__(THREADS) partial_kernel(
   }
 }
 
-// One block per (kv head, query row), one thread per head-dim element.
+// One block per (slot, kv head, query row), one thread per head-dim element.
 template <typename T, int D>
 __global__ void __launch_bounds__(D) combine_kernel(
     const float* __restrict__ part_m, const float* __restrict__ part_l,
-    const float* __restrict__ part_acc, T* __restrict__ out,  // [Hkv, GS, D]
-    const int* __restrict__ start_ptr, int gs, int t_reg, int max_len, int nc) {
-  const int row = blockIdx.x;  // hk * gs + r
-  const int hk = row / gs, r = row % gs;
+    const float* __restrict__ part_acc, T* __restrict__ out,  // [B * Hkv, GS, D]
+    const int* __restrict__ start_ptr, int hkv, int gs, int t_reg, int max_len,
+    int nc) {
+  const int row = blockIdx.x;  // (slot * hkv + hk) * gs + r
+  const int hk = row / gs, r = row % gs;  // hk counts over slots and heads
   const int d = threadIdx.x;
-  const int total = min(*start_ptr + t_reg, max_len);
+  const int total = min(start_ptr[hk / hkv] + t_reg, max_len);
   const int live = min(nc, (total + TILE - 1) / TILE);
   float m_max = -INFINITY;
   for (int c = 0; c < live; ++c) m_max = fmaxf(m_max, part_m[((size_t)hk * nc + c) * gs + r]);
@@ -283,25 +300,28 @@ template <typename T, typename TC, int D>
 int launch(const void* q, const void* k, const void* v, const void* k_scale,
            const void* v_scale, const void* mask, const void* start,
            const void* layer, void* part_m, void* part_l, void* part_acc,
-           void* out, int hkv, int gs, int s_len, int t_reg, int max_len,
-           long long layer_stride, long long scale_layer_stride,
-           cudaStream_t stream) {
+           void* out, int nslots, int hkv, int gs, int s_len, int t_reg,
+           int max_len, long long layer_stride, long long scale_layer_stride,
+           long long slot_stride, long long scale_slot_stride,
+           long long mask_slot_stride, cudaStream_t stream) {
   const int nc = (max_len + TILE - 1) / TILE;
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       partial_kernel<T, TC, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  partial_kernel<T, TC, D><<<dim3(hkv, nc, (gs + ROWS - 1) / ROWS), THREADS, smem, stream>>>(
-      (const T*)q, (const TC*)k, (const TC*)v, (const float*)k_scale,
-      (const float*)v_scale, (const uint8_t*)mask, (const int*)start,
-      (const int*)layer, (float*)part_m, (float*)part_l, (float*)part_acc, gs,
-      s_len, t_reg, max_len, layer_stride, scale_layer_stride,
-      1.0f / sqrtf((float)D));
+  partial_kernel<T, TC, D>
+      <<<dim3(nslots * hkv, nc, (gs + ROWS - 1) / ROWS), THREADS, smem, stream>>>(
+          (const T*)q, (const TC*)k, (const TC*)v, (const float*)k_scale,
+          (const float*)v_scale, (const uint8_t*)mask, (const int*)start,
+          (const int*)layer, (float*)part_m, (float*)part_l, (float*)part_acc,
+          hkv, gs, s_len, t_reg, max_len, layer_stride, scale_layer_stride,
+          slot_stride, scale_slot_stride, mask_slot_stride,
+          1.0f / sqrtf((float)D));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  combine_kernel<T, D><<<hkv * gs, D, 0, stream>>>(
+  combine_kernel<T, D><<<nslots * hkv * gs, D, 0, stream>>>(
       (const float*)part_m, (const float*)part_l, (const float*)part_acc,
-      (T*)out, (const int*)start, gs, t_reg, max_len, nc);
+      (T*)out, (const int*)start, hkv, gs, t_reg, max_len, nc);
   return (int)cudaGetLastError();
 }
 
@@ -315,21 +335,28 @@ int vispec_verify_attention_tile() { return TILE; }
 // Returns a cudaError_t code (0 on success), or -1 for an unsupported
 // head_dim / dtype pair.  q and the output are bf16 (is_bf16) or f32; the
 // cache is q's type, or int8 (cache_int8) with scales k_scale / v_scale
-// (null otherwise).  Launches on ``stream``; does not synchronise.
+// (null otherwise).  ``nslots`` requests at once: start and layer hold one
+// int32 per slot, and slot b's cache, scales and mask begin ``b *
+// *_slot_stride`` elements after the given pointers (all strides 0 for a
+// single request).  Launches on ``stream``; does not synchronise.
 int vispec_verify_attention(const void* q, const void* k, const void* v,
                             const void* k_scale, const void* v_scale,
                             const void* mask, const void* start,
                             const void* layer, void* part_m, void* part_l,
-                            void* part_acc, void* out, int hkv, int gs,
-                            int s_len, int t_reg, int max_len,
+                            void* part_acc, void* out, int nslots, int hkv,
+                            int gs, int s_len, int t_reg, int max_len,
                             long long layer_stride,
-                            long long scale_layer_stride, int head_dim,
+                            long long scale_layer_stride,
+                            long long slot_stride, long long scale_slot_stride,
+                            long long mask_slot_stride, int head_dim,
                             int is_bf16, int cache_int8, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define VISPEC_LAUNCH(T, TC, D)                                                \
-  return launch<T, TC, D>(q, k, v, k_scale, v_scale, mask, start, layer,      \
-                          part_m, part_l, part_acc, out, hkv, gs, s_len,      \
-                          t_reg, max_len, layer_stride, scale_layer_stride, st)
+#define VISPEC_LAUNCH(T, TC, D)                                                 \
+  return launch<T, TC, D>(q, k, v, k_scale, v_scale, mask, start, layer,       \
+                          part_m, part_l, part_acc, out, nslots, hkv, gs,      \
+                          s_len, t_reg, max_len, layer_stride,                 \
+                          scale_layer_stride, slot_stride, scale_slot_stride,  \
+                          mask_slot_stride, st)
 #define VISPEC_HEAD_DIMS(T, TC)                \
   if (head_dim == 16) VISPEC_LAUNCH(T, TC, 16); \
   if (head_dim == 128) VISPEC_LAUNCH(T, TC, 128);

@@ -15,6 +15,12 @@ The layer matrices (and a ``rank_head`` ranking copy of the target head)
 may be int8 ``QTensor``s or int4 ``Q4Tensor``s
 (``ops.quant.quantize_draft_params``); every product goes through
 ``ops.quant.qdot`` with a float32 result, as in the JAX package.
+
+The decode-time functions (``layer_forward`` with a region,
+``append_accepted``, ``expand_tree``) also take a leading slot dim: B
+requests, each with its own draft cache slot, lengths, fuse bias and tree,
+in one pass whose products take all B slots' rows at once (the batched
+round; the JAX package vmaps the single-request functions).
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ from ..configs import DraftConfig, SpecConfig
 from ..ops import kv_cache as kvc
 from ..ops import rope as rope_ops
 from ..ops.attention import attend, attend_region
-from ..ops.kv_cache import KVCache, advance, init_cache
+from ..ops.kv_cache import KVCache, advance, init_cache, take_rows
 from ..ops.quant import Q4Tensor, QTensor, qdot, quantize_q4, quantize_q8
 from ..ops.topk import top_k
 from ..ops.tree import Tree, build_tree
@@ -224,7 +230,8 @@ def decode_fuse_weights(params: dict, cfg: DraftConfig, last_img: torch.Tensor):
 
 
 def fused_input(w_e, w_h, b_eff, embeds: torch.Tensor, hidden: torch.Tensor) -> torch.Tensor:
-    out = qdot(embeds, w_e) + qdot(hidden, w_h) + b_eff
+    """embeds, hidden [B?, n, hidden]; b_eff [B?, hidden] (per request)."""
+    out = qdot(embeds, w_e) + qdot(hidden, w_h) + b_eff.unsqueeze(-2)
     return out.to(hidden.dtype)
 
 
@@ -232,7 +239,7 @@ def fuse(params: dict, embeds: torch.Tensor, hidden: torch.Tensor,
          last_img: torch.Tensor) -> torch.Tensor:
     """img_fc + fc input fusion for decode-path tokens (last_img broadcast
     to every token); without img_fc weights (EAGLE) only fc([embed; hidden])."""
-    fused = _fuse_img_only(params, hidden, last_img[None].expand_as(hidden))
+    fused = _fuse_img_only(params, hidden, last_img.unsqueeze(-2).expand_as(hidden))
     return _fc(params, embeds, fused)
 
 
@@ -258,18 +265,19 @@ def _fc(params: dict, embeds: torch.Tensor, fused: torch.Tensor) -> torch.Tensor
 def layer_forward(
     params: dict,
     cfg: DraftConfig,
-    x: torch.Tensor,  # [S, hidden] — already fc-fused
-    position_ids: torch.Tensor,  # [S]
-    cache: KVCache,
-    write_at,
+    x: torch.Tensor,  # [B?, S, hidden] — already fc-fused
+    position_ids: torch.Tensor,  # [B?, S]
+    cache: KVCache,  # slot-stacked when x carries a slot dim
+    write_at,  # [B?]
     attn_mask: Optional[torch.Tensor],  # [S, max_len] (used when region is None)
-    region=None,  # optional (start, mask[S, T_reg]) => verify_attention
+    region=None,  # optional (start [B?], mask [B?, S, T_reg]) => verify_attention
 ) -> Tuple[torch.Tensor, KVCache]:
     """One llama decoder layer with layer-0 semantics (no input norm); the
     new K/V rows are written into the cache in place at ``write_at``."""
     lp = params["layer"]
     cos, sin = rope_ops.cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
-    s = x.shape[0]
+    cos, sin = cos.unsqueeze(-3), sin.unsqueeze(-3)  # broadcast over heads
+    lead, s = x.shape[:-2], x.shape[-2]
     h, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
     q = qdot(x, lp["wq"]).to(x.dtype)
@@ -279,16 +287,16 @@ def layer_forward(
         q = q + lp["bq"].to(q.dtype)
         k = k + lp["bk"].to(k.dtype)
         v = v + lp["bv"].to(v.dtype)
-    q = q.reshape(s, h, d).transpose(0, 1)
-    k = k.reshape(s, hkv, d).transpose(0, 1)
-    v = v.reshape(s, hkv, d).transpose(0, 1)
+    q = q.reshape(*lead, s, h, d).transpose(-3, -2)
+    k = k.reshape(*lead, s, hkv, d).transpose(-3, -2)
+    v = v.reshape(*lead, s, hkv, d).transpose(-3, -2)
     q, k = rope_ops.apply_rope(q, k, cos, sin)
 
-    k_full, v_full = cache.k[0], cache.v[0]
-    kvc.write_rows(k_full, 1, write_at, k)
-    kvc.write_rows(v_full, 1, write_at, v)
+    k_full, v_full = cache.k.select(-4, 0), cache.v.select(-4, 0)
+    kvc.write_rows(k_full, -2, write_at, k)
+    kvc.write_rows(v_full, -2, write_at, v)
     attn = attend_region(q.contiguous(), k_full, v_full, attn_mask, region)
-    attn = attn.transpose(0, 1).reshape(s, h * d)
+    attn = attn.transpose(-3, -2).reshape(*lead, s, h * d)
     hidden = x + qdot(attn, lp["wo"]).to(x.dtype)
     normed = rms_norm(hidden, lp["post_norm"], cfg.rms_norm_eps)
     hidden = hidden + swiglu_mlp(normed, lp["w_gate"], lp["w_up"], lp["w_down"])
@@ -378,18 +386,19 @@ def prefill(
 def append_accepted(
     params: dict,
     cfg: DraftConfig,
-    accept_hidden: torch.Tensor,  # [max_path, hidden] — padded accepted hiddens
-    accept_tokens: torch.Tensor,  # [max_path] int32 — paired (shifted) tokens
-    num_valid: torch.Tensor,  # scalar — acc+1 real rows
+    accept_hidden: torch.Tensor,  # [B?, max_path, hidden] — padded accepted hiddens
+    accept_tokens: torch.Tensor,  # [B?, max_path] int32 — paired (shifted) tokens
+    num_valid: torch.Tensor,  # [B?] — acc+1 real rows
     last_img: torch.Tensor,
     cache: KVCache,
     fuse_w=None,  # optional (w_e, w_h, b_eff) from decode_fuse_weights
 ) -> Tuple[torch.Tensor, KVCache]:
     """Draft forward over newly accepted tokens, appended to the committed
-    draft KV.  Returns (seed_hidden [hidden], cache)."""
-    s = accept_tokens.shape[0]
+    draft KV.  Returns (seed_hidden [B?, hidden], cache)."""
+    lead, s = accept_tokens.shape[:-1], accept_tokens.shape[-1]
     device = accept_hidden.device
-    embeds = params["embed"].index_select(0, accept_tokens.to(torch.int64))
+    embeds = params["embed"].index_select(
+        0, accept_tokens.reshape(-1).to(torch.int64)).reshape(*lead, s, -1)
     if fuse_w is not None:
         x = fused_input(fuse_w[0], fuse_w[1], fuse_w[2], embeds.to(accept_hidden.dtype),
                         accept_hidden)
@@ -397,13 +406,14 @@ def append_accepted(
         x = fuse(params, embeds.to(accept_hidden.dtype), accept_hidden, last_img)
 
     rows = torch.arange(s, dtype=torch.int32, device=device)
-    pos_ids = cache.real_length + rows
+    pos_ids = cache.real_length.unsqueeze(-1) + rows
     tri = torch.tril(torch.ones((s, s), dtype=torch.bool, device=device))
+    tri = tri.expand(*lead, s, s).contiguous()
     hidden, cache = layer_forward(params, cfg, x, pos_ids, cache, cache.length, None,
                                   region=(cache.length, tri))
     cache = advance(cache, num_valid, num_valid)
-    seed_row = torch.clamp(num_valid - 1, 0, s - 1).reshape(1).to(torch.int64)
-    return hidden.index_select(0, seed_row)[0], cache
+    seed_row = torch.clamp(num_valid - 1, 0, s - 1).unsqueeze(-1)
+    return take_rows(hidden, -2, seed_row).squeeze(-2), cache
 
 
 # ---------------------------------------------------------------------------
@@ -415,82 +425,89 @@ def expand_tree(
     params: dict,
     cfg: DraftConfig,
     spec: SpecConfig,
-    seed_hidden: torch.Tensor,  # [hidden] — draft output at the frontier token
-    sample_token: torch.Tensor,  # [] int32 — committed root token
-    last_img: torch.Tensor,  # [hidden]
+    seed_hidden: torch.Tensor,  # [B?, hidden] — draft output at the frontier token
+    sample_token: torch.Tensor,  # [B?] int32 — committed root token
+    last_img: torch.Tensor,  # [B?, hidden]
     head_w,  # [hidden, vocab] ranking head: rank_head or the target's lm_head
     cache: KVCache,
-    fuse_w=None,  # optional (w_e, w_h, b_eff) from decode_fuse_weights
+    fuse_w=None,  # optional (w_e, w_h, b_eff [B?, hidden]) from decode_fuse_weights
 ) -> Tuple[Tree, KVCache]:
     """Depth-limited beam growth + global re-rank.
 
     The draft KV scratch region [cache.length, cache.length + depth*top_k)
     holds the beam tokens; it is not committed (lengths unchanged), so the
-    next round's append overwrites it."""
+    next round's append overwrites it.  With a slot dim every slot grows its
+    own tree at its own length; each level's products and its ranking
+    logits ``[B * K, vocab]`` take all slots at once."""
     k_beam = spec.top_k
     depth = spec.depth
     num_cand = spec.num_candidates
     vdtype = seed_hidden.dtype
     device = seed_hidden.device
+    lead = seed_hidden.shape[:-1]
 
     logp0 = torch.log_softmax(qdot(seed_hidden, head_w), dim=-1)
     top_p0, top_i0 = top_k(logp0, k_beam)
 
-    tokens_flat = torch.zeros((num_cand,), dtype=torch.int32, device=device)
-    scores_flat = torch.full((num_cand,), -float("inf"), dtype=torch.float32, device=device)
-    parent1_flat = torch.zeros((num_cand,), dtype=torch.int32, device=device)
-    tokens_flat[:k_beam] = top_i0
-    scores_flat[:k_beam] = top_p0
+    tokens_flat = torch.zeros((*lead, num_cand), dtype=torch.int32, device=device)
+    scores_flat = torch.full((*lead, num_cand), -float("inf"), dtype=torch.float32,
+                             device=device)
+    parent1_flat = torch.zeros((*lead, num_cand), dtype=torch.int32, device=device)
+    tokens_flat[..., :k_beam] = top_i0
+    scores_flat[..., :k_beam] = top_p0
 
     stable_len = cache.length
     real_len = cache.real_length
     scratch_cols = depth * k_beam
 
-    beam_scores = top_p0  # [K]
+    beam_scores = top_p0  # [B?, K]
     beam_tokens = top_i0
-    beam_hidden = seed_hidden[None].expand(k_beam, cfg.hidden_size).to(vdtype)
+    beam_hidden = seed_hidden.unsqueeze(-2).expand(*lead, k_beam, cfg.hidden_size).to(vdtype)
     beam_src = torch.arange(k_beam, dtype=torch.int32, device=device)
-    beam_mask = torch.zeros((k_beam, scratch_cols), dtype=torch.bool, device=device)
+    beam_mask = torch.zeros((*lead, k_beam, scratch_cols), dtype=torch.bool, device=device)
     sc = torch.arange(scratch_cols, device=device)
     beam_rows = torch.arange(k_beam, device=device)
 
     for i in range(depth):
-        embeds = params["embed"].index_select(0, beam_tokens.to(torch.int64)).to(vdtype)
+        embeds = params["embed"].index_select(
+            0, beam_tokens.reshape(-1).to(torch.int64)).reshape(
+                *lead, k_beam, -1).to(vdtype)
         if fuse_w is not None:
             x = fused_input(fuse_w[0], fuse_w[1], fuse_w[2], embeds, beam_hidden)
         else:
             x = fuse(params, embeds, beam_hidden, last_img)
-        pos_ids = (real_len + i).expand(k_beam)
+        pos_ids = (real_len + i).unsqueeze(-1).expand(*lead, k_beam)
         write_at = stable_len + i * k_beam
 
         # visibility over the scratch window: ancestors + self
-        reg_prior = (sc[None, :] < i * k_beam) & beam_mask
+        reg_prior = (sc < i * k_beam) & beam_mask
         reg_self = (sc[None, :] - i * k_beam) == beam_rows[:, None]
-        reg_mask = (reg_prior | reg_self).contiguous()  # [K, scratch_cols]
+        reg_mask = (reg_prior | reg_self).contiguous()  # [B?, K, scratch_cols]
         hidden, cache = layer_forward(params, cfg, x, pos_ids, cache, write_at, None,
                                       region=(stable_len, reg_mask))
 
         logp = torch.log_softmax(qdot(hidden, head_w), dim=-1)
-        top_p, top_i = top_k(logp, k_beam)  # [K, K]
-        cu = top_p + beam_scores[:, None]
+        top_p, top_i = top_k(logp, k_beam)  # [B?, K, K]
+        cu = top_p + beam_scores.unsqueeze(-1)
 
         block = k_beam + i * k_beam * k_beam
-        flat_tokens = top_i.reshape(-1)
-        flat_scores = cu.reshape(-1)
-        flat_parent = (beam_src + 1)[:, None].expand(k_beam, k_beam).reshape(-1)
-        tokens_flat[block:block + k_beam * k_beam] = flat_tokens
-        scores_flat[block:block + k_beam * k_beam] = flat_scores
-        parent1_flat[block:block + k_beam * k_beam] = flat_parent
+        flat_tokens = top_i.reshape(*lead, k_beam * k_beam)
+        flat_scores = cu.reshape(*lead, k_beam * k_beam)
+        flat_parent = (beam_src + 1).unsqueeze(-1).expand(*lead, k_beam, k_beam).reshape(
+            *lead, k_beam * k_beam)
+        tokens_flat[..., block:block + k_beam * k_beam] = flat_tokens
+        scores_flat[..., block:block + k_beam * k_beam] = flat_scores
+        parent1_flat[..., block:block + k_beam * k_beam] = flat_parent
 
         new_scores, cs_idx = top_k(flat_scores, k_beam)
         cs_idx = cs_idx.to(torch.int64)
         out_ids = cs_idx // k_beam
-        beam_tokens = flat_tokens[cs_idx]
-        beam_hidden = hidden[out_ids]
+        beam_tokens = torch.gather(flat_tokens, -1, cs_idx)
+        beam_hidden = take_rows(hidden, -2, out_ids)
         beam_src = (block + cs_idx).to(torch.int32)
         # each new beam inherits its parent's ancestry plus the parent's slot
         own_col = i * k_beam + out_ids
-        beam_mask = beam_mask[out_ids] | (sc[None, :] == own_col[:, None])
+        beam_mask = take_rows(beam_mask, -2, out_ids) | (sc == own_col.unsqueeze(-1))
         beam_scores = new_scores
 
     tree = build_tree(sample_token, tokens_flat, scores_flat, parent1_flat,

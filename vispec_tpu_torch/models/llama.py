@@ -20,6 +20,12 @@ activation dtype exactly where the JAX lines cast.
 
 The JAX ``lax.scan`` over stacked layers is a Python loop over the layer
 index here, and each layer writes its new K/V rows into the cache in place.
+
+``forward_hidden`` also runs B requests at once (the batched round, which
+the JAX package gets from ``jax.vmap``): embeds ``[B, S, hidden]`` over a
+slot-stacked cache, each slot writing at its own length and attending
+through its own region, with every weight product taking all ``B * S`` rows
+so the weights stream once for the whole batch.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from ..ops import rope as rope_ops
 from ..ops.attention import attend
 from ..ops.kv_cache import KVCache
 from ..ops.quant import qdot
-from ..ops.verify_attention import verify_attention
+from ..ops.verify_attention import verify_attention, verify_attention_batched
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -53,29 +59,34 @@ def swiglu_mlp(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
 
 def append_kv(k_cache, v_cache, k_scale, v_scale, k_new, v_new, layer_idx: int,
               write_at) -> None:
-    """Write this layer's new K/V rows [Hkv, S, D] into the stacked cache
-    buffers at row ``write_at``, in place; an int8 cache (``k_scale`` not
-    None) gets the rows quantized per row and their scales."""
+    """Write this layer's new K/V rows [B?, Hkv, S, D] into the stacked cache
+    buffers at row ``write_at`` (``[B]``: per slot), in place; an int8 cache
+    (``k_scale`` not None) gets the rows quantized per row and their
+    scales."""
     if k_scale is not None:
         k_new, ks = kvc.quantize_rows(k_new)
         v_new, vs = kvc.quantize_rows(v_new)
-        kvc.write_rows(k_scale[layer_idx], 1, write_at, ks)
-        kvc.write_rows(v_scale[layer_idx], 1, write_at, vs)
-    kvc.write_rows(k_cache[layer_idx], 1, write_at, k_new)
-    kvc.write_rows(v_cache[layer_idx], 1, write_at, v_new)
+        kvc.write_rows(k_scale.select(-3, layer_idx), -1, write_at, ks)
+        kvc.write_rows(v_scale.select(-3, layer_idx), -1, write_at, vs)
+    kvc.write_rows(k_cache.select(-4, layer_idx), -2, write_at, k_new)
+    kvc.write_rows(v_cache.select(-4, layer_idx), -2, write_at, v_new)
 
 
 def cached_attend(q, k_cache, v_cache, k_scale, v_scale, layer_idx: int, layer_ids,
                   attn_mask, region):
     """Attention of one layer over the stacked cache: with a region, the
-    length-aware ``verify_attention`` reads the stacked cache (int8 tiles
-    and scales directly, when quantized) at the layer index held on the
-    device (``layer_ids[layer_idx]``); without one, plain masked ``attend``
-    over the layer's slice, dequantized first when quantized."""
+    length-aware kernel reads the stacked cache (int8 tiles and scales
+    directly, when quantized) at the layer index held on the device
+    (``layer_ids[layer_idx]``; the batched grid for slot-stacked ``q [B, H,
+    S, D]``); without one, plain masked ``attend`` over the layer's slice,
+    dequantized first when quantized."""
     if region is not None:
-        return verify_attention(q, k_cache, v_cache, region[0], region[1],
-                                layer_idx=layer_ids[layer_idx], k_scale=k_scale,
-                                v_scale=v_scale)
+        attend_fn = verify_attention_batched if q.dim() == 4 else verify_attention
+        return attend_fn(q, k_cache, v_cache, region[0], region[1],
+                         layer_idx=layer_ids[layer_idx], k_scale=k_scale,
+                         v_scale=v_scale)
+    if q.dim() == 4:
+        raise ValueError("a batched forward needs a region: prefill runs per request")
     if k_scale is not None:
         k_l = kvc.dequantize_rows(k_cache[layer_idx], k_scale[layer_idx], q.dtype)
         v_l = kvc.dequantize_rows(v_cache[layer_idx], v_scale[layer_idx], q.dtype)
@@ -86,18 +97,18 @@ def cached_attend(q, k_cache, v_cache, k_scale, v_scale, layer_idx: int, layer_i
 def forward_hidden(
     params: dict,
     cfg: LlamaConfig,
-    inputs_embeds: torch.Tensor,  # [S, hidden]
-    position_ids: torch.Tensor,  # [S] int32
-    cache: KVCache,
+    inputs_embeds: torch.Tensor,  # [B?, S, hidden]
+    position_ids: torch.Tensor,  # [B?, S] int32
+    cache: KVCache,  # slot-stacked when the inputs carry a slot dim
     attn_mask: torch.Tensor,  # [S, max_len] bool (used when region is None)
-    region=None,  # optional (start, mask[S, T_reg]) => verify_attention
+    region=None,  # optional (start [B?], mask [B?, S, T_reg]) => verify_attention
     return_new_kv: bool = False,
-    seq_len=None,  # real kv length (dynamic-NTK stretch; None => from positions)
+    seq_len=None,  # real kv length [B?] (dynamic-NTK stretch; None => from positions)
 ):
-    """Run the decoder stack; returns (final-normed hidden [S, hidden],
+    """Run the decoder stack; returns (final-normed hidden [B?, S, hidden],
     cache with the new block written at cache.length — call
     ``kv_cache.advance`` afterwards).  With ``return_new_kv`` also returns
-    the appended K/V blocks, each [L, H_kv, S, D]."""
+    the appended K/V blocks, each [B?, L, H_kv, S, D]."""
     if cfg.mrope_section is not None:
         raise NotImplementedError("M-RoPE (Qwen2.5-VL) targets are not ported yet")
     cos, sin = rope_ops.cos_sin(
@@ -109,12 +120,15 @@ def forward_hidden(
                      if cfg.rope_scaling_type == "dynamic" else None),
         seq_len=seq_len,
     )
+    cos, sin = cos.unsqueeze(-3), sin.unsqueeze(-3)  # broadcast over heads
     write_at = cache.length
-    s = inputs_embeds.shape[0]
+    lead, s = inputs_embeds.shape[:-2], inputs_embeds.shape[-2]
     h, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     lp_all = params["layers"]
     num_layers = lp_all["wq"].shape[0]
     layer_ids = torch.arange(num_layers, dtype=torch.int32, device=cache.k.device)
+    if lead:  # one layer index per slot for the batched kernel: [L, B]
+        layer_ids = layer_ids[:, None].expand(num_layers, *lead).contiguous()
     new_k, new_v = [], []
 
     hidden = inputs_embeds
@@ -129,9 +143,9 @@ def forward_hidden(
             q = q + lp["bq"].to(q.dtype)
             k = k + lp["bk"].to(k.dtype)
             v = v + lp["bv"].to(v.dtype)
-        q = q.reshape(s, h, d).transpose(0, 1)
-        k_new = k.reshape(s, hkv, d).transpose(0, 1)
-        v_new = v.reshape(s, hkv, d).transpose(0, 1).contiguous()
+        q = q.reshape(*lead, s, h, d).transpose(-3, -2)
+        k_new = k.reshape(*lead, s, hkv, d).transpose(-3, -2)
+        v_new = v.reshape(*lead, s, hkv, d).transpose(-3, -2).contiguous()
         q, k_new = rope_ops.apply_rope(q, k_new, cos, sin)
         q = q.contiguous()
 
@@ -139,7 +153,7 @@ def forward_hidden(
                   write_at)
         out = cached_attend(q, cache.k, cache.v, cache.k_scale, cache.v_scale, li,
                             layer_ids, attn_mask, region)
-        out = out.transpose(0, 1).reshape(s, h * d)
+        out = out.transpose(-3, -2).reshape(*lead, s, h * d)
         hidden = residual + qdot(out, lp["wo"]).to(normed.dtype)
         normed = rms_norm(hidden, lp["post_norm"], cfg.rms_norm_eps)
         hidden = hidden + swiglu_mlp(normed, lp["w_gate"], lp["w_up"], lp["w_down"])
@@ -149,7 +163,7 @@ def forward_hidden(
 
     hidden = rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps)
     if return_new_kv:
-        return hidden, cache, (torch.stack(new_k), torch.stack(new_v))
+        return hidden, cache, (torch.stack(new_k, dim=-4), torch.stack(new_v, dim=-4))
     return hidden, cache
 
 

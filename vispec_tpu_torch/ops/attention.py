@@ -68,18 +68,20 @@ def tree_verify_mask(
 
 
 def attend_region(
-    q: torch.Tensor,  # [num_heads, S, head_dim]
-    k_full: torch.Tensor,  # [num_kv_heads, max_len, head_dim] (new rows written)
+    q: torch.Tensor,  # [B?, num_heads, S, head_dim]
+    k_full: torch.Tensor,  # [B?, num_kv_heads, max_len, head_dim] (new rows written)
     v_full: torch.Tensor,
     attn_mask: Optional[torch.Tensor],  # [S, max_len] — used when region is None
-    region: Optional[Tuple[torch.Tensor, torch.Tensor]],  # (start, mask[S, T_reg])
+    region: Optional[Tuple[torch.Tensor, torch.Tensor]],  # (start [B?], mask [B?, S, T_reg])
 ) -> torch.Tensor:
     """Decode/verify attention.  With a ``region`` it goes through
-    ``verify_attention`` (the CUDA kernel on a CUDA tensor); without one
-    (prefill) through the plain masked ``attend``."""
+    ``verify_attention`` (the CUDA kernel on a CUDA tensor), or for
+    slot-stacked inputs ``verify_attention_batched``; without one (prefill,
+    a single request) through the plain masked ``attend``."""
     if region is None:
         return attend(q, k_full, v_full, attn_mask)
-    from .verify_attention import verify_attention
+    from .verify_attention import verify_attention, verify_attention_batched
 
     start, small_mask = region
-    return verify_attention(q, k_full, v_full, start, small_mask)
+    attend_fn = verify_attention_batched if q.dim() == 4 else verify_attention
+    return attend_fn(q, k_full, v_full, start, small_mask)

@@ -16,6 +16,12 @@ the device, so the decode loop never reads a length back to the host.
 ``init_cache(quantized=True)`` holds int8 K/V with per-row float32 scales
 (the int8-KV serving mode): rows are quantized as they are written, and the
 attention kernel reads the int8 tiles directly.
+
+The batched and serving paths stack one cache per slot, the JAX serving
+layout: ``k, v: [B, num_layers, num_kv_heads, max_len, head_dim]``, scales
+``[B, num_layers, num_kv_heads, max_len]``, lengths ``[B]``.  The same
+functions serve both layouts: a ``[B]`` start (or ``[B, n]`` index) means one
+entry per slot along the leading dim, a scalar start means one request.
 """
 
 from __future__ import annotations
@@ -46,11 +52,11 @@ class KVCache:
 
     @property
     def max_len(self) -> int:
-        return self.k.shape[2]
+        return self.k.shape[-2]
 
     @property
     def num_layers(self) -> int:
-        return self.k.shape[0]
+        return self.k.shape[-4]
 
     def _replace(self, **kw) -> "KVCache":
         return replace(self, **kw)
@@ -64,13 +70,17 @@ def init_cache(
     dtype=torch.bfloat16,
     device="cuda",
     quantized: bool = False,
+    slots: Optional[int] = None,
 ) -> KVCache:
     """``quantized=True`` allocates int8 k/v plus per-row float32 scales
-    (half the bytes of a bf16 cache); ``dtype`` is then unused."""
-    shape = (num_layers, num_kv_heads, max_len, head_dim)
-    zero = torch.zeros((), dtype=torch.int32, device=device)
+    (half the bytes of a bf16 cache); ``dtype`` is then unused.  ``slots``
+    allocates the slot-stacked layout (a leading ``[slots]`` dim on every
+    buffer and length)."""
+    lead = () if slots is None else (slots,)
+    shape = (*lead, num_layers, num_kv_heads, max_len, head_dim)
+    zero = torch.zeros(lead, dtype=torch.int32, device=device)
     if quantized:
-        sshape = (num_layers, num_kv_heads, max_len)
+        sshape = (*lead, num_layers, num_kv_heads, max_len)
         return KVCache(
             k=torch.zeros(shape, dtype=torch.int8, device=device),
             v=torch.zeros(shape, dtype=torch.int8, device=device),
@@ -125,37 +135,61 @@ def write_rows(buf: torch.Tensor, dim: int, start, rows: torch.Tensor) -> None:
     """In-place ``buf[..., start:start+n, ...] = rows`` along ``dim`` at a
     device-held ``start``.  Like ``lax.dynamic_update_slice`` the start is
     clamped so the block fits (an out-of-range CUDA index would be a device
-    assert, not an exception)."""
+    assert, not an exception).
+
+    A ``[B]`` start writes each slot of the leading dim at its own start,
+    clamped per slot as ``dynamic_update_slice`` clamps under ``vmap``, in
+    one ``index_put_``; ``rows`` then carries the slot dim too."""
     n = rows.shape[dim]
     start = torch.as_tensor(start, device=buf.device)
     start = start.clamp(0, buf.shape[dim] - n)
-    idx = start.to(torch.int64) + torch.arange(n, device=buf.device)
-    buf.index_copy_(dim, idx, rows.to(buf.dtype))
+    idx = start.to(torch.int64)[..., None] + torch.arange(n, device=buf.device)
+    if start.dim() == 0:
+        buf.index_copy_(dim, idx, rows.to(buf.dtype))
+        return
+    slots = torch.arange(buf.shape[0], device=buf.device)[:, None]
+    # slot and row dims first: buf[b, idx[b, j]] = rows[b, j]
+    buf.movedim(dim, 1).index_put_((slots, idx), rows.to(buf.dtype).movedim(dim, 1))
+
+
+def take_rows(x: torch.Tensor, dim: int, idx: torch.Tensor) -> torch.Tensor:
+    """``x.index_select(dim, idx)`` for a 1-D ``idx``; for an ``[B, n]`` idx,
+    slot b's rows ``idx[b]`` of ``x[b]`` (``dim`` counts in x's frame, whose
+    leading dim is the slot)."""
+    idx = idx.to(torch.int64)
+    if idx.dim() == 1:
+        return x.index_select(dim, idx)
+    dim = dim % x.dim()
+    view = [1] * x.dim()
+    view[0], view[dim] = idx.shape
+    full = list(x.shape)
+    full[dim] = idx.shape[1]
+    return torch.gather(x, dim, idx.reshape(view).expand(full))
 
 
 def commit_from_blocks(
     cache: KVCache,
     tree_start: torch.Tensor,
-    k_blocks: torch.Tensor,  # [L, H_kv, T, D] — the verify pass's appended rows
+    k_blocks: torch.Tensor,  # [B?, L, H_kv, T, D] — the verify pass's appended rows
     v_blocks: torch.Tensor,
-    node_indices: torch.Tensor,  # [max_path] accepted node offsets in the tree
+    node_indices: torch.Tensor,  # [B?, max_path] accepted node offsets in the tree
     num_accepted: torch.Tensor,
 ) -> KVCache:
     """Accept-compaction: gather the accepted rows from the small tree blocks
     and write them back at the committed frontier ``tree_start``.  An int8
     cache re-quantizes the accepted (pre-quantization) rows, which gives the
     same bytes as an append of the same rows, so spec and AR caches agree on
-    every committed row."""
-    idx = node_indices.to(torch.int64)
-    k_sel = k_blocks.index_select(2, idx)
-    v_sel = v_blocks.index_select(2, idx)
+    every committed row.  With a slot dim every slot commits its own path at
+    its own frontier."""
+    k_sel = take_rows(k_blocks, -2, node_indices)
+    v_sel = take_rows(v_blocks, -2, node_indices)
     if cache.k_scale is not None:
         k_sel, ks_sel = quantize_rows(k_sel)
         v_sel, vs_sel = quantize_rows(v_sel)
-        write_rows(cache.k_scale, 2, tree_start, ks_sel)
-        write_rows(cache.v_scale, 2, tree_start, vs_sel)
-    write_rows(cache.k, 2, tree_start, k_sel)
-    write_rows(cache.v, 2, tree_start, v_sel)
+        write_rows(cache.k_scale, -1, tree_start, ks_sel)
+        write_rows(cache.v_scale, -1, tree_start, vs_sel)
+    write_rows(cache.k, -2, tree_start, k_sel)
+    write_rows(cache.v, -2, tree_start, v_sel)
     new_len = (tree_start + num_accepted).to(torch.int32)
     delta = new_len - cache.length
     return cache._replace(length=new_len,

@@ -29,17 +29,23 @@ def cos_sin(
     ``((factor*s/max) - (factor-1)) ** (dim/(dim-2))`` once the sequence
     length ``s`` exceeds ``max``; the stretch is clamped at 1, which is the
     HF gate without a data-dependent branch.  ``seq_len`` is the real kv
-    length (a tensor or int); None falls back to ``max(position_ids)+1``."""
+    length (a tensor or int); None falls back to ``max(position_ids)+1``.
+
+    Batched: positions ``[B, S]`` with a per-slot ``seq_len [B]``; under
+    dynamic NTK every slot then has its own theta (``inv`` is ``[B, 1,
+    D/2]``, as ``jax.vmap`` gives it)."""
     device = position_ids.device
     if dynamic_ntk is not None:
         factor, max_pos = dynamic_ntk
         if seq_len is None:
-            seq_len = position_ids.max() + 1
+            seq_len = position_ids.amax(dim=-1) + 1
         s = torch.as_tensor(seq_len, device=device).to(torch.float32)
         stretch = torch.clamp(factor * s / float(max_pos) - (factor - 1.0), min=1.0)
         theta_eff = theta * stretch ** (head_dim / (head_dim - 2))
         exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-        inv = 1.0 / (theta_eff ** exponent)
+        inv = 1.0 / (theta_eff[..., None] ** exponent)
+        if s.dim():
+            inv = inv.unsqueeze(-2)
     else:
         inv = inv_frequencies(head_dim, theta, device)
     pos = position_ids.to(torch.float32) / linear_scale
@@ -59,7 +65,8 @@ def apply_rope(
     cos: torch.Tensor,
     sin: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Rotate q[..., S, D] and k[..., S, D] with cos/sin broadcastable to [S, D]."""
+    """Rotate q[..., S, D] and k[..., S, D] with cos/sin broadcastable to
+    them (``[S, D]``, or ``[B, 1, S, D]`` for slot-stacked heads)."""
     cos = cos.to(q.dtype)
     sin = sin.to(q.dtype)
     return q * cos + rotate_half(q) * sin, k * cos + rotate_half(k) * sin

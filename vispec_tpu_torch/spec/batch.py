@@ -1,0 +1,265 @@
+"""Batched multi-request speculative decoding: B requests decoded together
+in one slot-stacked ``SpecState``.
+
+The JAX package batches by ``jax.vmap`` over the single-request round; here
+the round itself takes a leading slot dim (``spec/loop.py``), so a batched
+round issues about as many kernel launches as a single request's, whatever
+B is, and every weight product takes all B slots' rows at once: the weights
+stream once per round for the whole batch.  Every request carries its own
+tree, caches, lengths, cap and done flag; finished requests keep executing
+(latched by ``done``) until the batch drains.  A batch of one takes the
+single-request round, as the JAX package does.
+
+Prefill runs per request (``spec_prefill``) straight into its slot of the
+stacked caches, which ``cache_pool`` keeps across calls.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..configs import DraftConfig, LlamaConfig, SpecConfig
+from ..models import draft as draft_mod
+from ..models import llama
+from ..ops import kv_cache as kv
+from . import loop as spec_loop
+from .spec_model import _bucket, _Readback
+
+
+def _slot_cache(cache: kv.KVCache, i: int) -> kv.KVCache:
+    """Slot ``i`` of a slot-stacked cache as a single-request cache: views of
+    its buffers (writes land in the stacked storage), lengths zero."""
+    zero = torch.zeros((), dtype=torch.int32, device=cache.k.device)
+    return kv.KVCache(
+        k=cache.k[i], v=cache.v[i], length=zero, real_length=zero.clone(),
+        k_scale=None if cache.k_scale is None else cache.k_scale[i],
+        v_scale=None if cache.v_scale is None else cache.v_scale[i])
+
+
+def batched_prefill(
+    tparams, dparams, tcfg: LlamaConfig, dcfg: DraftConfig, spec: SpecConfig,
+    sampling: spec_loop.SamplingParams,
+    requests: Sequence[dict],
+    max_len: int,
+    max_out: int,
+    dtype=torch.bfloat16,
+    cache_pool: Optional[List] = None,
+    quantize_kv: bool = False,  # int8 target caches (kv_cache.init_cache)
+    device="cuda",
+) -> spec_loop.SpecState:
+    """Prefill each request into its slot and return the slot-stacked state.
+
+    Each request dict carries ``embeds`` [pad, D], ``real_len``, ``plan``
+    and ``max_span``.  ``cache_pool`` is a
+    list holding one (target, draft) pair of slot-stacked caches, reused
+    across calls and replaced by a larger pair when a batch outgrows it;
+    None allocates fresh buffers."""
+    b = len(requests)
+    if cache_pool and cache_pool[0][0].k.shape[0] >= b:
+        tc_all, dc_all = cache_pool[0]
+    else:
+        if cache_pool:
+            cache_pool.clear()  # free the smaller pair before the larger one lands
+        tc_all = kv.init_cache(tcfg.num_hidden_layers, tcfg.num_key_value_heads, max_len,
+                               tcfg.head_dim, dtype, device, quantized=quantize_kv, slots=b)
+        dc_all = kv.init_cache(1, dcfg.num_key_value_heads, max_len, dcfg.head_dim, dtype,
+                               device, slots=b)
+        if cache_pool is not None:
+            cache_pool.append((tc_all, dc_all))
+    states = [
+        spec_loop.spec_prefill(
+            tparams, dparams, tcfg, dcfg, spec, req["plan"], sampling, req["embeds"],
+            _slot_cache(tc_all, i), _slot_cache(dc_all, i), max_out, req["max_span"])
+        for i, req in enumerate(requests)]
+    # the rows already sit in the stacked buffers: stack only the rest
+    stacked = spec_loop.stack_states(
+        [st._replace(target_cache=None, draft_cache=None) for st in states])
+
+    def lengths(all_cache: kv.KVCache, caches) -> kv.KVCache:
+        return kv.KVCache(
+            k=all_cache.k[:b], v=all_cache.v[:b],
+            length=torch.stack([c.length.to(torch.int32) for c in caches]),
+            real_length=torch.stack([c.real_length.to(torch.int32) for c in caches]),
+            k_scale=None if all_cache.k_scale is None else all_cache.k_scale[:b],
+            v_scale=None if all_cache.v_scale is None else all_cache.v_scale[:b])
+
+    return stacked._replace(
+        target_cache=lengths(tc_all, [st.target_cache for st in states]),
+        draft_cache=lengths(dc_all, [st.draft_cache for st in states]))
+
+
+def text_requests(tparams, dcfg: DraftConfig, prompts: Sequence[Sequence[int]],
+                  max_len: int, slack: int, device="cuda") -> List[dict]:
+    """Prepare plain-text requests, each padded to its own 128-row bucket as
+    ``specgenerate`` pads it.  (The JAX package shares the longest prompt's
+    bucket so that one compiled prefill serves the batch; an eager prefill
+    gains nothing from that, and its own bucket gives each request the same
+    prefill products as a single-request run.)"""
+    longest = max(len(p) for p in prompts)
+    if _bucket(longest) > max_len or longest + slack > max_len:
+        raise ValueError(
+            f"longest prompt {longest} (bucketed {_bucket(longest)}) too long for "
+            f"max_len={max_len} (needs {slack} rows of tree headroom)")
+    out = []
+    for prompt in prompts:
+        l = len(prompt)
+        pad = _bucket(l)
+        embeds = llama.embed(tparams, torch.as_tensor(np.asarray(prompt, np.int64),
+                                                      device=device))
+        embeds = torch.cat([embeds, embeds.new_zeros((pad - l, embeds.shape[1]))])
+        plan, ms = draft_mod.make_prefill_plan(None, l, dcfg.num_q, pad, max_images=4,
+                                               max_span=_bucket(1, 64), device=device)
+        out.append(dict(embeds=embeds, real_len=l, plan=plan, max_span=_bucket(ms, 64)))
+    return out
+
+
+def batched_decode_rounds_chunk(
+    tparams, dparams, tcfg: LlamaConfig, dcfg: DraftConfig, spec: SpecConfig,
+    sampling: spec_loop.SamplingParams,
+    states: spec_loop.SpecState,
+    eos_id,
+    max_new_tokens,  # scalar, or [B] per-request caps
+    n_rounds: int = 8,
+):
+    """``n_rounds`` batched rounds queued back to back with no host read;
+    returns (states, cumulative counters ``[n_rounds, B]``).  The caches are
+    written in place; ``states`` must not be used again except through what
+    this returns."""
+    device = states.done.device
+    eos = torch.as_tensor(eos_id, dtype=torch.int32, device=device)
+    caps = torch.as_tensor(max_new_tokens, dtype=torch.int32, device=device)
+    counts = []
+    if states.done.shape[0] == 1:
+        # a batch of one takes the single-request round (and its kernel), as
+        # the JAX package squeezes its unit batch
+        state = spec_loop.map_states(lambda x: x[0], states)
+        for _ in range(n_rounds):
+            state = spec_loop.decode_round(tparams, dparams, tcfg, dcfg, spec, sampling,
+                                           state, eos, caps.reshape(-1)[0])
+            counts.append(state.new_token[None])
+        return spec_loop.map_states(lambda x: x[None], state), torch.stack(counts)
+    for _ in range(n_rounds):
+        states = spec_loop.decode_round(tparams, dparams, tcfg, dcfg, spec, sampling,
+                                        states, eos, caps)
+        counts.append(states.new_token)
+    return states, torch.stack(counts)
+
+
+def apply_count_diffs(counts_np, prev, accepts, slot_keys) -> None:
+    """Recover per-round acceptance lengths from cumulative device counters.
+
+    counts_np: [n_rounds, B] cumulative new_token per round; prev: mutable
+    per-slot int array; accepts: mapping key -> list; slot_keys: (slot, key)
+    pairs to track.  A round whose counter didn't move was latched (done)."""
+    for r in range(counts_np.shape[0]):
+        for slot, key in slot_keys:
+            c = int(counts_np[r, slot])
+            if c != int(prev[slot]):
+                accepts[key].append(c - int(prev[slot]) - 1)
+                prev[slot] = c
+
+
+def pick_chunk_rounds(max_chunk: int, prev, rounds_in, caps, live) -> int:
+    """Chunk-size ladder: the largest of {1, 2, 4, max_chunk} not expected to
+    overshoot any live slot's remaining budget, so early finishers stop
+    paying dead full-cost verify rounds to a distant chunk boundary.
+    Per-slot rounds-to-finish = remaining / tokens-per-round (floored at 1:
+    every live round commits at least the bonus token, so the estimate never
+    exceeds the cap-driven truth)."""
+    ladder = sorted({v for v in (1, 2, 4) if v < max_chunk} | {max_chunk})
+    horizon = max_chunk
+    for j in range(len(prev)):
+        if not live[j]:
+            continue
+        tpr = max(1.0, int(prev[j]) / max(1, int(rounds_in[j])))
+        rem = max(1, int(caps[j]) - int(prev[j]))
+        horizon = min(horizon, int(np.ceil(rem / tpr)))
+    best = ladder[0]
+    for v in ladder:
+        if v <= max(1, horizon):
+            best = v
+    return best
+
+
+def drain_batch(
+    tparams, dparams, tcfg, dcfg, spec, sampling, states,
+    budget: int, eos_id: int, chunk_rounds: int = 8,
+):
+    """Run batched rounds until every request is done or the budget is hit,
+    each dispatch sized from the chunk ladder, with one host read per chunk.
+    Returns (states, per-request acceptance-length lists, rounds
+    dispatched)."""
+    b = int(states.done.shape[0])
+    prev = np.zeros(b, np.int64)
+    rounds_in = np.zeros(b, np.int64)
+    live = np.ones(b, bool)
+    caps = np.full(b, budget, np.int64)
+    accepts: List[List[int]] = [[] for _ in range(b)]
+    slot_keys = [(j, j) for j in range(b)]
+    rounds = 0
+    while rounds < budget:
+        ch = pick_chunk_rounds(chunk_rounds, prev, rounds_in, caps, live)
+        states, counts = batched_decode_rounds_chunk(
+            tparams, dparams, tcfg, dcfg, spec, sampling, states, eos_id, budget,
+            n_rounds=ch)
+        vals = np.asarray(_Readback(torch.cat(
+            [counts.reshape(-1), states.done.to(torch.int32)])).values())
+        apply_count_diffs(vals[:ch * b].reshape(ch, b), prev, accepts, slot_keys)
+        rounds += ch
+        rounds_in += ch
+        done = vals[ch * b:].astype(bool)
+        live = ~done
+        if done.all():
+            break
+    return states, accepts, rounds
+
+
+def finished_outputs(states: spec_loop.SpecState, eos_id: int) -> List[np.ndarray]:
+    """Each slot's generated ids, cut after its first EOS (one host read)."""
+    out_lens = states.out_len.cpu().numpy()
+    outputs = states.output.cpu().numpy().astype(np.int64)
+    outs = []
+    for b in range(outputs.shape[0]):
+        toks = outputs[b, :int(out_lens[b])]
+        epos = np.nonzero(toks == eos_id)[0]
+        outs.append(toks[: epos[0] + 1] if epos.size else toks)
+    return outs
+
+
+def generate_batch(
+    tparams, dparams, tcfg: LlamaConfig, dcfg: DraftConfig, spec: SpecConfig,
+    prompts: Sequence[Sequence[int]],
+    max_new_tokens: int = 128,
+    max_len: int = 1024,
+    eos_id: int = 2,
+    temperature: float = 0.0,
+    top_p: float = 0.0,
+    top_k: int = 0,
+    dtype=torch.bfloat16,
+    chunk_rounds: int = 8,
+    cache_pool: Optional[List] = None,
+    quantize_kv: bool = False,
+    device="cuda",
+) -> List[np.ndarray]:
+    """Decode a batch of text prompts to completion; returns generated ids per
+    request."""
+    sampling = spec_loop.SamplingParams(temperature, top_p, int(top_k))
+    spec_loop._require_greedy(sampling)
+    slack = max(spec.total_tokens, spec.depth * spec.top_k + spec.depth + 2) + 10
+    max_out = max_new_tokens + 2 * (spec.depth + 2)
+    requests = text_requests(tparams, dcfg, prompts, max_len, slack, device)
+    longest = max(len(p) for p in prompts)
+    budget = min(max_new_tokens, max_len - longest - slack)
+    if budget <= 0:
+        raise ValueError(f"no generation headroom: max_len={max_len}, longest "
+                         f"prompt {longest}, slack {slack}")
+    with torch.no_grad():
+        states = batched_prefill(tparams, dparams, tcfg, dcfg, spec, sampling, requests,
+                                 max_len, max_out, dtype, cache_pool=cache_pool,
+                                 quantize_kv=quantize_kv, device=device)
+        states, _, _ = drain_batch(tparams, dparams, tcfg, dcfg, spec, sampling, states,
+                                   budget, eos_id, chunk_rounds)
+    return finished_outputs(states, eos_id)

@@ -6,11 +6,20 @@ the accepted path, commits the accepted rows to the target cache, appends
 them to the draft and grows the next tree.  ``latch_done`` freezes a
 finished request on the device, so the host may run rounds ahead of the
 counters it reads.
+
+The round also runs B requests at once over a slot-stacked ``SpecState``
+(every leaf with a leading slot dim; the batched and serving paths, which
+the JAX package gets from ``jax.vmap``): the same code, with per-slot
+lengths, trees and caps, and one launch of each kernel per call for the
+whole batch.  Prefill and the prefix-snapshot continuation stay
+single-request, as in JAX; ``stack_states`` and ``map_states`` move states
+in and out of the stacked layout.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -19,6 +28,7 @@ from ..models import draft as draft_mod
 from ..models import llama
 from ..ops import kv_cache as kv
 from ..ops.attention import causal_mask
+from ..ops.kv_cache import take_rows
 from ..ops.tree import Tree, greedy_accept, path_to_root
 
 
@@ -32,7 +42,8 @@ def target_forward(tparams, tcfg, embeds, pos, cache, mask, region=None,
 
 
 class SpecState(NamedTuple):
-    """Device-resident carry between decode rounds."""
+    """Device-resident carry between decode rounds (each leaf with a leading
+    slot dim ``[B, ...]`` in the batched layout)."""
 
     tree: Tree
     target_cache: kv.KVCache
@@ -43,6 +54,28 @@ class SpecState(NamedTuple):
     new_token: torch.Tensor  # [] int32
     done: torch.Tensor  # [] bool
     fuse_b: torch.Tensor  # [hidden] f32 — folded fuse constant (last_img fixed)
+
+
+def _map_leaf(fn, *xs):
+    if xs[0] is None:
+        return None
+    if isinstance(xs[0], Tree):
+        return Tree(*(fn(*ys) for ys in zip(*xs)))
+    if isinstance(xs[0], kv.KVCache):
+        return kv.KVCache(**{f.name: _map_leaf(fn, *(getattr(x, f.name) for x in xs))
+                             for f in dataclasses.fields(kv.KVCache)})
+    return fn(*xs)
+
+
+def map_states(fn, *states: SpecState) -> SpecState:
+    """``fn`` over the matching tensor leaves of one or more states (the
+    port's ``jax.tree.map``)."""
+    return SpecState(*(_map_leaf(fn, *leaves) for leaves in zip(*states)))
+
+
+def stack_states(states) -> SpecState:
+    """Single-request states stacked along a new leading slot dim."""
+    return map_states(lambda *xs: torch.stack(xs), *states)
 
 
 class SamplingParams(NamedTuple):
@@ -138,6 +171,151 @@ def spec_prefill(
 
 
 # ---------------------------------------------------------------------------
+# Prefix caching (a shared text prefix — e.g. a system prompt — prefilled once)
+# ---------------------------------------------------------------------------
+
+
+class PrefixSnapshot(NamedTuple):
+    """Reusable KV + boundary state of a shared TEXT prefix.
+
+    The draft cache holds rows for positions [0, prefix_len-1): the row at
+    prefix_len-1 pairs the boundary hidden with the FIRST SUFFIX token's
+    embedding, so it cannot be part of the snapshot and is recomputed per
+    continuation."""
+
+    t_k: torch.Tensor  # [L, Hkv, prefix_pad, D]
+    t_v: torch.Tensor
+    d_k: torch.Tensor  # [1, Hkv, prefix_pad, D]
+    d_v: torch.Tensor
+    prefix_len: torch.Tensor  # [] int32
+    boundary_hidden: torch.Tensor  # [hidden] — target hidden at prefix_len-1
+    t_ks: Optional[torch.Tensor] = None  # [L, Hkv, prefix_pad] f32 row scales
+    t_vs: Optional[torch.Tensor] = None  # when the target cache is int8
+
+
+def make_prefix_snapshot(
+    tparams: dict,
+    dparams: dict,
+    tcfg: LlamaConfig,
+    dcfg: DraftConfig,
+    prefix_embeds: torch.Tensor,  # [prefix_pad, hidden]
+    prefix_len: torch.Tensor,  # [] int32
+    target_cache: kv.KVCache,  # scratch caches, overwritten
+    draft_cache: kv.KVCache,
+) -> PrefixSnapshot:
+    """Prefill a shared text prefix once; returns copies of its KV rows and
+    the boundary hidden for ``spec_prefill_continue``.  Text only."""
+    pad = prefix_embeds.shape[0]
+    device = prefix_embeds.device
+    pos = torch.arange(pad, dtype=torch.int32, device=device)
+    mask = causal_mask(pad, target_cache.max_len, 0, device)
+    hidden, tc = target_forward(tparams, tcfg, prefix_embeds, pos, target_cache, mask,
+                                seq_len=prefix_len)
+    boundary = _take(hidden, prefix_len - 1)
+
+    # draft rows for positions [0, prefix_len-1): hidden[i] + embed(token[i+1])
+    shifted = torch.roll(prefix_embeds, -1, dims=0)
+    x = draft_mod.fuse(dparams, shifted.to(hidden.dtype), hidden,
+                       hidden.new_zeros((dcfg.hidden_size,)))
+    rows = torch.arange(pad, dtype=torch.int32, device=device)
+    attn = torch.zeros((pad, draft_cache.max_len), dtype=torch.bool, device=device)
+    attn[:, :pad] = rows[None, :] <= rows[:, None]
+    _, dc = draft_mod.layer_forward(dparams, dcfg, x, rows, draft_cache, 0, attn)
+
+    def rows_of(t):  # copies of the first rows: the scratch caches are reused
+        return t[..., :pad, :].clone()
+
+    def scales_of(t):
+        return None if t is None else t[..., :pad].clone()
+
+    return PrefixSnapshot(
+        t_k=rows_of(tc.k), t_v=rows_of(tc.v), d_k=rows_of(dc.k), d_v=rows_of(dc.v),
+        prefix_len=torch.as_tensor(prefix_len, device=device).to(torch.int32),
+        boundary_hidden=boundary, t_ks=scales_of(tc.k_scale), t_vs=scales_of(tc.v_scale))
+
+
+def spec_prefill_continue(
+    tparams: dict,
+    dparams: dict,
+    tcfg: LlamaConfig,
+    dcfg: DraftConfig,
+    spec: SpecConfig,
+    sampling: SamplingParams,
+    snap: PrefixSnapshot,
+    suffix_embeds: torch.Tensor,  # [suffix_pad, hidden]
+    suffix_len: torch.Tensor,  # [] int32
+    target_cache: kv.KVCache,
+    draft_cache: kv.KVCache,
+    max_out: int,
+) -> SpecState:
+    """``spec_prefill`` for ``prefix + suffix`` that only computes the
+    suffix: the snapshot's KV rows are copied into the caches, the target
+    runs over the suffix positions, and the draft continues from the
+    boundary row.  The same target KV and hiddens as a full prefill (same
+    weights, same positions), up to summation order."""
+    _require_greedy(sampling)
+    device = suffix_embeds.device
+    plen = snap.prefix_len
+    pad_s = suffix_embeds.shape[0]
+    n = snap.t_k.shape[-2]
+
+    # seed the caches with the snapshot rows
+    for buf, rows in ((target_cache.k, snap.t_k), (target_cache.v, snap.t_v),
+                      (draft_cache.k, snap.d_k), (draft_cache.v, snap.d_v)):
+        buf[..., :n, :].copy_(rows)
+    if snap.t_ks is not None:
+        target_cache.k_scale[..., :n].copy_(snap.t_ks)
+        target_cache.v_scale[..., :n].copy_(snap.t_vs)
+    target_cache = target_cache._replace(length=plen.clone(), real_length=plen.clone())
+    draft_cache = draft_cache._replace(length=(plen - 1).to(torch.int32),
+                                       real_length=(plen - 1).to(torch.int32))
+
+    # ---- target forward over the suffix ----
+    pos = plen + torch.arange(pad_s, dtype=torch.int32, device=device)
+    mask = causal_mask(pad_s, target_cache.max_len, plen, device)
+    hidden_s, target_cache = target_forward(tparams, tcfg, suffix_embeds, pos,
+                                            target_cache, mask, seq_len=plen + suffix_len)
+    target_cache = kv.advance(target_cache, suffix_len)
+    last_logits = llama.lm_head(tparams, _take(hidden_s, suffix_len - 1))
+    first_token = torch.argmax(last_logits).to(torch.int32)
+
+    # ---- draft continuation over positions [plen-1, plen+suffix_len) ----
+    # row j (block-relative) is position plen-1+j: hidden + NEXT token's embed
+    first_embed = _take(dparams["embed"], first_token)
+    d_embeds = torch.cat([suffix_embeds[:1], torch.roll(suffix_embeds, -1, dims=0)])
+    ridx = torch.arange(pad_s + 1, dtype=torch.int32, device=device)
+    d_embeds = torch.where((ridx == suffix_len)[:, None],
+                           first_embed[None].to(d_embeds.dtype), d_embeds)
+    d_hidden = torch.cat([snap.boundary_hidden[None], hidden_s])
+    last_img = d_hidden.new_zeros((dcfg.hidden_size,))
+    x = draft_mod.fuse(dparams, d_embeds.to(d_hidden.dtype), d_hidden, last_img)
+    d_pos = plen - 1 + ridx
+    cols = torch.arange(draft_cache.max_len, dtype=torch.int32, device=device)
+    committed = cols[None, :] < draft_cache.length
+    in_block = (cols[None, :] >= draft_cache.length) & (
+        cols[None, :] <= draft_cache.length + ridx[:, None])
+    d_out, draft_cache = draft_mod.layer_forward(
+        dparams, dcfg, x, d_pos, draft_cache, draft_cache.length, committed | in_block)
+    draft_cache = kv.advance(draft_cache, suffix_len + 1)
+    last_hidden = _take(d_out, suffix_len)
+
+    w_e, w_h, b_eff = draft_mod.decode_fuse_weights(dparams, dcfg, last_img)
+    tree, draft_cache = draft_mod.expand_tree(
+        dparams, dcfg, spec, last_hidden, first_token, last_img,
+        _rank_head(tparams, dparams), draft_cache, fuse_w=(w_e, w_h, b_eff))
+
+    def zero(dtype):
+        return torch.zeros((), dtype=dtype, device=device)
+
+    return SpecState(
+        tree=tree, target_cache=target_cache, draft_cache=draft_cache,
+        last_img=last_img,
+        output=torch.zeros((max_out,), dtype=torch.int32, device=device),
+        out_len=zero(torch.int32), new_token=zero(torch.int32),
+        done=zero(torch.bool), fuse_b=b_eff)
+
+
+# ---------------------------------------------------------------------------
 # One decode round
 # ---------------------------------------------------------------------------
 
@@ -145,7 +323,7 @@ def spec_prefill(
 def _verify_accept_commit(tparams, tcfg, state: SpecState, eos_id, max_new_tokens,
                           max_path: int):
     """Target verify over the tree block, greedy tree walk, KV commit and
-    output append.  Returns (hidden [T, D], path, jcols, acc, bonus,
+    output append.  Returns (hidden [B?, T, D], path, jcols, acc, bonus,
     target_cache, output, out_len, new_token, done)."""
     tree = state.tree
     t = tree.size
@@ -153,27 +331,27 @@ def _verify_accept_commit(tparams, tcfg, state: SpecState, eos_id, max_new_token
     tree_start = state.target_cache.length
 
     embeds = llama.embed(tparams, tree.tokens)
-    pos = tree_start + tree.depth
+    pos = tree_start.unsqueeze(-1) + tree.depth
     hidden, target_cache, new_kv = target_forward(
         tparams, tcfg, embeds, pos, state.target_cache, None,
         region=(tree_start, tree.mask), return_new_kv=True, seq_len=tree_start + t)
-    logits = llama.lm_head(tparams, hidden)  # [T, V] float32
+    logits = llama.lm_head(tparams, hidden)  # [B?, T, V] float32
 
     argmax_toks = torch.argmax(logits, dim=-1).to(torch.int32)
     best, acc = greedy_accept(tree, argmax_toks)
-    bonus = _take(argmax_toks, best)
+    bonus = take_rows(argmax_toks, -1, best.unsqueeze(-1)).squeeze(-1)
 
     path = path_to_root(tree, best, max_path)
     target_cache = kv.commit_from_blocks(target_cache, tree_start, new_kv[0],
                                          new_kv[1], path, acc + 1)
 
-    committed = tree.tokens[path.to(torch.int64)]  # rows > acc are padding
+    committed = take_rows(tree.tokens, -1, path)  # rows > acc are padding
     jcols = torch.arange(max_path, dtype=torch.int32, device=device)
-    valid = jcols <= acc
-    eos_hit = torch.any(valid & (committed == eos_id))
+    valid = jcols <= acc.unsqueeze(-1)
+    eos_hit = torch.any(valid & (committed == eos_id), dim=-1)
 
     output = state.output.clone()
-    kv.write_rows(output, 0, state.out_len, committed)
+    kv.write_rows(output, -1, state.out_len, committed)
     out_len = (state.out_len + acc + 1).to(torch.int32)
     new_token = (state.new_token + acc + 1).to(torch.int32)
     done = state.done | eos_hit | (new_token > max_new_tokens)
@@ -194,7 +372,9 @@ def decode_round(
 ) -> SpecState:
     """verify -> accept -> commit -> next draft tree, all on the device.
     The caches are written in place; ``state`` must not be used again except
-    through what this returns (as the JAX version donates it)."""
+    through what this returns (as the JAX version donates it).  A
+    slot-stacked state runs every slot in the same pass, with
+    ``max_new_tokens`` a scalar or a ``[B]`` vector of per-slot caps."""
     _require_greedy(sampling)
     max_path = spec.depth + 2
     (hidden, path, jcols, acc, bonus, target_cache, output, out_len,
@@ -202,12 +382,12 @@ def decode_round(
         tparams, tcfg, state, eos_id, max_new_tokens, max_path)
 
     tree = state.tree
-    path64 = path.to(torch.int64)
-    accept_hidden = hidden[path64]  # [max_path, hidden]
-    nxt = tree.tokens[path64]
+    accept_hidden = take_rows(hidden, -2, path)  # [B?, max_path, hidden]
+    nxt = take_rows(tree.tokens, -1, path)
     # row j pairs hidden[path[j]] with token[path[j+1]]; the last valid row
     # (and the padding after it) takes the bonus token
-    tok_next = torch.where(jcols < acc, torch.roll(nxt, -1), bonus)
+    tok_next = torch.where(jcols < acc.unsqueeze(-1), torch.roll(nxt, -1, dims=-1),
+                           bonus.unsqueeze(-1))
 
     w_e, w_h = draft_mod.ensure_fuse_mats(dparams, dcfg)
     fuse_w = (w_e, w_h, state.fuse_b)
@@ -228,10 +408,12 @@ def latch_done(prev: SpecState, new: SpecState) -> SpecState:
     """Freeze a finished request after an unconditionally executed round:
     the small cursors and the output are selected on ``prev.done``; the big
     K/V buffers are not — rows written past the frozen lengths are
-    unreachable and overwritten by the next live round."""
+    unreachable and overwritten by the next live round.  In the batched
+    layout each slot latches on its own ``done``."""
 
     def sel(old, upd):
-        return torch.where(prev.done, old, upd)
+        done = prev.done.reshape(prev.done.shape + (1,) * (old.dim() - prev.done.dim()))
+        return torch.where(done, old, upd)
 
     def sel_cache(old: kv.KVCache, upd: kv.KVCache) -> kv.KVCache:
         return upd._replace(length=sel(old.length, upd.length),

@@ -1,6 +1,9 @@
 """User-facing speculative-decoding model, text path: ``SpecModel`` with
-``specgenerate`` (greedy ViSpec decoding) and ``ar_generate`` (the
-autoregressive baseline it must equal token for token).
+``specgenerate`` (greedy ViSpec decoding), ``ar_generate`` (the
+autoregressive baseline it must equal token for token), and the serving
+half: ``specgenerate_batch`` (a fixed batch decoded together,
+``spec/batch.py``) and ``serving_engine`` (continuous batching,
+``spec/serving.py``).
 
 The host loop keeps the JAX version's shape: rounds are queued in chunks,
 each round latches ``done`` on the device, and the host reads the per-round
@@ -27,6 +30,12 @@ from . import loop as spec_loop
 
 def _bucket(n: int, step: int = 128) -> int:
     return max(step, ((n + step - 1) // step) * step)
+
+
+# The JAX package's models/medusa.NUM_HEADS: a medusa round commits up to
+# NUM_HEADS + 1 tokens, and the batched and serving output buffers leave room
+# for whichever drafter commits more per round.
+MEDUSA_NUM_HEADS = 5
 
 
 @dataclass
@@ -100,6 +109,8 @@ class SpecModel:
         # alone is 1 GB in bf16
         self._target_cache: Optional[kv.KVCache] = None
         self._draft_cache: Optional[kv.KVCache] = None
+        # slot-stacked caches of specgenerate_batch, kept across calls
+        self._batch_pool: List = []
 
     @property
     def target_cache(self) -> kv.KVCache:
@@ -353,3 +364,58 @@ class SpecModel:
             decode_time=decode_time,
             dispatched=dispatched,
         )
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def specgenerate_batch(
+        self,
+        requests: Sequence[dict],
+        temperature: float = 0.0,
+        max_new_tokens: int = 256,
+        top_p: float = 0.0,
+        top_k: int = 0,
+    ) -> List[GenerationResult]:
+        """Batched multi-request decoding of text requests (dicts with
+        ``input_ids``): all requests share one pad bucket, prefill one by one
+        into their slots of the pooled stacked caches, and decode together
+        in batched rounds; finished requests are frozen in place until the
+        batch drains.  Greedy outputs equal ``specgenerate``'s."""
+        from . import batch as batch_mod
+
+        for r in requests:
+            if r.get("pixel_values") is not None or r.get("pixel_values_videos") is not None:
+                raise NotImplementedError("vision requests are not ported yet")
+        sampling = spec_loop.SamplingParams(temperature, top_p, int(top_k))
+        spec_loop._require_greedy(sampling)
+        slack = self._cache_slack()
+        prompts = [np.asarray(r["input_ids"], np.int64) for r in requests]
+        reqs = batch_mod.text_requests(self.tparams, self.dcfg, prompts, self.max_len,
+                                       slack, self.device)
+        pad_block = max(self.spec.depth + 2, MEDUSA_NUM_HEADS + 1)
+        max_out = min(self.max_len, max_new_tokens + 2 * pad_block)
+        states = batch_mod.batched_prefill(
+            self.tparams, self.dparams, self.tcfg, self.dcfg, self.spec, sampling, reqs,
+            self.max_len, max_out, self.dtype, cache_pool=self._batch_pool,
+            quantize_kv=self.quantize_kv, device=self.device)
+        # decode_time excludes prefill, as in specgenerate
+        t0 = time.perf_counter()
+        budget = min(max_new_tokens, self.max_len - max(len(p) for p in prompts) - slack)
+        states, accepts, dispatched = batch_mod.drain_batch(
+            self.tparams, self.dparams, self.tcfg, self.dcfg, self.spec, sampling, states,
+            budget, self.eos_token_id, self.chunk_rounds)
+        outs = batch_mod.finished_outputs(states, self.eos_token_id)
+        decode_time = time.perf_counter() - t0
+        return [GenerationResult(
+            sequences=np.concatenate([ids, toks[:max_new_tokens]]),
+            new_tokens=int(toks[:max_new_tokens].shape[0]),
+            rounds=len(acc), acceptance_lengths=acc, decode_time=decode_time,
+            dispatched=dispatched)
+            for ids, toks, acc in zip(prompts, outs, accepts)]
+
+    # ------------------------------------------------------------------
+    def serving_engine(self, batch_size: int, **kw):
+        """Continuous-batching engine over this model (``spec/serving.py``):
+        fixed decode slots, queued requests admitted as slots free up."""
+        from .serving import ServingEngine
+
+        return ServingEngine(self, batch_size, **kw)
