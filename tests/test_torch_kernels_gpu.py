@@ -55,6 +55,116 @@ def test_verify_attention_kernel_matches_plain(cuda_device, dtype, h, hkv, s, t_
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+def _edge_mask(dev, s, t_reg, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mask = torch.rand((s, t_reg), generator=g, device=dev) < 0.5
+    mask[torch.arange(s), torch.arange(s) % t_reg] = True
+    return mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,h,hkv,s,t_reg,start,layers,max_len", [
+    # bf16, D = 128: the tensor-core partial kernel.  One block per (kv head,
+    # chunk) walks 16-row query tiles, so the edges are the ragged last tile,
+    # the second pass, and the chunk the region ends in.
+    ("s1", 32, 32, 1, 1, 319, 3, 1024),  # one live row in a 16-row tile
+    ("s5", 32, 32, 5, 5, 317, None, 1024),  # 3-D cache (no layer dim)
+    ("s30", 32, 32, 30, 30, 301, 3, 1024),  # two tiles, the second ragged
+    ("gs120", 32, 8, 30, 30, 301, 3, 1024),  # GQA 4 groups: two passes of 64 rows
+    ("gs64", 8, 4, 32, 32, 100, None, 512),  # exactly one full pass
+    ("gs65", 10, 2, 13, 13, 100, None, 512),  # one row into the second pass
+    ("start0", 32, 32, 30, 30, 0, 2, 512),  # no committed prefix: every column masked by the region
+    ("ends_at_max_len", 32, 32, 30, 30, 512 - 30, 2, 512),
+    ("one_column_into_a_chunk", 32, 32, 30, 30, 5 * 64 + 1 - 30, 2, 512),
+    ("region_fills_a_chunk_edge", 32, 32, 30, 30, 4 * 64 - 30, 2, 512),  # ends on the edge
+])
+def test_verify_attention_mma_kernel_edges(cuda_device, name, h, hkv, s, t_reg, start, layers,
+                                           max_len):
+    dev = cuda_device
+    (q, k, v, st, _), layer = _case(dev, torch.bfloat16, h, hkv, s, t_reg, start, layers,
+                                    128, max_len=max_len)
+    # rows past the region must never be read: poison them
+    k[..., start + t_reg:, :] = float("nan")
+    v[..., start + t_reg:, :] = float("nan")
+    args = (q, k, v, st, _edge_mask(dev, s, t_reg, start + s))
+    out = va.verify_attention(*args, layer_idx=layer)
+    ref = va.verify_attention_ref(*(a.nan_to_num() if a.is_floating_point() else a
+                                    for a in args), layer_idx=layer)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.gpu
+def test_verify_attention_mma_kernel_row_with_no_visible_column_in_a_middle_chunk(cuda_device):
+    """A region wider than a chunk, with query rows that see nothing of the
+    chunk lying wholly inside it (row max -inf, sum 0 there), and one row that
+    sees a single region column only."""
+    dev, s, t_reg, start, max_len = cuda_device, 8, 200, 40, 512
+    (q, k, v, st, _), _ = _case(dev, torch.bfloat16, 32, 32, s, t_reg, start, None, 128,
+                                max_len=max_len)
+    mask = _edge_mask(dev, s, t_reg, 7)
+    mask[3, 64 - start:128 - start] = False  # chunk 1 = region columns 24..87
+    mask[5, 64 - start:192 - start] = False  # chunks 1 and 2
+    mask[6] = False
+    mask[6, 150] = True
+    out = va.verify_attention(q, k, v, st, mask)
+    ref = va.verify_attention_ref(q, k, v, st, mask)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,hkv,s,t_reg", [(32, 32, 30, 30), (32, 8, 30, 30), (32, 32, 5, 5)])
+def test_verify_attention_batched_mma_kernel_ragged_slots(cuda_device, h, hkv, s, t_reg):
+    """B = 4 at the serving round's starts, each slot at another layer."""
+    dev, b, layers, max_len = cuda_device, 4, 4, 2048
+    starts, layer_of = (301, 129, 777, 1500), (0, 3, 1, 2)
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn((b, h, s, 128), generator=g, device=dev, dtype=torch.bfloat16)
+    k = torch.randn((b, layers, hkv, max_len, 128), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    v = torch.randn(k.shape, generator=g, device=dev, dtype=torch.bfloat16)
+    mask = torch.stack([_edge_mask(dev, s, t_reg, i) for i in range(b)])
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    layer = torch.tensor(layer_of, dtype=torch.int32, device=dev)
+    before = va.verify_attention_batched.launches
+    out = va.verify_attention_batched(q, k, v, st, mask, layer)
+    ref = va.verify_attention_batched_ref(q, k, v, st, mask, layer)
+    torch.cuda.synchronize()
+    assert va.verify_attention_batched.launches == before + 1
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    # each slot equals the single-request kernel on that slot, bit for bit
+    for i in range(b):
+        one = va.verify_attention(q[i], k[i], v[i], st[i], mask[i], layer[i])
+        assert torch.equal(one, out[i])
+
+
+@pytest.mark.gpu
+def test_verify_attention_other_instantiations_keep_their_kernel(cuda_device):
+    """float32, int8 caches and head_dim 16 (bf16 too) run the CUDA-core
+    partial kernel: the same results within the same limits as before the
+    tensor-core kernel took the bf16 D = 128 instantiation."""
+    dev = cuda_device
+    for dtype, d, int8, tol in [(torch.float32, 128, False, 1e-4),
+                                (torch.float32, 16, False, 1e-4),
+                                (torch.bfloat16, 16, False, 2e-2),
+                                (torch.bfloat16, 128, True, 2e-2),
+                                (torch.float32, 128, True, 1e-4),
+                                (torch.bfloat16, 16, True, 2e-2)]:
+        h, hkv = (4, 2) if d == 16 else (32, 8)
+        (q, k, v, st, mask), layer = _case(dev, dtype, h, hkv, 30, 30, 301, 2, d)
+        ks = vs = None
+        if int8:
+            k, ks = kvc.quantize_rows(k)
+            v, vs = kvc.quantize_rows(v)
+        out = va.verify_attention(q, k, v, st, mask, layer, ks, vs)
+        ref = va.verify_attention_ref(q, k, v, st, mask, layer, ks, vs)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= tol, (dtype, d, int8, err)
+
+
 @pytest.mark.gpu
 def test_verify_attention_kernel_refuses_unbuilt_head_dim(cuda_device):
     args, _ = _case(cuda_device, torch.float32, 2, 2, 4, 4, 10, None, 64, max_len=64)

@@ -27,17 +27,35 @@
 //
 // Design: the TPU grid has one program per KV head (32 programs at 7B), which
 // would fill 32 of the 132 SMs at batch 1.  Here the cache is split along
-// its length (flash-decoding): one block per (kv head, 64-row chunk, group of
-// 16 query rows) stages the chunk's K and V in shared memory, computes the
-// chunk's partial (max, sum, P.V) for its rows, and writes them to scratch;
-// a second kernel merges the partials per row.  Splitting the rows as well
-// keeps GQA (groups x S rows per head) from serialising in one block.  The
-// grid is sized from max_len, so the host never needs the live length:
-// blocks whose chunk starts at or past tree_start + T_reg exit at once.
-// Staging uses 16-byte loads, all in flight at once (8 bf16, 4 f32 or 16
-// int8 values each), widened to f32 in registers; an int8 chunk's scale rows
-// are staged in shared memory beside its tiles.  Plain CUDA cores, no tensor
-// cores or TMA yet.
+// its length (flash-decoding): a partial kernel computes, per (kv head,
+// 64-row chunk), the chunk's (row max, row sum, unnormalised P.V) for every
+// query row and writes them to scratch; combine_kernel merges the partials
+// per row.  The grid is sized from max_len, so the host never needs the live
+// length: blocks whose chunk starts at or past tree_start + T_reg exit at
+// once.  Two partial kernels write the same scratch layout:
+//
+//   partial_kernel_mma  <bf16 q, bf16 cache, D = 128>: the 7B bf16 path (rows
+//     1a and 1c, and the bf16 draft cache of the quantized mode).  Tensor
+//     cores.  One block per (kv head, chunk) reads the chunk's K and V from
+//     device memory once, as bf16, with 16-byte cp.async into shared rows
+//     padded to D + 8 (the eight rows of an ldmatrix fall in eight different
+//     bank groups; V's copy overlaps q.k).  Each of the 4 warps owns a tile
+//     of 16 query rows per pass (gs <= 64: one pass; GQA with gs = 120: two):
+//     S = q.k with mma.sync.m16n8k16 (q and K fragments by ldmatrix.x4, K's
+//     [n][k] rows are already the "col" operand), f32 scores times D^-0.5
+//     after the product, mask and row max / sum in the accumulator registers
+//     (quad shuffles), p rounded to bf16 and repacked in registers as the A
+//     operand of P.V (two 8-wide score tiles are one 16-wide k-step), V
+//     fragments by ldmatrix.x4.trans, 64 f32 accumulators a thread.
+//   partial_kernel  every other instantiation (f32, int8 caches, D = 16):
+//     CUDA cores.  One block per (kv head, chunk, group of 16 query rows)
+//     stages the chunk's K and V widened to f32 (16-byte loads, all in
+//     flight at once; an int8 chunk's scale rows beside its tiles) and runs
+//     scalar dot products from shared memory.  Splitting the rows as well
+//     keeps GQA (groups x S rows per head) from serialising in one block.
+//
+// No TMA or wgmma: a head has 30 query rows at the verify and wgmma's tile
+// has 64; m16n8k16 fits them in two tiles.
 //
 // Batched grid (row 1c): the slot is folded into grid.x (slot * Hkv + kv
 // head, heads fastest), so one launch pair serves the whole batch and the
@@ -57,7 +75,7 @@
 namespace {
 
 constexpr int TILE = 64;      // KV rows per block (one split-KV chunk)
-constexpr int ROWS = 16;      // query rows per block
+constexpr int ROWS = 16;      // query rows per block (partial_kernel)
 constexpr int THREADS = 128;
 constexpr int RSTEP = THREADS / TILE;  // query rows a column-thread steps by
 constexpr int WARPS = THREADS / 32;
@@ -268,6 +286,259 @@ __global__ void __launch_bounds__(THREADS) partial_kernel(
   }
 }
 
+// ---- tensor-core partial kernel (bf16 q and cache, D = 128) ----
+
+constexpr int QTILE = 16 * WARPS;  // query rows per pass: one 16-row tile a warp
+constexpr int PAD = 8;             // bf16 of padding per shared row (16 bytes)
+
+template <int D>
+constexpr size_t mma_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (2 * TILE + QTILE) * (D + PAD);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {  // all but the newest N groups landed
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix l / 8
+// and receives elements (l / 4, 2 * (l % 4) + {0, 1}) of each (.trans: of each
+// one's transpose).
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+// c[16x8] += a[16x16] . b[16x8], bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo: the low half
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// Copy NROWS rows of D bf16 (the first ``valid`` of them real, the rest zero)
+// from device memory into shared rows of D + PAD, 16 bytes a cp.async.  The
+// caller commits the group and waits for it.
+template <int D, int NROWS>
+__device__ __forceinline__ void stage_bf16(const __nv_bfloat16* __restrict__ src, int valid,
+                                           __nv_bfloat16* __restrict__ dst) {
+  constexpr int VPR = D / 8;  // 16-byte vectors per row
+#pragma unroll
+  for (int i = threadIdx.x; i < NROWS * VPR; i += THREADS) {
+    const int row = i / VPR, vec = i % VPR;
+    __nv_bfloat16* d = dst + row * (D + PAD) + vec * 8;
+    if (row < valid) {
+      cp_async16(d, src + (size_t)row * D + vec * 8);
+    } else {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// One block per (slot x kv head, chunk); the block walks over all query-row
+// tiles of its head, one 16-row tile per warp per pass.  Heads vary fastest
+// in the grid, as in partial_kernel.  Writes the same partials.
+template <int D>
+__global__ void __launch_bounds__(THREADS) partial_kernel_mma(
+    const __nv_bfloat16* __restrict__ q,  // [B * Hkv, GS, D]
+    const __nv_bfloat16* __restrict__ k,  // per slot [L?, Hkv, max_len, D]
+    const __nv_bfloat16* __restrict__ v,
+    const uint8_t* __restrict__ mask,     // per slot [S, T_reg]
+    const int* __restrict__ start_ptr,    // [B] committed prefix lengths
+    const int* __restrict__ layer_ptr,    // [B] layer indices, or null (no layer dim)
+    float* __restrict__ part_m,           // [B * Hkv, NC, GS] chunk row max
+    float* __restrict__ part_l,           // [B * Hkv, NC, GS] chunk row sum
+    float* __restrict__ part_acc,         // [B * Hkv, NC, GS, D] chunk P.V
+    int hkv, int gs, int s_len, int t_reg, int max_len, long long layer_stride,
+    long long slot_stride, long long mask_slot_stride, float scale) {
+  static_assert(D % 16 == 0 && TILE % 16 == 0, "whole m16n8k16 steps");
+  constexpr int LDS = D + PAD;
+  const int bh = blockIdx.x;  // slot * hkv + kv head
+  const int slot = bh / hkv;
+  const int hk = bh % hkv;
+  const int chunk = blockIdx.y;
+  const int nc = gridDim.y;
+  const int start = start_ptr[slot];
+  const int total = min(start + t_reg, max_len);
+  const int col0 = chunk * TILE;
+  if (col0 >= total) return;  // past the live rows: nothing to read
+  const int ncols = min(TILE, total - col0);
+  const long long layer = layer_ptr ? layer_ptr[slot] : 0;
+  mask += slot * mask_slot_stride;
+
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_mma);  // [TILE][LDS]
+  __nv_bfloat16* vs = ks + TILE * LDS;                             // [TILE][LDS]
+  __nv_bfloat16* qs = vs + TILE * LDS;                             // [QTILE][LDS]
+
+  const size_t base = (size_t)(slot * slot_stride + layer * layer_stride) +
+                      ((size_t)hk * max_len + col0) * D;
+  const __nv_bfloat16* qh = q + (size_t)bh * gs * D;
+  stage_bf16<D, TILE>(k + base, ncols, ks);
+  stage_bf16<D, QTILE>(qh, min(QTILE, gs), qs);
+  cp_async_commit();
+  stage_bf16<D, TILE>(v + base, ncols, vs);  // lands while q.k runs
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // accumulator rows g, g + 8; columns 2t, 2t + 1
+  const bool all_visible = col0 + TILE <= start;  // the whole chunk is committed prefix
+  const size_t part_head = ((size_t)bh * nc + chunk) * gs;
+
+  for (int p0 = 0; p0 < gs; p0 += QTILE) {
+    if (p0 > 0) {
+      __syncthreads();  // every warp has read the previous pass's q
+      stage_bf16<D, QTILE>(qh + (size_t)p0 * D, min(QTILE, gs - p0), qs);
+      cp_async_commit();
+      cp_async_wait<0>();
+    } else {
+      cp_async_wait<1>();  // K and q; V may still be in flight
+    }
+    __syncthreads();
+
+    const int r0 = p0 + warp * 16;  // this warp's tile of query rows
+    const bool active = r0 < gs;
+    const int ra = r0 + g, rb = ra + 8;
+    unsigned pf[TILE / 16][4];  // p as bf16 A fragments, one per 16-column k-step
+    float m[2], l[2];
+    if (active) {
+      float sc[TILE / 8][4];
+#pragma unroll
+      for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        unsigned a[4];  // rows 0-7 / 8-15 at k 0-7, then at k 8-15
+        ldmatrix_x4(a, qs + (warp * 16 + lane % 16) * LDS + kk * 16 + (lane / 16) * 8);
+#pragma unroll
+        for (int jp = 0; jp < TILE / 16; ++jp) {
+          unsigned b[4];  // key rows 0-7 at k 0-7, k 8-15; key rows 8-15 likewise
+          ldmatrix_x4(b, ks + (jp * 16 + lane % 8 + (lane / 16) * 8) * LDS + kk * 16 +
+                             ((lane / 8) % 2) * 8);
+          mma_bf16(sc[2 * jp], a, b[0], b[1]);
+          mma_bf16(sc[2 * jp + 1], a, b[2], b[3]);
+        }
+      }
+
+      // scale after the product, as the plain version; then the visibility rule
+      if (all_visible) {
+#pragma unroll
+        for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] *= scale;
+      } else {
+        const uint8_t* mrow[2] = {mask + (size_t)(ra % s_len) * t_reg,
+                                  mask + (size_t)(rb % s_len) * t_reg};
+#pragma unroll
+        for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = j * 8 + 2 * t + e % 2;
+            const int col = col0 + c;
+            const bool ok = (e < 2 ? ra : rb) < gs && c < ncols &&
+                            (col < start || mrow[e / 2][col - start] != 0);
+            sc[j][e] = ok ? sc[j][e] * scale : -INFINITY;
+          }
+      }
+
+      // row max and sum over the quad's 4 x 16 columns
+      m[0] = m[1] = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < TILE / 8; ++j) {
+        m[0] = fmaxf(m[0], fmaxf(sc[j][0], sc[j][1]));
+        m[1] = fmaxf(m[1], fmaxf(sc[j][2], sc[j][3]));
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+        m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
+      }
+      l[0] = l[1] = 0.f;
+#pragma unroll
+      for (int j = 0; j < TILE / 8; ++j) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // a masked column contributes exactly 0,
+          // also when the whole row is masked in this chunk (m = -inf)
+          p[e] = sc[j][e] == -INFINITY ? 0.f : expf(sc[j][e] - m[e / 2]);
+        l[0] += p[0] + p[1];
+        l[1] += p[2] + p[3];
+        // p is rounded to the value dtype before P.V, as in the plain version
+        pf[j / 2][(j % 2) * 2] = pack_bf16(p[0], p[1]);      // rows g
+        pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);  // rows g + 8
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      }
+    }
+
+    if (p0 == 0) {
+      cp_async_wait<0>();  // V
+      __syncthreads();
+    }
+
+    if (active) {
+      float o[D / 8][4];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < TILE / 16; ++kk) {
+#pragma unroll
+        for (int jp = 0; jp < D / 16; ++jp) {
+          unsigned b[4];  // transposed: value rows (k) 0-7, 8-15 at d 0-7; then at d 8-15
+          ldmatrix_x4_trans(b, vs + (kk * 16 + lane % 16) * LDS + jp * 16 + (lane / 16) * 8);
+          mma_bf16(o[2 * jp], pf[kk], b[0], b[1]);
+          mma_bf16(o[2 * jp + 1], pf[kk], b[2], b[3]);
+        }
+      }
+      if (ra < gs) {
+        if (t == 0) {
+          part_m[part_head + ra] = m[0];
+          part_l[part_head + ra] = l[0];
+        }
+        float2* dst = reinterpret_cast<float2*>(part_acc + (part_head + ra) * D + 2 * t);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) dst[j * 4] = make_float2(o[j][0], o[j][1]);
+      }
+      if (rb < gs) {
+        if (t == 0) {
+          part_m[part_head + rb] = m[1];
+          part_l[part_head + rb] = l[1];
+        }
+        float2* dst = reinterpret_cast<float2*>(part_acc + (part_head + rb) * D + 2 * t);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) dst[j * 4] = make_float2(o[j][2], o[j][3]);
+      }
+    }
+  }
+}
+
 // One block per (slot, kv head, query row), one thread per head-dim element.
 template <typename T, int D>
 __global__ void __launch_bounds__(D) combine_kernel(
@@ -305,19 +576,33 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
            long long slot_stride, long long scale_slot_stride,
            long long mask_slot_stride, cudaStream_t stream) {
   const int nc = (max_len + TILE - 1) / TILE;
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      partial_kernel<T, TC, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  partial_kernel<T, TC, D>
-      <<<dim3(nslots * hkv, nc, (gs + ROWS - 1) / ROWS), THREADS, smem, stream>>>(
-          (const T*)q, (const TC*)k, (const TC*)v, (const float*)k_scale,
-          (const float*)v_scale, (const uint8_t*)mask, (const int*)start,
-          (const int*)layer, (float*)part_m, (float*)part_l, (float*)part_acc,
-          hkv, gs, s_len, t_reg, max_len, layer_stride, scale_layer_stride,
-          slot_stride, scale_slot_stride, mask_slot_stride,
-          1.0f / sqrtf((float)D));
-  err = cudaGetLastError();
+  const float scale = 1.0f / sqrtf((float)D);
+  // the attribute is set once per instantiation, not on every call
+  if constexpr (std::is_same<T, __nv_bfloat16>::value &&
+                std::is_same<TC, __nv_bfloat16>::value && D == 128) {
+    constexpr size_t smem = mma_smem_bytes<D>();
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        partial_kernel_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (attr != cudaSuccess) return (int)attr;
+    partial_kernel_mma<D><<<dim3(nslots * hkv, nc, 1), THREADS, smem, stream>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+        (const uint8_t*)mask, (const int*)start, (const int*)layer, (float*)part_m,
+        (float*)part_l, (float*)part_acc, hkv, gs, s_len, t_reg, max_len, layer_stride,
+        slot_stride, mask_slot_stride, scale);
+  } else {
+    constexpr size_t smem = smem_bytes<D>();
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        partial_kernel<T, TC, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (attr != cudaSuccess) return (int)attr;
+    partial_kernel<T, TC, D>
+        <<<dim3(nslots * hkv, nc, (gs + ROWS - 1) / ROWS), THREADS, smem, stream>>>(
+            (const T*)q, (const TC*)k, (const TC*)v, (const float*)k_scale,
+            (const float*)v_scale, (const uint8_t*)mask, (const int*)start,
+            (const int*)layer, (float*)part_m, (float*)part_l, (float*)part_acc,
+            hkv, gs, s_len, t_reg, max_len, layer_stride, scale_layer_stride,
+            slot_stride, scale_slot_stride, mask_slot_stride, scale);
+  }
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   combine_kernel<T, D><<<nslots * hkv * gs, D, 0, stream>>>(
       (const float*)part_m, (const float*)part_l, (const float*)part_acc,
