@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch + CUDA port (vispec_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--end-to-end]
 
 Builds the port's CUDA kernels from the sources in this checkout (in
 parallel), holds each against its plain PyTorch version at the main paths'
@@ -18,11 +18,15 @@ kernel's launches counted per round.  Prints one JSON line per phase, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failed phase raises and
 the script exits non-zero without that line; so does a machine without a
-CUDA device.
+CUDA device.  With ``--end-to-end`` it builds and runs only the 32-layer
+bfloat16 decode loop and the serving engine (``full_width_depth``, its
+profiles, ``serving_full_depth``), to compare two checkouts within one call
+on one card, and prints neither of the last lines.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -66,6 +70,29 @@ def timed_ms(fn, flush, n=30):
     return sum(s.elapsed_time(e) for s, e in events) / n
 
 
+def kernel_split_ms(fn, flush, n=10):
+    """Device time of the two launches of one attention call, apart: the
+    mean over ``n`` calls after an L2 flush each, by kernel name, from
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for tag in ("partial_kernel_mma", "partial_kernel", "combine_kernel"):
+                if tag in e.key:
+                    out[tag + "_ms"] = out.get(tag + "_ms", 0.0) + e.device_time_total / 1e3 / n
+                    break
+    return out
+
+
 def phase_build():
     """Both sources at once, one nvcc each."""
     from vispec_tpu_torch.ops import cuda_build
@@ -80,11 +107,35 @@ def phase_build():
         built = list(pool.map(build, SOURCES))
     total = time.perf_counter() - t0
     for so, seconds in built:
-        ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text().splitlines()
-                 if "registers" in ln or "spill" in ln]
+        ptxas = _ptxas_by_kernel(so.with_suffix(".log").read_text())
         emit({"phase": "build", "ok": True, "seconds": seconds, "library": so.name,
-              "ptxas": ptxas})
+              "ptxas": [f"{name}: {info}" for name, info in ptxas.items()]})
+        if "verify_attention" in so.name:
+            mma = [info for name, info in ptxas.items()
+                   if name.startswith("partial_kernel_mma")]
+            assert mma and all("0 bytes spill stores, 0 bytes spill loads" in info
+                               for info in mma), f"partial_kernel_mma: {mma}"
     emit({"phase": "build_all", "ok": True, "seconds": total})
+
+
+def _ptxas_by_kernel(log):
+    """``nvcc -Xptxas -v`` output as {kernel: "stack and spill bytes; registers"}.
+    A kernel is named by its identifier and mangled template arguments
+    (``partial_kernel_mmaILi128EE``)."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            tail = re.search(r"_cu_[0-9a-f]{8}(\d+)", name)
+            if tail:  # anonymous namespace: <len><identifier><template args>Ev<params>
+                rest = name[tail.end():]
+                name = rest[:int(tail.group(1))] + rest[int(tail.group(1)):].split("Ev")[0]
+            out[name] = ""
+        elif name and ("spill" in ln or "registers" in ln):
+            info = ln.replace("ptxas info    :", "").strip()
+            out[name] = f"{out[name]}; {info}" if out[name] else info
+    return out
 
 
 def kernel_case(name, seed, dev, dtype, h, hkv, s, t_reg, start, layers, mask, flush,
@@ -124,6 +175,7 @@ def kernel_case(name, seed, dev, dtype, h, hkv, s, t_reg, start, layers, mask, f
     ms = timed_ms(lambda: va.verify_attention(*args, layer_idx=layer), flush)
     plain_ms = timed_ms(lambda: va.verify_attention_ref(*args, layer_idx=layer), flush)
     library_ms = timed_ms(library, flush)
+    split = kernel_split_ms(lambda: va.verify_attention(*args, layer_idx=layer), flush)
     elem = q.element_size()
     moved = 2 * total * hkv * d * elem + 2 * q.numel() * elem + mask.numel()
     ops = 4 * h * s * total * d
@@ -132,7 +184,7 @@ def kernel_case(name, seed, dev, dtype, h, hkv, s, t_reg, start, layers, mask, f
            "S": s, "T_reg": t_reg, "tree_start": start, "max_len": max_len, "D": d,
            "max_abs_err": err, "tol": TOL[dtype], "ms": ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **split}
     emit({"phase": "kernel_vs_plain", **row})
     assert err <= TOL[dtype], f"{name}: max abs err {err} > {TOL[dtype]}"
     return row
@@ -140,8 +192,10 @@ def kernel_case(name, seed, dev, dtype, h, hkv, s, t_reg, start, layers, mask, f
 
 def phase_kernel(dev):
     """Table row 1a's four main-path geometries at 7B width (H = Hkv = 32,
-    D = 128, max_len 2048), plus GQA and float32.  Starts are not 64-row
-    aligned and every region crosses a 64-row tile edge."""
+    D = 128, max_len 2048), plus GQA, float32 and a ragged region end.
+    Starts are not 64-row aligned and every region crosses a 64-row tile
+    edge.  The bf16 cases run the tensor-core partial kernel, float32 the
+    CUDA-core one."""
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(0)
     tree = torch.tril(torch.rand((30, 30), generator=g) < 0.3)
@@ -161,6 +215,9 @@ def phase_kernel(dev):
         kernel_case("draft_expand", 3, dev, bf16, 32, 32, 8, 24, 300, None, expand, flush),
         kernel_case("gqa_groups4", 4, dev, bf16, 32, 8, 30, 30, 301, 32, tree, flush),
         kernel_case("target_verify_f32", 5, dev, f32, 32, 32, 30, 30, 301, 32, tree, flush),
+        # ragged: the region ends one column into a 64-row chunk (total 321)
+        kernel_case("region_one_column_into_a_chunk", 6, dev, bf16, 32, 32, 30, 30,
+                    5 * 64 + 1 - 30, 32, tree, flush),
     ]
     return rows
 
@@ -300,6 +357,7 @@ def kernel_case_batched(name, seed, dev, dtype, h, hkv, s, t_reg, starts, layers
     plain_ms = timed_ms(lambda: va.verify_attention_batched_ref(*args), flush)
     yard_ms = timed_ms(library, flush)
     one_a_ms = timed_ms(one_a_per_slot, flush)
+    split = kernel_split_ms(lambda: va.verify_attention_batched(*args), flush)
     rows = sum(starts) + b * t_reg
     elem = 1 if int8 else q.element_size()
     moved = (2 * rows * hkv * d * elem + (2 * rows * hkv * 4 if int8 else 0)
@@ -313,7 +371,7 @@ def kernel_case_batched(name, seed, dev, dtype, h, hkv, s, t_reg, starts, layers
            "max_abs_err": err, "tol": TOL[dtype], "ms": ms, "plain_ms": plain_ms,
            "library_ms": None if int8 else yard_ms, "one_a_x_b_ms": one_a_ms,
            "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **split}
     if int8:
         row.update(library_note="no single PyTorch call attends over int8 rows with "
                                 "per-row scales", dequant_sdpa_ms=yard_ms)
@@ -328,8 +386,9 @@ def phase_kernel_batched(dev):
     """Table row 1c at the batched round's geometries, B = 4 at 7B width:
     the target verify over the 32-layer cache (slots at starts 301, 129,
     777, 1500 and layers 0, 5, 17, 31), the draft append and expansion over
-    the layerless draft cache, GQA with 4 groups, float32, and the int8 KV
-    cache at the verify and at S = 1."""
+    the layerless draft cache, GQA with 4 groups, float32, ragged starts
+    (0, max_len - T_reg), and the int8 KV cache at the verify and at
+    S = 1."""
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(2)
     b, starts, layers = 4, (301, 129, 777, 1500), (0, 5, 17, 31)
@@ -354,6 +413,10 @@ def phase_kernel_batched(dev):
                             layers, tree, flush),
         kernel_case_batched("batched_target_verify_f32", 24, dev, f32, 32, 32, 30, 30,
                             starts, layers, tree, flush),
+        # ragged: a region that ends at max_len, a slot with no committed
+        # prefix, a region ending one column into a chunk, a short slot
+        kernel_case_batched("batched_ragged_starts", 27, dev, bf16, 32, 32, 30, 30,
+                            (2048 - 30, 0, 5 * 64 + 1 - 30, 77), layers, tree, flush),
     ]
     rows_int8 = [
         kernel_case_batched("batched_target_verify_int8", 25, dev, bf16, 32, 32, 30, 30,
@@ -965,6 +1028,12 @@ def main():
           "python": sys.version.split()[0], "device": torch.cuda.get_device_name(0)})
 
     phase_build()
+    if sys.argv[1:] == ["--end-to-end"]:
+        # for comparing two checkouts on one card: the 7B bf16 decode loop and
+        # the engine only; no kernels line and no final line
+        model, _, _ = phase_full_width_depth(dev)
+        phase_serving_full_depth(dev, model)
+        return
     rows = phase_kernel(dev)
     rows_int8 = phase_kernel_int8(dev)
     rows_1c, rows_1c_int8 = phase_kernel_batched(dev)

@@ -91,6 +91,40 @@ def test_expand_shaped_region_wider_than_queries():
     np.testing.assert_allclose(out, _jax_kernel(q, k, v, tm, start), **TOL)
 
 
+def test_plain_in_bf16_matches_jax_kernel_in_bf16():
+    """The plain version in the working type (bf16 q and cache) against the
+    JAX kernel in interpret mode on the same bf16 inputs: GQA with 4 groups,
+    S = 30, the region (rows 50..79) crossing a 64-row edge.  On the card the
+    CUDA kernel is held to this plain version, so it is held to JAX here.
+
+    Tolerance: one bf16 ulp at the output's scale.  Both compute f32 scores
+    and softmax and round p to bf16 before P.V, but the JAX kernel rounds p
+    relative to a running block maximum and rescales, and both round the
+    output to bf16 once: results may land on neighbouring bf16 values.  With
+    unit-normal values the outputs stay below 2 in magnitude, where
+    neighbouring bf16 values lie 2^-7 apart."""
+    hkv, groups, s, start = 2, 4, 30, 50
+    q, k, v, tm, start = _case(hkv, groups, s, s, start, layers=2, max_len=256, seed=4)
+    bf = lambda x: torch.from_numpy(x).to(torch.bfloat16)
+    out = tva.verify_attention(bf(q), bf(k), bf(v), torch.tensor(start, dtype=torch.int32),
+                               torch.from_numpy(tm),
+                               layer_idx=torch.tensor(1, dtype=torch.int32))
+    assert out.dtype == torch.bfloat16
+    out = t2n(out.float())
+    jb = lambda x: jnp.asarray(x).astype(jnp.bfloat16)
+    with pltpu.force_tpu_interpret_mode():
+        ref = pallas_attention.verify_attention(
+            jb(q), jb(k), jb(v), jnp.asarray(start, jnp.int32), jnp.asarray(tm), block=64,
+            layer_idx=jnp.asarray(1, jnp.int32))
+    assert ref.dtype == jnp.bfloat16
+    ref = np.asarray(ref.astype(jnp.float32))
+    assert np.abs(ref).max() < 2.0
+    np.testing.assert_allclose(out, ref, rtol=0, atol=2.0 ** -7)
+    # about half of the outputs agree to the bit (0.52 of them when this was
+    # written), none differs by more than the one step allowed above
+    assert (out == ref).mean() > 0.25
+
+
 def test_cpu_wrapper_runs_the_plain_version_without_a_launch():
     q, k, v, tm, start = _case(2, 1, 4, 4, 20, d=16, max_len=64, seed=3)
     before = tva.verify_attention.launches
