@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch + CUDA port (vispec_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--end-to-end]
+    python3 chip_smoke.py [--end-to-end | --q4-times CHECKOUT [CHECKOUT ...]]
 
 Builds the port's CUDA kernels from the sources in this checkout (in
 parallel), holds each against its plain PyTorch version at the main paths'
@@ -21,7 +21,9 @@ the script exits non-zero without that line; so does a machine without a
 CUDA device.  With ``--end-to-end`` it builds and runs only the 32-layer
 bfloat16 decode loop and the serving engine (``full_width_depth``, its
 profiles, ``serving_full_depth``), to compare two checkouts within one call
-on one card, and prints neither of the last lines.
+on one card, and prints neither of the last lines.  ``--q4-times`` times
+kernel 2 alone in each checkout given (for example: the parent unpacked
+under build/, this one, this one, the parent), and prints neither either.
 """
 
 import json
@@ -110,11 +112,10 @@ def phase_build():
         ptxas = _ptxas_by_kernel(so.with_suffix(".log").read_text())
         emit({"phase": "build", "ok": True, "seconds": seconds, "library": so.name,
               "ptxas": [f"{name}: {info}" for name, info in ptxas.items()]})
-        if "verify_attention" in so.name:
-            mma = [info for name, info in ptxas.items()
-                   if name.startswith("partial_kernel_mma")]
-            assert mma and all("0 bytes spill stores, 0 bytes spill loads" in info
-                               for info in mma), f"partial_kernel_mma: {mma}"
+        tag = "partial_kernel_mma" if "verify_attention" in so.name else "q4_mma_kernel"
+        mma = [info for name, info in ptxas.items() if name.startswith(tag)]
+        assert mma and all("0 bytes spill stores, 0 bytes spill loads" in info
+                           for info in mma), f"{tag}: {mma}"
     emit({"phase": "build_all", "ok": True, "seconds": total})
 
 
@@ -470,13 +471,45 @@ def q4_case(dev, k, n, m, flush):
 def phase_kernel_q4(dev):
     """Table row 2 at the int4 draft's matrices (7B): M = 1 (root ranking),
     8 (beam expansion) and 64 (the largest M the dispatch rule sends to the
-    kernel)."""
+    kernel); and the B = 4 engine's stacked rows: M = 4 (root ranking), 20
+    (append) and 32 (expansion)."""
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     rows = [q4_case(dev, k, n, m, flush)
             for k, n in ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
-            for m in (1, 8, 64)]
+            for m in (1, 4, 8, 20, 32, 64)]
     torch.cuda.empty_cache()
     return rows
+
+
+Q4_TIMES_ONE = """
+import os, sys
+root = os.path.abspath(sys.argv[1])
+sys.path.insert(0, root)
+os.chdir(root)
+import torch
+import chip_smoke
+dev = torch.device("cuda", 0)
+chip_smoke.phase_build()
+flush = torch.empty(2 * chip_smoke.L2_BYTES, dtype=torch.uint8, device=dev)
+for k, n in ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)):
+    for m in (1, 4, 8, 20, 32, 64):
+        chip_smoke.q4_case(dev, k, n, m, flush)
+"""
+
+
+def q4_times(roots):
+    """Kernel 2 of each checkout in ``roots``, in the order given, each in a
+    process of its own: that checkout's ``phase_build`` and its ``q4_case``
+    at M = 1, 4, 8, 20, 32 and 64 over the four 7B draft matrices.  Every
+    line is printed tagged with its checkout."""
+    for root in roots:
+        proc = subprocess.run([sys.executable, "-c", Q4_TIMES_ONE, root], capture_output=True,
+                              text=True, timeout=900)
+        for ln in proc.stdout.splitlines():
+            if ln.startswith("{"):
+                emit({"checkout": root, **json.loads(ln)})
+        if proc.returncode != 0:
+            sys.exit(f"{root}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
 
 
 def phase_int8_qdot_cost(dev):
@@ -689,11 +722,19 @@ def _profile(fn):
     kernels = sorted((e for e in stats if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.device_time_total)
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    port = {}  # the port's own kernels: [launches, device ms]
+    for e in kernels:
+        for tag in ("q4_mma_kernel", "partial_kernel_mma", "partial_kernel", "combine_kernel"):
+            if tag in e.key:
+                c, ms = port.get(tag, (0, 0.0))
+                port[tag] = (c + e.count, ms + e.device_time_total / 1e3)
+                break
     host = sorted((e for e in stats if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "kernel_launches": sum(e.count for e in kernels),
+            "port_kernels": {k: list(v) for k, v in port.items()},
             "top_kernels_ms": [[e.key[:60], e.count, e.device_time_total / 1e3]
                                for e in kernels[:6]],
             "top_host_self_ms": [[e.key[:40], e.count, e.self_cpu_time_total / 1e3]
@@ -907,7 +948,10 @@ def phase_serving_quant_full_depth(dev, qmodel):
     dispatched round, 32 launches of 1c over the int8 target cache, 4 over
     the bf16 draft cache and 40 int4 products (kernel 2: the draft's
     products take the B * K rows of all slots at once); per prefill, 3 of
-    1a and 31 of kernel 2, as in the single-request mode."""
+    1a and 31 of kernel 2, as in the single-request mode.  Then
+    torch.profiler over one chunk of 8 rounds at B = 4
+    (``profile_serving_quant_chunk``): kernel 2's launches and device ms
+    per round."""
     from vispec_tpu_torch.ops import quant
 
     _warm_engine(qmodel, dev)
@@ -937,6 +981,12 @@ def phase_serving_quant_full_depth(dev, qmodel):
     assert row["ok"], row
     del eng
     torch.cuda.empty_cache()
+    chunk = _profile_engine_chunk(qmodel, 4)
+    q4_calls, q4_ms = chunk["port_kernels"].get("q4_mma_kernel", (0, 0.0))
+    emit({"phase": "profile_serving_quant_chunk", **chunk,
+          "q4_launches_per_round": q4_calls / chunk["rounds"],
+          "q4_ms_per_round": q4_ms / chunk["rounds"],
+          "device_busy_ms_per_round": chunk["device_busy_ms"] / chunk["rounds"]})
     return counts
 
 
@@ -1021,6 +1071,9 @@ def main():
         print("chip_smoke: no CUDA device; this script measures the GPU port only",
               file=sys.stderr)
         sys.exit(2)
+    if sys.argv[1:2] == ["--q4-times"]:
+        q4_times(sys.argv[2:])
+        return
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

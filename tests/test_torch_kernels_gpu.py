@@ -201,15 +201,28 @@ def test_verify_attention_int8_kernel_matches_plain(cuda_device, dtype, h, hkv, 
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+def _q4_case(dev, k, n, group_size, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return quant.quantize_q4(torch.randn((k, n), generator=g, device=dev) * 0.02,
+                             group_size=group_size), g
+
+
+# The 7B draft's matrices, two small ones, and ragged ones: N = 144 (a
+# second column tile with 16 live columns), groups of 24 and 8 rows (a group
+# ends halfway through a k16 step), 25 and 65 groups (uneven K splits).
+Q4_SHAPES = [(4096, 4096, 128), (11008, 4096, 128), (4096, 32000, 128), (768, 512, 128),
+             (64, 128, 32), (1200, 144, 24), (1040, 144, 8), (48, 144, 24)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("k,n", [(4096, 4096), (11008, 4096), (768, 512), (64, 128)])
-@pytest.mark.parametrize("m", [1, 5, 8, 64])
-def test_q4_matmul_kernel_matches_plain(cuda_device, k, n, m):
+@pytest.mark.parametrize("k,n,group_size", Q4_SHAPES)
+@pytest.mark.parametrize("m", [1, 4, 5, 8, 17, 20, 32, 33, 64])
+def test_q4_matmul_kernel_matches_plain(cuda_device, k, n, group_size, m):
     """Kernel 2 against the same quantized math in float32 (summation order
     only) and against its plain version, which rounds the dequantized
     weights to bf16 (relative to the output's largest magnitude)."""
-    g = torch.Generator(device=cuda_device).manual_seed(k + n + m)
-    w4 = quant.quantize_q4(torch.randn((k, n), generator=g, device=cuda_device) * 0.02)
+    w4, g = _q4_case(cuda_device, k, n, group_size, k + n + m)
+    assert k // w4.s.shape[0] == group_size
     x = torch.randn((m, k), generator=g, device=cuda_device, dtype=torch.bfloat16)
     before = quant.q4_matmul.launches
     out = quant.q4_matmul(x, w4)
@@ -220,6 +233,39 @@ def test_q4_matmul_kernel_matches_plain(cuda_device, k, n, m):
     assert out.dtype == torch.float32 and out.shape == (m, n)
     assert ((out - exact).abs().max() / exact.abs().max()).item() <= 1e-5
     assert ((out - ref).abs().max() / ref.abs().max()).item() <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n,group_size,m", [(11008, 4096, 128, 20), (4096, 4096, 128, 64),
+                                              (1040, 144, 8, 33)])
+def test_q4_matmul_kernel_is_reproducible(cuda_device, k, n, group_size, m):
+    """The K split is reduced in a fixed order: two calls agree bitwise."""
+    w4, g = _q4_case(cuda_device, k, n, group_size, 3 * m)
+    x = torch.randn((m, k), generator=g, device=cuda_device, dtype=torch.bfloat16)
+    a = quant.q4_matmul(x, w4)
+    b = quant.q4_matmul(x, w4)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n,group_size,m", [(1200, 144, 24, 5), (4096, 4096, 128, 33),
+                                              (1040, 144, 8, 17)])
+def test_q4_matmul_kernel_reads_nothing_past_its_operands(cuda_device, k, n, group_size, m):
+    """x's rows past M and the floats past the last scale are NaN in the same
+    allocations; none of it reaches the output."""
+    w4, g = _q4_case(cuda_device, k, n, group_size, 5 * m)
+    xbuf = torch.full((64, k), float("nan"), device=cuda_device, dtype=torch.bfloat16)
+    xbuf[:m] = torch.randn((m, k), generator=g, device=cuda_device, dtype=torch.bfloat16)
+    sbuf = torch.full((w4.s.numel() + 4 * n,), float("nan"), device=cuda_device)
+    sbuf[:w4.s.numel()] = w4.s.reshape(-1)
+    poisoned = quant.Q4Tensor(w4.packed, sbuf[:w4.s.numel()].view(w4.s.shape))
+    x = xbuf[:m]
+    out = quant.q4_matmul(x, poisoned)
+    exact = x.float() @ quant.dequantize(w4, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert ((out - exact).abs().max() / exact.abs().max()).item() <= 1e-5
 
 
 @pytest.mark.gpu

@@ -4,18 +4,22 @@ same weights and numpy inputs (float32, CPU).
 Hidden states and K/V rows agree to 1e-4 abs (a full forward in float32,
 other summation order); token ids, lengths and tree structure exactly."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from tests.torch_parity import (CPU, J_DCFG, J_SPEC, J_TCFG, MAX_LEN, T_DCFG, T_SPEC,
-                                T_TCFG, make_models, t2n)
+from tests.torch_parity import (CPU, GEOMETRY, J_DCFG, J_SPEC, J_TCFG, MAX_LEN, T_DCFG,
+                                T_SPEC, T_TCFG, make_models, t2n, to_numpy_tree)
+from vispec_tpu.configs import LlamaConfig as JLlamaConfig
 from vispec_tpu.models import draft as jdraft
 from vispec_tpu.models import llama as jllama
 from vispec_tpu.ops import kv_cache as jkv
 from vispec_tpu.ops.attention import causal_mask as j_causal_mask
 from vispec_tpu.ops.attention import tree_verify_mask as j_tree_verify_mask
+from vispec_tpu_torch import configs as tconfigs
+from vispec_tpu_torch.convert.params import from_numpy
 from vispec_tpu_torch.models import draft as tdraft
 from vispec_tpu_torch.models import llama as tllama
 from vispec_tpu_torch.ops import kv_cache as tkv
@@ -156,3 +160,55 @@ def test_unfolded_fuse_matches_jax(models):
     we, wh, b = tdraft.decode_fuse_weights(td, T_DCFG, torch.from_numpy(img))
     _close(tdraft.fused_input(we, wh, b, torch.from_numpy(emb), torch.from_numpy(hid)),
            jdraft.fuse(jd, jnp.asarray(emb), jnp.asarray(hid), jnp.asarray(img)))
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "batched_b3"])
+def test_forward_hidden_plain_ids_on_mrope_config_match_jax(batched):
+    """A config with ``mrope_section`` (a Qwen2.5-VL target) takes plain
+    rotary embeddings for ordinary position ids, as the JAX package does for
+    1-D ids: one request, and three slots whose ``[3, S]`` ids have the shape
+    of one request's M-RoPE ids.  True M-RoPE ids are still refused."""
+    b, t, max_len = 3, 12, 256
+    cfg = dict(GEOMETRY["target"], num_hidden_layers=2, mrope_section=(2, 3, 3))
+    jcfg, tcfg = JLlamaConfig(**cfg), tconfigs.LlamaConfig(**cfg)
+    jp = jllama.init_params(jcfg, jax.random.PRNGKey(4), jnp.float32)
+    tp = from_numpy(to_numpy_tree(jp), CPU)
+    rng = np.random.default_rng(7)
+    starts = np.asarray([40, 17, 90], np.int32)
+    k0 = rng.normal(0, 1, (b, 2, 2, max_len, 16)).astype(np.float32)
+    v0 = rng.normal(0, 1, (b, 2, 2, max_len, 16)).astype(np.float32)
+    tokens = rng.integers(0, 128, (b, t)).astype(np.int32)
+    tm = np.tril(rng.uniform(size=(b, t, t)) < 0.4)
+    tm[:, np.arange(t), np.arange(t)] = True
+    tm[:, :, 0] = True
+    depth = (tm.sum(-1) - 1).astype(np.int32)
+
+    def one(tok, cache, st, m, dep):
+        return jllama.forward_hidden(jp, jcfg, jllama.embed(jp, tok), st + dep, cache,
+                                     j_tree_verify_mask(m, st, max_len), region=(st, m),
+                                     seq_len=st + t)
+
+    def pick(x):  # slot 0 alone, or all three slots
+        return x if batched else x[0]
+
+    jcache = jkv.KVCache(k=jnp.asarray(k0), v=jnp.asarray(v0), length=jnp.asarray(starts),
+                         real_length=jnp.asarray(starts))
+    jargs = (jnp.asarray(tokens), jcache, jnp.asarray(starts), jnp.asarray(tm),
+             jnp.asarray(depth))
+    if batched:
+        jh, _ = jax.vmap(one)(*jargs)
+    else:
+        jh, _ = one(*(jax.tree.map(lambda x: x[0], a) for a in jargs))
+
+    st = torch.as_tensor(pick(starts))
+    tcache = tkv.KVCache(k=torch.from_numpy(pick(k0).copy()),
+                         v=torch.from_numpy(pick(v0).copy()), length=st,
+                         real_length=st.clone())
+    pos = st[..., None] + torch.from_numpy(pick(depth))
+    args = (tp, tcfg, tllama.embed(tp, torch.from_numpy(pick(tokens))), pos, tcache, None)
+    th, _ = tllama.forward_hidden(*args, region=(st, torch.from_numpy(pick(tm))),
+                                  seq_len=st + t)
+    _close(th, jh)
+    with pytest.raises(NotImplementedError, match="M-RoPE"):
+        tllama.forward_hidden(*args, region=(st, torch.from_numpy(pick(tm))),
+                              seq_len=st + t, mrope_ids=True)

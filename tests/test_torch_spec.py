@@ -130,3 +130,66 @@ def test_tau_fixture():
         n = min(r.new_tokens, ar.new_tokens, 40)
         assert r.sequences[: 16 + n].tolist() == ar.sequences[: 16 + n].tolist()
     assert np.mean(taus) >= float(z["__tau__"]) - 0.15, (np.mean(taus), float(z["__tau__"]))
+
+
+@pytest.mark.parametrize("chunk_rounds", [8, 1], ids=["chunked", "per_round"])
+def test_stop_token_id_matches_jax(chunk_rounds):
+    """An extra stop id that first occurs mid-generation ends it and trims
+    the output after it, as JAX's ``specgenerate`` does on its chunked and
+    its per-round path."""
+    jt, jd, tt, td = make_models(seed=1)
+    prompt = list(range(50, 70))
+    jmodel = JSpecModel(J_TCFG, J_DCFG, J_SPEC, jt, jd, max_len=MAX_LEN,
+                        dtype=jnp.float32, eos_token_id=EOS)
+    tmodel = TSpecModel(T_TCFG, T_DCFG, T_SPEC, tt, td, max_len=MAX_LEN,
+                        dtype=torch.float32, eos_token_id=EOS, device=CPU)
+    jmodel.chunk_rounds = tmodel.chunk_rounds = chunk_rounds
+    full = tmodel.specgenerate(prompt, max_new_tokens=40).sequences[len(prompt):].tolist()
+    pos = next(i for i in range(8, len(full)) if full[i] not in full[:i])
+    stop = full[pos]
+    jres = jmodel.specgenerate(prompt, max_new_tokens=40, stop_token_id=stop)
+    tres = tmodel.specgenerate(prompt, max_new_tokens=40, stop_token_id=stop)
+    assert tres.sequences.tolist() == jres.sequences.tolist()
+    assert tres.sequences[len(prompt):].tolist() == full[:pos + 1]
+    assert tres.new_tokens == jres.new_tokens == pos + 1
+
+
+class _Stop(Exception):
+    pass
+
+
+def test_output_buffer_headroom_matches_jax(monkeypatch):
+    """At depth 3 every output buffer of the port leaves JAX's
+    ``2 * max(depth + 2, NUM_HEADS + 1)`` = 12 rows beyond the budget: read
+    from the ``max_out`` each prefill is handed (the prefills stop there)."""
+    from vispec_tpu.spec import loop as jloop_mod
+    from vispec_tpu_torch.spec import batch as tbatch
+
+    seen = {}
+
+    def spy(name, index):
+        def f(*args, **kw):
+            seen[name] = args[index]
+            raise _Stop
+        return f
+
+    jt, jd, tt, td = make_models(seed=2)
+    prompt, new = list(range(10, 30)), 40
+    monkeypatch.setattr(jloop_mod, "spec_prefill_donated", spy("jax", 11))
+    monkeypatch.setattr(tloop, "spec_prefill", spy("specgenerate", 10))
+    monkeypatch.setattr(tbatch, "batched_prefill", spy("batch", 8))
+    jmodel = JSpecModel(J_TCFG, J_DCFG, J_SPEC, jt, jd, max_len=MAX_LEN,
+                        dtype=jnp.float32, eos_token_id=EOS)
+    tmodel = TSpecModel(T_TCFG, T_DCFG, T_SPEC, tt, td, max_len=MAX_LEN,
+                        dtype=torch.float32, eos_token_id=EOS, device=CPU)
+    for name, call in (
+            ("jax", lambda: jmodel.specgenerate(prompt, max_new_tokens=new)),
+            ("specgenerate", lambda: tmodel.specgenerate(prompt, max_new_tokens=new)),
+            ("batch", lambda: tbatch.generate_batch(
+                tt, td, T_TCFG, T_DCFG, T_SPEC, [prompt], max_new_tokens=new,
+                max_len=MAX_LEN, eos_id=EOS, dtype=torch.float32, device=CPU))):
+        with pytest.raises(_Stop):
+            call()
+    assert seen["jax"] - new == 12
+    assert seen["specgenerate"] - new == seen["batch"] - new == 12
+    assert tmodel.serving_engine(batch_size=2, max_new_tokens=new).max_out - new == 12

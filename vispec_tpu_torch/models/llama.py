@@ -104,13 +104,20 @@ def forward_hidden(
     region=None,  # optional (start [B?], mask [B?, S, T_reg]) => verify_attention
     return_new_kv: bool = False,
     seq_len=None,  # real kv length [B?] (dynamic-NTK stretch; None => from positions)
+    mrope_ids: bool = False,  # position_ids are 3-row M-RoPE ids (Qwen2.5-VL)
 ):
     """Run the decoder stack; returns (final-normed hidden [B?, S, hidden],
     cache with the new block written at cache.length — call
     ``kv_cache.advance`` afterwards).  With ``return_new_kv`` also returns
-    the appended K/V blocks, each [B?, L, H_kv, S, D]."""
-    if cfg.mrope_section is not None:
-        raise NotImplementedError("M-RoPE (Qwen2.5-VL) targets are not ported yet")
+    the appended K/V blocks, each [B?, L, H_kv, S, D].
+
+    Ordinary per-request ids take plain rotary embeddings, also on a config
+    with ``mrope_section`` (a Qwen2.5-VL target's text positions, as in the
+    JAX package).  The caller says which kind it passes: the shape cannot
+    tell, since batched ids ``[B, S]`` at B = 3 look like one request's
+    ``[3, S]`` M-RoPE ids."""
+    if mrope_ids:
+        raise NotImplementedError("M-RoPE position ids (Qwen2.5-VL) are not ported yet")
     cos, sin = rope_ops.cos_sin(
         position_ids,
         cfg.head_dim,

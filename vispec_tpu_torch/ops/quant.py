@@ -227,21 +227,49 @@ def _q4_library() -> ctypes.CDLL:
     if _q4_lib is None:
         lib = cuda_build.load("q4_matmul")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.vispec_q4_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.vispec_q4_matmul.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         lib.vispec_q4_matmul.restype = i
-        lib.vispec_q4_matmul_tile_n.argtypes = []
-        lib.vispec_q4_matmul_tile_n.restype = i
+        for fn in (lib.vispec_q4_matmul_tile_n, lib.vispec_q4_matmul_max_splits):
+            fn.argtypes = []
+            fn.restype = i
+        lib.vispec_q4_matmul_max_clusters.argtypes = [i, i, i, i, i]
+        lib.vispec_q4_matmul_max_clusters.restype = i
         _q4_lib = lib
     return _q4_lib
 
 
-def _q4_split(n_tiles: int, groups_per_half: int, sms: int):
-    """K split of the kernel's grid: enough (column tile, group range)
-    blocks for two per SM, each a whole number of quantization groups.
+def _q4_split(n_tiles: int, groups_per_half: int, max_splits: int, clusters) -> tuple:
+    """K split of the kernel's grid: ``splits`` blocks per column tile, each
+    a whole number of quantization groups, at most ``max_splits`` (the
+    splits of a tile form one cluster).  ``clusters(splits)`` is how many
+    such clusters the card holds at once.  Takes the split with the least
+    time in units of one group, ``waves x (groups per split + 1)`` (the 1:
+    a block's start and its reduction); the fewest splits among equals.
     Returns (splits, groups per split)."""
-    want = min(groups_per_half, max(1, -(-2 * sms // n_tiles)))
-    per = -(-groups_per_half // want)
-    return -(-groups_per_half // per), per
+    best = None
+    for want in range(1, min(groups_per_half, max_splits) + 1):
+        per = -(-groups_per_half // want)
+        splits = -(-groups_per_half // per)
+        cost = -(-n_tiles // clusters(splits)) * (per + 1)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    return best[1], best[2]
+
+
+_Q4_CLUSTERS: Dict[tuple, int] = {}
+
+
+def _q4_clusters(lib, device: torch.device, m: int, kh: int, n: int, group_size: int,
+                 splits: int) -> int:
+    """Clusters of ``splits`` blocks of the kernel for this shape that the
+    card holds at once (an occupancy query, kept per instantiation)."""
+    key = (device.index, -(-m // 16), group_size, splits)
+    if key not in _Q4_CLUSTERS:
+        count = lib.vispec_q4_matmul_max_clusters(m, kh, n, group_size, splits)
+        if count <= 0:
+            raise RuntimeError(f"q4_matmul: occupancy query failed ({count})")
+        _Q4_CLUSTERS[key] = count
+    return _Q4_CLUSTERS[key]
 
 
 def q4_matmul(x: torch.Tensor, w: Q4Tensor) -> torch.Tensor:
@@ -277,18 +305,19 @@ def q4_matmul(x: torch.Tensor, w: Q4Tensor) -> torch.Tensor:
     if n % 16:
         raise ValueError(f"q4_matmul: N = {n} is not a multiple of 16")
     x, packed, s = x.contiguous(), packed.contiguous(), s.contiguous()
+    if x.data_ptr() % 16:  # the kernel copies x's rows in 16-byte pieces
+        x = x.clone()
     if packed.data_ptr() % 16 or s.data_ptr() % 16:
         raise ValueError("q4_matmul: packed and scales must be 16-byte aligned")
 
     lib = _q4_library()
     n_tiles = -(-n // lib.vispec_q4_matmul_tile_n())
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits, per = _q4_split(n_tiles, kh // group_size, sms)
+    splits, per = _q4_split(
+        n_tiles, kh // group_size, lib.vispec_q4_matmul_max_splits(),
+        lambda sp: _q4_clusters(lib, x.device, m, kh, n, group_size, sp))
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    part = out if splits == 1 else torch.empty((splits, m, n), dtype=torch.float32,
-                                               device=x.device)
     err = lib.vispec_q4_matmul(
-        x.data_ptr(), packed.data_ptr(), s.data_ptr(), part.data_ptr(), out.data_ptr(),
+        x.data_ptr(), packed.data_ptr(), s.data_ptr(), out.data_ptr(),
         m, kh, n, group_size, splits, per,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:

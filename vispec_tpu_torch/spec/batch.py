@@ -26,7 +26,7 @@ from ..models import draft as draft_mod
 from ..models import llama
 from ..ops import kv_cache as kv
 from . import loop as spec_loop
-from .spec_model import _bucket, _Readback
+from .spec_model import _bucket, _Readback, output_rows
 
 
 def _slot_cache(cache: kv.KVCache, i: int) -> kv.KVCache:
@@ -249,7 +249,7 @@ def generate_batch(
     sampling = spec_loop.SamplingParams(temperature, top_p, int(top_k))
     spec_loop._require_greedy(sampling)
     slack = max(spec.total_tokens, spec.depth * spec.top_k + spec.depth + 2) + 10
-    max_out = max_new_tokens + 2 * (spec.depth + 2)
+    max_out = output_rows(spec, max_new_tokens)
     requests = text_requests(tparams, dcfg, prompts, max_len, slack, device)
     longest = max(len(p) for p in prompts)
     budget = min(max_new_tokens, max_len - longest - slack)

@@ -33,7 +33,7 @@ from ..models import draft as draft_mod
 from ..ops import kv_cache as kv
 from . import batch as batch_mod
 from . import loop as spec_loop
-from .spec_model import MEDUSA_NUM_HEADS, _bucket, _Readback
+from .spec_model import _bucket, _Readback, output_rows
 
 _VISION_KEYS = ("pixel_values", "pixel_values_videos")
 
@@ -100,7 +100,7 @@ class ServingEngine:
         if self.max_new <= 0:
             raise ValueError(f"no headroom: max_len={model.max_len}, pad bucket "
                              f"{self.pad}, slack {self.slack}")
-        self.max_out = self.max_new + 2 * max(spec.depth + 2, MEDUSA_NUM_HEADS + 1)
+        self.max_out = output_rows(spec, self.max_new)
         self._n_prefills = 0
 
         # Admission prefills run in small caches (pad-bucket rows, not
@@ -262,9 +262,10 @@ class ServingEngine:
                 raise NotImplementedError("vision requests are not ported yet")
             if any(k in request for k in ("temperature", "top_p",
                                           "repetition_penalty", "top_k")):
-                raise NotImplementedError(
-                    "per-request sampling keys need per_request_sampling, which is "
-                    "not ported yet")
+                raise ValueError(
+                    "per-request sampling keys need "
+                    "ServingEngine(per_request_sampling=True); this engine uses "
+                    "one static sampling config for all slots")
             if max_new_tokens is None:
                 max_new_tokens = request.get("max_new_tokens")
         cap = self.max_new if max_new_tokens is None else int(max_new_tokens)

@@ -33,9 +33,16 @@ def _bucket(n: int, step: int = 128) -> int:
 
 
 # The JAX package's models/medusa.NUM_HEADS: a medusa round commits up to
-# NUM_HEADS + 1 tokens, and the batched and serving output buffers leave room
-# for whichever drafter commits more per round.
+# NUM_HEADS + 1 tokens, and the output buffers leave room for whichever
+# drafter commits more per round.
 MEDUSA_NUM_HEADS = 5
+
+
+def output_rows(spec: SpecConfig, max_new_tokens: int) -> int:
+    """Rows of a request's output buffer: the budget plus two rounds'
+    commits of the drafter that commits more per round (the JAX package's
+    ``max_new_tokens + 2 * max(depth + 2, NUM_HEADS + 1)``)."""
+    return max_new_tokens + 2 * max(spec.depth + 2, MEDUSA_NUM_HEADS + 1)
 
 
 @dataclass
@@ -188,8 +195,12 @@ class SpecModel:
         top_p: float = 0.0,
         top_k: int = 0,
         max_new_tokens: int = 512,
+        stop_token_id: Optional[int] = None,
     ) -> GenerationResult:
-        """Greedy speculative decoding of a text prompt."""
+        """Greedy speculative decoding of a text prompt.  Generation stops
+        at EOS or at ``stop_token_id`` (an extra stop id, such as Llama 3's
+        ``<|eot_id|>``); the output keeps the tokens up to and including the
+        first of either."""
         input_ids = np.asarray(input_ids, np.int64)
         l = int(input_ids.shape[0])
         if l == 0:
@@ -201,7 +212,7 @@ class SpecModel:
                 f"max_len={self.max_len} (need {self._cache_slack()} rows of "
                 f"tree/scratch headroom)")
         sampling = spec_loop.SamplingParams(temperature, top_p, int(top_k))
-        max_out = min(self.max_len, max_new_tokens + 2 * (self.spec.depth + 2))
+        max_out = min(self.max_len, output_rows(self.spec, max_new_tokens))
 
         embeds = self._padded_embeds(input_ids, pad_len)
         plan, max_span = draft_mod.make_prefill_plan(
@@ -225,7 +236,9 @@ class SpecModel:
         # the PREVIOUS chunk's counters while this one runs.  Chunks shrink as
         # the tokens-per-round estimate says generation is about to finish: a
         # latched round still runs a full verify.  Each live round commits at
-        # least one token, so budget + 1 rounds bound the whole loop.
+        # least one token, so budget + 1 rounds bound the whole loop.  With a
+        # stop id the host reads the output after each chunk (a synced read;
+        # chunk_rounds = 1 makes that every round).
         prev = 0
         pending: Optional[_Readback] = None
         stop = False
@@ -266,14 +279,21 @@ class SpecModel:
             if pending is not None:
                 stop = process(pending.values())
             pending = batch
+            if not stop and stop_token_id is not None:
+                out_now = state.output[:int(state.out_len)]
+                if bool((out_now == stop_token_id).any()):
+                    break
         if pending is not None and not stop:
             process(pending.values())
         out_len = int(state.out_len)
         decode_time = time.perf_counter() - t0
 
         out = state.output[:out_len].cpu().numpy().astype(np.int64)
-        # keep tokens up to and including the first EOS
-        eos_pos = np.nonzero(out == self.eos_token_id)[0]
+        # keep tokens up to and including the first EOS or stop id
+        stops = out == self.eos_token_id
+        if stop_token_id is not None:
+            stops |= out == stop_token_id
+        eos_pos = np.nonzero(stops)[0]
         if eos_pos.size:
             out = out[: eos_pos[0] + 1]
         self.target_cache = kv.reset(state.target_cache)
@@ -376,10 +396,11 @@ class SpecModel:
         top_k: int = 0,
     ) -> List[GenerationResult]:
         """Batched multi-request decoding of text requests (dicts with
-        ``input_ids``): all requests share one pad bucket, prefill one by one
-        into their slots of the pooled stacked caches, and decode together
-        in batched rounds; finished requests are frozen in place until the
-        batch drains.  Greedy outputs equal ``specgenerate``'s."""
+        ``input_ids``): each request is padded to its own 128-row bucket and
+        prefilled on its own into its slot of the pooled stacked caches,
+        then all decode together in batched rounds; finished requests are
+        frozen in place until the batch drains.  Greedy outputs equal
+        ``specgenerate``'s."""
         from . import batch as batch_mod
 
         for r in requests:
@@ -391,8 +412,7 @@ class SpecModel:
         prompts = [np.asarray(r["input_ids"], np.int64) for r in requests]
         reqs = batch_mod.text_requests(self.tparams, self.dcfg, prompts, self.max_len,
                                        slack, self.device)
-        pad_block = max(self.spec.depth + 2, MEDUSA_NUM_HEADS + 1)
-        max_out = min(self.max_len, max_new_tokens + 2 * pad_block)
+        max_out = min(self.max_len, output_rows(self.spec, max_new_tokens))
         states = batch_mod.batched_prefill(
             self.tparams, self.dparams, self.tcfg, self.dcfg, self.spec, sampling, reqs,
             self.max_len, max_out, self.dtype, cache_pool=self._batch_pool,
