@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch + CUDA port (vispec_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--end-to-end | --q4-times CHECKOUT [CHECKOUT ...]]
+    python3 chip_smoke.py
+    python3 chip_smoke.py (--end-to-end | --attention-times | --q4-times) [CHECKOUT ...]
 
 Builds the port's CUDA kernels from the sources in this checkout (in
 parallel), holds each against its plain PyTorch version at the main paths'
@@ -18,12 +19,19 @@ kernel's launches counted per round.  Prints one JSON line per phase, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failed phase raises and
 the script exits non-zero without that line; so does a machine without a
-CUDA device.  With ``--end-to-end`` it builds and runs only the 32-layer
-bfloat16 decode loop and the serving engine (``full_width_depth``, its
-profiles, ``serving_full_depth``), to compare two checkouts within one call
-on one card, and prints neither of the last lines.  ``--q4-times`` times
-kernel 2 alone in each checkout given (for example: the parent unpacked
-under build/, this one, this one, the parent), and prints neither either.
+CUDA device.
+
+The other forms compare checkouts within one call on one card (for
+example: the parent unpacked under build/, this one, this one, the
+parent; this one alone if none is given).  Each checkout runs in a process
+of its own with its own chip_smoke and kernels, its lines tagged with it,
+and neither of the last lines is printed.  ``--end-to-end``: the 32-layer
+bfloat16 decode loop and engine, then the same model quantized, single
+request and through the engine (``full_width_depth``,
+``serving_full_depth``, ``quant_full_depth``,
+``serving_quant_full_depth`` and their profiles).  ``--attention-times``:
+every attention ``kernel_vs_plain`` line (rows 1a, 1b, 1c).
+``--q4-times``: kernel 2 alone.
 """
 
 import json
@@ -72,6 +80,21 @@ def timed_ms(fn, flush, n=30):
     return sum(s.elapsed_time(e) for s, e in events) / n
 
 
+def _kernel_tag(key):
+    """Which of the port's kernels a profiler key names, or None.  The two
+    instantiations of the tensor-core partial kernel are told apart: over an
+    int8 cache it is ``partial_kernel_mma_int8`` (demangled
+    ``partial_kernel_mma<signed char, 128>``, mangled
+    ``partial_kernel_mmaIaLi128E``), over a bf16 cache
+    ``partial_kernel_mma``."""
+    if re.search(r"partial_kernel_mma(<signed char|Ia)", key):
+        return "partial_kernel_mma_int8"
+    for tag in ("q4_mma_kernel", "partial_kernel_mma", "partial_kernel", "combine_kernel"):
+        if tag in key:
+            return tag
+    return None
+
+
 def kernel_split_ms(fn, flush, n=10):
     """Device time of the two launches of one attention call, apart: the
     mean over ``n`` calls after an L2 flush each, by kernel name, from
@@ -87,11 +110,9 @@ def kernel_split_ms(fn, flush, n=10):
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            for tag in ("partial_kernel_mma", "partial_kernel", "combine_kernel"):
-                if tag in e.key:
-                    out[tag + "_ms"] = out.get(tag + "_ms", 0.0) + e.device_time_total / 1e3 / n
-                    break
+        tag = _kernel_tag(e.key) if e.device_type == DeviceType.CUDA else None
+        if tag:
+            out[tag + "_ms"] = out.get(tag + "_ms", 0.0) + e.device_time_total / 1e3 / n
     return out
 
 
@@ -112,10 +133,13 @@ def phase_build():
         ptxas = _ptxas_by_kernel(so.with_suffix(".log").read_text())
         emit({"phase": "build", "ok": True, "seconds": seconds, "library": so.name,
               "ptxas": [f"{name}: {info}" for name, info in ptxas.items()]})
-        tag = "partial_kernel_mma" if "verify_attention" in so.name else "q4_mma_kernel"
+        # the tensor-core kernels: both attention instantiations (bf16 and
+        # int8 caches), kernel 2's four; none may spill
+        tag, count = (("partial_kernel_mma", 2) if "verify_attention" in so.name
+                      else ("q4_mma_kernel", 4))
         mma = [info for name, info in ptxas.items() if name.startswith(tag)]
-        assert mma and all("0 bytes spill stores, 0 bytes spill loads" in info
-                           for info in mma), f"{tag}: {mma}"
+        assert len(mma) == count and all("0 bytes spill stores, 0 bytes spill loads" in info
+                                         for info in mma), f"{tag}: {mma}"
     emit({"phase": "build_all", "ok": True, "seconds": total})
 
 
@@ -264,6 +288,7 @@ def kernel_case_int8(name, seed, dev, h, hkv, s, t_reg, start, layers, mask, flu
     ms = timed_ms(lambda: va.verify_attention(*args), flush)
     plain_ms = timed_ms(lambda: va.verify_attention_ref(*args), flush)
     extra_ms = timed_ms(dequant_sdpa, flush)
+    split = kernel_split_ms(lambda: va.verify_attention(*args), flush)
     moved = (2 * total * hkv * d + 2 * total * hkv * 4 + 2 * q.numel() * 2
              + mask.numel())
     ops = 4 * h * s * total * d
@@ -275,7 +300,7 @@ def kernel_case_int8(name, seed, dev, h, hkv, s, t_reg, start, layers, mask, flu
            "library_note": "no single PyTorch call attends over int8 rows with "
                            "per-row scales",
            "dequant_sdpa_ms": extra_ms, "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **split}
     emit({"phase": "kernel_vs_plain", **row})
     assert err <= TOL[dtype], f"{name} int8: max abs err {err} > {TOL[dtype]}"
     return row
@@ -283,7 +308,8 @@ def kernel_case_int8(name, seed, dev, h, hkv, s, t_reg, start, layers, mask, flu
 
 def phase_kernel_int8(dev):
     """Table row 1b's main-path geometries at 7B width: the target verify and
-    the AR step over the 32-layer int8 cache, and GQA with 4 groups."""
+    the AR step over the 32-layer int8 cache, GQA with 4 groups, and a
+    region that ends one column into a 64-row chunk."""
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(1)
     tree = torch.tril(torch.rand((30, 30), generator=g) < 0.3)
@@ -295,6 +321,8 @@ def phase_kernel_int8(dev):
         kernel_case_int8("target_verify_int8", 10, dev, 32, 32, 30, 30, 301, 32, tree, flush),
         kernel_case_int8("ar_step_int8", 11, dev, 32, 32, 1, 1, 319, 32, ones, flush),
         kernel_case_int8("gqa_groups4_int8", 12, dev, 32, 8, 30, 30, 301, 32, tree, flush),
+        kernel_case_int8("region_one_column_into_a_chunk_int8", 13, dev, 32, 32, 30, 30,
+                         5 * 64 + 1 - 30, 32, tree, flush),
     ]
 
 
@@ -388,8 +416,8 @@ def phase_kernel_batched(dev):
     the target verify over the 32-layer cache (slots at starts 301, 129,
     777, 1500 and layers 0, 5, 17, 31), the draft append and expansion over
     the layerless draft cache, GQA with 4 groups, float32, ragged starts
-    (0, max_len - T_reg), and the int8 KV cache at the verify and at
-    S = 1."""
+    (0, max_len - T_reg), and the int8 KV cache at the verify, at S = 1 and
+    at the ragged starts."""
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(2)
     b, starts, layers = 4, (301, 129, 777, 1500), (0, 5, 17, 31)
@@ -424,6 +452,9 @@ def phase_kernel_batched(dev):
                             starts, layers, tree, flush, int8=True),
         kernel_case_batched("batched_step_int8", 26, dev, bf16, 32, 32, 1, 1, starts,
                             layers, ones, flush, int8=True),
+        kernel_case_batched("batched_ragged_starts_int8", 28, dev, bf16, 32, 32, 30, 30,
+                            (2048 - 30, 0, 5 * 64 + 1 - 30, 77), layers, tree, flush,
+                            int8=True),
     ]
     return rows, rows_int8
 
@@ -481,7 +512,9 @@ def phase_kernel_q4(dev):
     return rows
 
 
-Q4_TIMES_ONE = """
+# One checkout's phases, run in a process of its own by ``checkout_runs``:
+# that checkout's own chip_smoke, package and kernels
+CHECKOUT_RUN = """
 import os, sys
 root = os.path.abspath(sys.argv[1])
 sys.path.insert(0, root)
@@ -489,22 +522,42 @@ os.chdir(root)
 import torch
 import chip_smoke
 dev = torch.device("cuda", 0)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 chip_smoke.phase_build()
+"""
+CHECKOUT_PHASES = {
+    # kernel 2 at M = 1, 4, 8, 20, 32 and 64 over the four 7B draft matrices
+    "--q4-times": """
 flush = torch.empty(2 * chip_smoke.L2_BYTES, dtype=torch.uint8, device=dev)
 for k, n in ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)):
     for m in (1, 4, 8, 20, 32, 64):
         chip_smoke.q4_case(dev, k, n, m, flush)
-"""
+""",
+    # every attention kernel_vs_plain line: rows 1a, 1b and 1c
+    "--attention-times": """
+chip_smoke.phase_kernel(dev)
+chip_smoke.phase_kernel_int8(dev)
+chip_smoke.phase_kernel_batched(dev)
+""",
+    # the 7B decode loop and the engine, bf16 and then quantized
+    "--end-to-end": """
+model, prompt, row = chip_smoke.phase_full_width_depth(dev)
+chip_smoke.phase_serving_full_depth(dev, model)
+_, qmodel = chip_smoke.phase_quant_full_depth(dev, model, prompt, row)
+chip_smoke.phase_serving_quant_full_depth(dev, qmodel)
+""",
+}
 
 
-def q4_times(roots):
-    """Kernel 2 of each checkout in ``roots``, in the order given, each in a
-    process of its own: that checkout's ``phase_build`` and its ``q4_case``
-    at M = 1, 4, 8, 20, 32 and 64 over the four 7B draft matrices.  Every
-    line is printed tagged with its checkout."""
-    for root in roots:
-        proc = subprocess.run([sys.executable, "-c", Q4_TIMES_ONE, root], capture_output=True,
-                              text=True, timeout=900)
+def checkout_runs(mode, roots):
+    """The phases of ``mode`` in each checkout of ``roots`` (this one if none
+    is given), in the order given, each in a process of its own that builds
+    and imports that checkout.  Every line is printed tagged with its
+    checkout."""
+    for root in roots or [ROOT]:
+        proc = subprocess.run([sys.executable, "-c", CHECKOUT_RUN + CHECKOUT_PHASES[mode], root],
+                              capture_output=True, text=True, timeout=1200)
         for ln in proc.stdout.splitlines():
             if ln.startswith("{"):
                 emit({"checkout": root, **json.loads(ln)})
@@ -724,11 +777,10 @@ def _profile(fn):
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     port = {}  # the port's own kernels: [launches, device ms]
     for e in kernels:
-        for tag in ("q4_mma_kernel", "partial_kernel_mma", "partial_kernel", "combine_kernel"):
-            if tag in e.key:
-                c, ms = port.get(tag, (0, 0.0))
-                port[tag] = (c + e.count, ms + e.device_time_total / 1e3)
-                break
+        tag = _kernel_tag(e.key)
+        if tag:
+            c, ms = port.get(tag, (0, 0.0))
+            port[tag] = (c + e.count, ms + e.device_time_total / 1e3)
     host = sorted((e for e in stats if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
@@ -950,8 +1002,10 @@ def phase_serving_quant_full_depth(dev, qmodel):
     products take the B * K rows of all slots at once); per prefill, 3 of
     1a and 31 of kernel 2, as in the single-request mode.  Then
     torch.profiler over one chunk of 8 rounds at B = 4
-    (``profile_serving_quant_chunk``): kernel 2's launches and device ms
-    per round."""
+    (``profile_serving_quant_chunk``), per round: kernel 2's launches and
+    device ms, and those of the int8-cache attention's partial kernel and
+    of every attention call's combine launch (the bf16 draft cache's calls
+    and the int8 cache's share that kernel)."""
     from vispec_tpu_torch.ops import quant
 
     _warm_engine(qmodel, dev)
@@ -982,11 +1036,22 @@ def phase_serving_quant_full_depth(dev, qmodel):
     del eng
     torch.cuda.empty_cache()
     chunk = _profile_engine_chunk(qmodel, 4)
-    q4_calls, q4_ms = chunk["port_kernels"].get("q4_mma_kernel", (0, 0.0))
+    rounds = chunk["rounds"]
+
+    def per_round(tag):
+        calls, ms = chunk["port_kernels"].get(tag, (0, 0.0))
+        return calls / rounds, ms / rounds
+
+    q4_calls, q4_ms = per_round("q4_mma_kernel")
+    int8_calls, int8_ms = per_round("partial_kernel_mma_int8")
+    combine_calls, combine_ms = per_round("combine_kernel")
     emit({"phase": "profile_serving_quant_chunk", **chunk,
-          "q4_launches_per_round": q4_calls / chunk["rounds"],
-          "q4_ms_per_round": q4_ms / chunk["rounds"],
-          "device_busy_ms_per_round": chunk["device_busy_ms"] / chunk["rounds"]})
+          "q4_launches_per_round": q4_calls, "q4_ms_per_round": q4_ms,
+          "int8_attention_launches_per_round": int8_calls,
+          "int8_attention_partial_ms_per_round": int8_ms,
+          "attention_combine_launches_per_round": combine_calls,
+          "attention_combine_ms_per_round": combine_ms,
+          "device_busy_ms_per_round": chunk["device_busy_ms"] / rounds})
     return counts
 
 
@@ -1071,22 +1136,16 @@ def main():
         print("chip_smoke: no CUDA device; this script measures the GPU port only",
               file=sys.stderr)
         sys.exit(2)
-    if sys.argv[1:2] == ["--q4-times"]:
-        q4_times(sys.argv[2:])
-        return
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "device": torch.cuda.get_device_name(0)})
+    if sys.argv[1:2] and sys.argv[1] in CHECKOUT_PHASES:
+        checkout_runs(sys.argv[1], sys.argv[2:])
+        return
 
     phase_build()
-    if sys.argv[1:] == ["--end-to-end"]:
-        # for comparing two checkouts on one card: the 7B bf16 decode loop and
-        # the engine only; no kernels line and no final line
-        model, _, _ = phase_full_width_depth(dev)
-        phase_serving_full_depth(dev, model)
-        return
     rows = phase_kernel(dev)
     rows_int8 = phase_kernel_int8(dev)
     rows_1c, rows_1c_int8 = phase_kernel_batched(dev)

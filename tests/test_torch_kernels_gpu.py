@@ -142,14 +142,13 @@ def test_verify_attention_batched_mma_kernel_ragged_slots(cuda_device, h, hkv, s
 
 @pytest.mark.gpu
 def test_verify_attention_other_instantiations_keep_their_kernel(cuda_device):
-    """float32, int8 caches and head_dim 16 (bf16 too) run the CUDA-core
-    partial kernel: the same results within the same limits as before the
-    tensor-core kernel took the bf16 D = 128 instantiation."""
+    """float32 q (over float32 or int8 caches) and head_dim 16 (bf16 too) run
+    the CUDA-core partial kernel: the same results within the same limits as
+    before the tensor-core kernel took the bf16 D = 128 instantiations."""
     dev = cuda_device
     for dtype, d, int8, tol in [(torch.float32, 128, False, 1e-4),
                                 (torch.float32, 16, False, 1e-4),
                                 (torch.bfloat16, 16, False, 2e-2),
-                                (torch.bfloat16, 128, True, 2e-2),
                                 (torch.float32, 128, True, 1e-4),
                                 (torch.bfloat16, 16, True, 2e-2)]:
         h, hkv = (4, 2) if d == 16 else (32, 8)
@@ -163,6 +162,116 @@ def test_verify_attention_other_instantiations_keep_their_kernel(cuda_device):
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         assert err <= tol, (dtype, d, int8, err)
+
+
+def _int8_poisoned(k, v, live):
+    """``(k8, v8, ks, vs)`` quantized per row, and the same with every row at
+    and past ``live`` (a count per slot along the leading dim, or one count)
+    set to 127 and its scales to NaN: the kernel must not read those rows."""
+    k8, ks = kvc.quantize_rows(k)
+    v8, vs = kvc.quantize_rows(v)
+    clean = (k8, v8, ks, vs)
+    poisoned = tuple(t.clone() for t in clean)
+    for i, n in enumerate(live if isinstance(live, (list, tuple)) else [live]):
+        sel = (i,) if isinstance(live, (list, tuple)) else ()
+        for t in poisoned[:2]:
+            t[sel][..., n:, :] = 127
+        for t in poisoned[2:]:
+            t[sel][..., n:] = float("nan")
+    return clean, poisoned
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,h,hkv,s,t_reg,start,layers,max_len", [
+    # bf16 q over an int8 cache at D = 128: the tensor-core partial kernel
+    # with raw int8 rows converted in shared memory and P.V as hi + lo
+    ("s1", 32, 32, 1, 1, 319, 3, 1024),
+    ("s5", 32, 32, 5, 5, 317, None, 1024),  # 3-D cache (no layer dim)
+    ("s30", 32, 32, 30, 30, 301, 3, 1024),
+    ("gs120", 32, 8, 30, 30, 301, 3, 1024),  # GQA 4 groups: two passes of 64 rows
+    ("gs65", 10, 2, 13, 13, 100, None, 512),
+    ("start0", 32, 32, 30, 30, 0, 2, 512),
+    ("ends_at_max_len", 32, 32, 30, 30, 512 - 30, 2, 512),
+    ("one_column_into_a_chunk", 32, 32, 30, 30, 5 * 64 + 1 - 30, 2, 512),
+])
+def test_verify_attention_int8_mma_kernel_edges(cuda_device, name, h, hkv, s, t_reg, start,
+                                                layers, max_len):
+    dev = cuda_device
+    (q, k, v, st, _), layer = _case(dev, torch.bfloat16, h, hkv, s, t_reg, start, layers,
+                                    128, max_len=max_len)
+    mask = _edge_mask(dev, s, t_reg, start + s)
+    clean, poisoned = _int8_poisoned(k, v, start + t_reg)
+    before = va.verify_attention.launches_int8
+    out = va.verify_attention(q, *poisoned[:2], st, mask, layer, *poisoned[2:])
+    ref = va.verify_attention_ref(q, *clean[:2], st, mask, layer, *clean[2:])
+    torch.cuda.synchronize()
+    assert va.verify_attention.launches_int8 == before + 1
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.gpu
+def test_verify_attention_int8_mma_kernel_row_with_no_visible_column_in_a_middle_chunk(
+        cuda_device):
+    """As the bf16 case: rows that see nothing of a chunk inside the region,
+    and a row that sees one region column only."""
+    dev, s, t_reg, start, max_len = cuda_device, 8, 200, 40, 512
+    (q, k, v, st, _), _ = _case(dev, torch.bfloat16, 32, 32, s, t_reg, start, None, 128,
+                                max_len=max_len)
+    k8, ks = kvc.quantize_rows(k)
+    v8, vs = kvc.quantize_rows(v)
+    mask = _edge_mask(dev, s, t_reg, 7)
+    mask[3, 64 - start:128 - start] = False
+    mask[5, 64 - start:192 - start] = False
+    mask[6] = False
+    mask[6, 150] = True
+    out = va.verify_attention(q, k8, v8, st, mask, None, ks, vs)
+    ref = va.verify_attention_ref(q, k8, v8, st, mask, None, ks, vs)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,hkv,s,t_reg", [(32, 32, 30, 30), (32, 8, 30, 30), (32, 32, 1, 1)])
+def test_verify_attention_batched_int8_mma_kernel_ragged_slots(cuda_device, h, hkv, s, t_reg):
+    """B = 4 over an int8 cache: a slot whose region ends at max_len, one with
+    no committed prefix, one whose region ends one column into a chunk, each
+    at another layer, rows past each slot's region poisoned.  Each slot
+    equals the single-request kernel on that slot, bit for bit."""
+    dev, b, layers, max_len = cuda_device, 4, 4, 1024
+    starts, layer_of = (max_len - t_reg, 0, 5 * 64 + 1 - t_reg, 77), (0, 3, 1, 2)
+    g = torch.Generator(device=dev).manual_seed(13)
+    q = torch.randn((b, h, s, 128), generator=g, device=dev, dtype=torch.bfloat16)
+    k = torch.randn((b, layers, hkv, max_len, 128), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    v = torch.randn(k.shape, generator=g, device=dev, dtype=torch.bfloat16)
+    clean, (k8, v8, ks, vs) = _int8_poisoned(k, v, [st + t_reg for st in starts])
+    mask = torch.stack([_edge_mask(dev, s, t_reg, i) for i in range(b)])
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    layer = torch.tensor(layer_of, dtype=torch.int32, device=dev)
+    before = va.verify_attention_batched.launches_int8
+    out = va.verify_attention_batched(q, k8, v8, st, mask, layer, ks, vs)
+    ref = va.verify_attention_batched_ref(q, *clean[:2], st, mask, layer, *clean[2:])
+    torch.cuda.synchronize()
+    assert va.verify_attention_batched.launches_int8 == before + 1
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    for i in range(b):
+        one = va.verify_attention(q[i], k8[i], v8[i], st[i], mask[i], layer[i], ks[i], vs[i])
+        assert torch.equal(one, out[i])
+
+
+@pytest.mark.gpu
+def test_verify_attention_int8_mma_kernel_is_reproducible(cuda_device):
+    """No atomics and a fixed combine order: two runs agree bit for bit."""
+    (q, k, v, st, mask), layer = _case(cuda_device, torch.bfloat16, 32, 8, 30, 30, 301, 2,
+                                       128)
+    k8, ks = kvc.quantize_rows(k)
+    v8, vs = kvc.quantize_rows(v)
+    a = va.verify_attention(q, k8, v8, st, mask, layer, ks, vs)
+    b = va.verify_attention(q, k8, v8, st, mask, layer, ks, vs)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -311,6 +311,50 @@ def test_int8_verify_attention_plain_matches_jax_kernel(hkv, groups, s, start, l
                                **TOL)
 
 
+def test_int8_verify_attention_plain_in_bf16_matches_jax_kernel():
+    """bf16 q over a stacked int8 cache (the quantized mode's working types):
+    the plain version against the JAX kernel's quantized branch in interpret
+    mode on the same bf16 q, int8 K/V and scales.  GQA with 4 groups, S = 30,
+    the region (rows 50..79) crossing a 64-row edge, layer 1 of 2.  On the
+    card the CUDA kernel is held to this plain version, so it is held to JAX
+    here.
+
+    Tolerance: one bf16 step at the output's scale.  Both take f32 scores
+    and softmax and keep p * v_scale in f32, in another order (JAX: online
+    over 64-row blocks; the plain version: one softmax), and both round the
+    output to bf16 once, so results may land on neighbouring bf16 values.
+    The outputs stay below 2 in magnitude, where those lie 2^-7 apart."""
+    rng = np.random.default_rng(11)
+    hkv, groups, s, start, layers, max_len, d = 2, 4, 30, 50, 2, 256, 128
+    shape = (layers, hkv, max_len, d)
+    q = torch.from_numpy(rng.normal(0, 1, (hkv * groups, s, d)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    k8, ks = tkv.quantize_rows(torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)))
+    v8, vs = tkv.quantize_rows(torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)))
+    tm = np.tril(rng.uniform(size=(s, s)) < 0.5)
+    np.fill_diagonal(tm, True)
+    tm[:, 0] = True
+    before = tva.verify_attention.launches_int8
+    out = tva.verify_attention(q, k8, v8, torch.tensor(start, dtype=torch.int32),
+                               torch.from_numpy(tm), torch.tensor(1, dtype=torch.int32),
+                               k_scale=ks, v_scale=vs)
+    assert tva.verify_attention.launches_int8 == before
+    assert out.dtype == torch.bfloat16
+    out = t2n(out.float())
+    with pltpu.force_tpu_interpret_mode():
+        ref = pallas_attention.verify_attention(
+            jnp.asarray(t2n(q.float())).astype(jnp.bfloat16), jnp.asarray(t2n(k8)),
+            jnp.asarray(t2n(v8)), jnp.asarray(start, jnp.int32), jnp.asarray(tm), block=64,
+            layer_idx=jnp.asarray(1, jnp.int32), k_scale=jnp.asarray(t2n(ks)),
+            v_scale=jnp.asarray(t2n(vs)))
+    assert ref.dtype == jnp.bfloat16
+    ref = np.asarray(ref.astype(jnp.float32))
+    assert np.abs(ref).max() < 2.0
+    np.testing.assert_allclose(out, ref, rtol=0, atol=2.0 ** -7)
+    # nearly all agree to the bit (0.9995 of them when this was written)
+    assert (out == ref).mean() > 0.9
+
+
 def test_int8_cache_layout_and_commit_requantizes_like_jax():
     """init_cache(quantized=True), and commit_from_blocks re-quantizing the
     accepted rows bit-identically to JAX (tests/test_quant_kv.py:100)."""

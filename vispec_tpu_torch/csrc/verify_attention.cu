@@ -16,8 +16,8 @@
 //   uses kv-head h / groups, rows group-major (row = g * S + s).  Scale
 //   D^-0.5, f32 scores, online softmax and accumulator, output in q's dtype.
 //   An int8 cache carries scales [L?, Hkv, max_len]: the key scale multiplies
-//   its score column after q.k, the value scale multiplies p (f32, not
-//   rounded) before P.V; no dequantized copy of the cache is built.
+//   its score column after q.k, the value scale multiplies p (f32) before
+//   P.V, after the row sum; no dequantized copy of the cache is built.
 //
 // Bound on an H100 SXM: the work is a few flops per cache byte, so it is
 // bound by the KV bytes it reads, 2 * (tree_start + T_reg) * Hkv * D * elem
@@ -34,25 +34,35 @@
 // length: blocks whose chunk starts at or past tree_start + T_reg exit at
 // once.  Two partial kernels write the same scratch layout:
 //
-//   partial_kernel_mma  <bf16 q, bf16 cache, D = 128>: the 7B bf16 path (rows
-//     1a and 1c, and the bf16 draft cache of the quantized mode).  Tensor
-//     cores.  One block per (kv head, chunk) reads the chunk's K and V from
-//     device memory once, as bf16, with 16-byte cp.async into shared rows
-//     padded to D + 8 (the eight rows of an ldmatrix fall in eight different
-//     bank groups; V's copy overlaps q.k).  Each of the 4 warps owns a tile
-//     of 16 query rows per pass (gs <= 64: one pass; GQA with gs = 120: two):
-//     S = q.k with mma.sync.m16n8k16 (q and K fragments by ldmatrix.x4, K's
-//     [n][k] rows are already the "col" operand), f32 scores times D^-0.5
-//     after the product, mask and row max / sum in the accumulator registers
-//     (quad shuffles), p rounded to bf16 and repacked in registers as the A
-//     operand of P.V (two 8-wide score tiles are one 16-wide k-step), V
+//   partial_kernel_mma  <bf16 q, bf16 or int8 cache, D = 128>: the 7B path
+//     (rows 1a and 1c over bf16 caches, 1b and 1c over the int8 cache of the
+//     quantized mode).  Tensor cores.  One block per (kv head, chunk) reads
+//     the chunk's K and V from device memory once, with 16-byte cp.async
+//     into shared rows padded to D + 8 (the eight rows of an ldmatrix fall in
+//     eight different bank groups; V's copy overlaps q.k).  Each of the 4
+//     warps owns a tile of 16 query rows per pass (gs <= 64: one pass; GQA
+//     with gs = 120: two): S = q.k with mma.sync.m16n8k16 (q and K fragments
+//     by ldmatrix.x4, K's [n][k] rows are already the "col" operand), f32
+//     scores times D^-0.5 after the product, mask and row max / sum in the
+//     accumulator registers (quad shuffles), p repacked in registers as the
+//     A operand of P.V (two 8-wide score tiles are one 16-wide k-step), V
 //     fragments by ldmatrix.x4.trans, 64 f32 accumulators a thread.
-//   partial_kernel  every other instantiation (f32, int8 caches, D = 16):
-//     CUDA cores.  One block per (kv head, chunk, group of 16 query rows)
-//     stages the chunk's K and V widened to f32 (16-byte loads, all in
-//     flight at once; an int8 chunk's scale rows beside its tiles) and runs
-//     scalar dot products from shared memory.  Splitting the rows as well
-//     keeps GQA (groups x S rows per head) from serialising in one block.
+//     bf16 cache: p rounded to bf16, as the plain version rounds it to the
+//     value dtype.  int8 cache: the rows land raw in the V tile's shared
+//     memory (free until P.V) and are converted to bf16 tiles there (exact:
+//     |x| <= 127; V in place, after a barrier), beside the chunk's scale
+//     rows; the key scale multiplies each score column with D^-0.5; the row
+//     max and sum use p before the value scale, as JAX does; then p *
+//     v_scale (f32) is split into bf16 hi + lo and P.V runs twice (hi.V +
+//     lo.V), so p keeps about 16 bits where the plain version keeps f32 and
+//     one bf16 rounding would keep 8.  P.V takes D in two halves there, so
+//     both instantiations fit 128 registers and 52 KB: four blocks an SM.
+//   partial_kernel  every other instantiation (f32 q, D = 16): CUDA cores.
+//     One block per (kv head, chunk, group of 16 query rows) stages the
+//     chunk's K and V widened to f32 (16-byte loads, all in flight at once;
+//     an int8 chunk's scale rows beside its tiles) and runs scalar dot
+//     products from shared memory.  Splitting the rows as well keeps GQA
+//     (groups x S rows per head) from serialising in one block.
 //
 // No TMA or wgmma: a head has 30 query rows at the verify and wgmma's tile
 // has 64; m16n8k16 fits them in two tiles.
@@ -286,14 +296,17 @@ __global__ void __launch_bounds__(THREADS) partial_kernel(
   }
 }
 
-// ---- tensor-core partial kernel (bf16 q and cache, D = 128) ----
+// ---- tensor-core partial kernel (bf16 q; bf16 or int8 cache; D = 128) ----
 
 constexpr int QTILE = 16 * WARPS;  // query rows per pass: one 16-row tile a warp
 constexpr int PAD = 8;             // bf16 of padding per shared row (16 bytes)
 
-template <int D>
+// bf16 K, V and q tiles; an int8 cache adds the chunk's two scale rows (its
+// raw rows land in the V tile, which is free until P.V)
+template <typename TC, int D>
 constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (2 * TILE + QTILE) * (D + PAD);
+  return sizeof(__nv_bfloat16) * (2 * TILE + QTILE) * (D + PAD) +
+         (std::is_same<TC, int8_t>::value ? 2 * TILE * sizeof(float) : 0);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -336,34 +349,89 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo: the low half
   return *reinterpret_cast<const unsigned*>(&h);
 }
+// the two halves of a bf16 pair, widened to float
+__device__ __forceinline__ float bf16_lo(unsigned h) { return __uint_as_float(h << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned h) { return __uint_as_float(h & 0xffff0000u); }
 
-// Copy NROWS rows of D bf16 (the first ``valid`` of them real, the rest zero)
-// from device memory into shared rows of D + PAD, 16 bytes a cp.async.  The
-// caller commits the group and waits for it.
-template <int D, int NROWS>
-__device__ __forceinline__ void stage_bf16(const __nv_bfloat16* __restrict__ src, int valid,
-                                           __nv_bfloat16* __restrict__ dst) {
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
+// Four int8 (byte b of w is element b) as two bf16 pairs, exactly: each byte
+// with its sign bit flipped is x + 128, which byte_perm drops into the low
+// mantissa byte of 2^23; one subtraction of 2^23 + 128 leaves x as a float.
+__device__ __forceinline__ void i8x4_to_bf16(unsigned w, unsigned& lo, unsigned& hi) {
+  constexpr unsigned TWO23 = 0x4b000000u;  // 2^23 as a float
+  constexpr float BIAS = 8388736.f;        // 2^23 + 128
+  const unsigned u = w ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, TWO23, 0x7540)) - BIAS;
+  const float f1 = __uint_as_float(__byte_perm(u, TWO23, 0x7541)) - BIAS;
+  const float f2 = __uint_as_float(__byte_perm(u, TWO23, 0x7542)) - BIAS;
+  const float f3 = __uint_as_float(__byte_perm(u, TWO23, 0x7543)) - BIAS;
+  lo = pack_bf16(f0, f1);
+  hi = pack_bf16(f2, f3);
+}
+
+// Copy NROWS rows of D elements (the first ``valid`` of them real) from
+// device memory into shared rows of ``dst_stride`` elements, 16 bytes a
+// cp.async.  bf16 rows past ``valid`` are zeroed here; int8 rows past it are
+// left as they are (convert_i8 zeroes them).  The caller commits the group
+// and waits for it.
+template <typename T, int D, int NROWS>
+__device__ __forceinline__ void stage_rows(const T* __restrict__ src, int valid,
+                                           T* __restrict__ dst, int dst_stride) {
+  constexpr int PER = 16 / sizeof(T);
+  constexpr int VPR = D / PER;  // 16-byte vectors per row
 #pragma unroll
   for (int i = threadIdx.x; i < NROWS * VPR; i += THREADS) {
     const int row = i / VPR, vec = i % VPR;
-    __nv_bfloat16* d = dst + row * (D + PAD) + vec * 8;
+    T* d = dst + row * dst_stride + vec * PER;
     if (row < valid) {
-      cp_async16(d, src + (size_t)row * D + vec * 8);
-    } else {
+      cp_async16(d, src + (size_t)row * D + vec * PER);
+    } else if constexpr (!std::is_same<T, int8_t>::value) {
       *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
     }
   }
 }
 
+// Convert TILE raw int8 rows of D (the first ``valid`` real, the rest zero)
+// to bf16 rows of D + PAD.  Every thread reads its 16-byte vectors first and
+// then writes them widened, 32 bytes each; IN_PLACE (the raw rows lie inside
+// the destination tile): with a barrier between the reads and the writes.
+template <int D, bool IN_PLACE>
+__device__ __forceinline__ void convert_i8(const int8_t* src, int valid, __nv_bfloat16* dst) {
+  constexpr int VPR = D / 16;
+  constexpr int ITER = TILE * VPR / THREADS;
+  static_assert(TILE * VPR % THREADS == 0, "whole vectors a thread");
+  uint4 w[ITER];
+#pragma unroll
+  for (int it = 0; it < ITER; ++it) {
+    const int i = threadIdx.x + it * THREADS;
+    w[it] = i / VPR < valid ? *reinterpret_cast<const uint4*>(src + i * 16)
+                            : make_uint4(0u, 0u, 0u, 0u);
+  }
+  if constexpr (IN_PLACE) __syncthreads();
+#pragma unroll
+  for (int it = 0; it < ITER; ++it) {
+    const int i = threadIdx.x + it * THREADS;
+    uint4 out[2];
+    i8x4_to_bf16(w[it].x, out[0].x, out[0].y);
+    i8x4_to_bf16(w[it].y, out[0].z, out[0].w);
+    i8x4_to_bf16(w[it].z, out[1].x, out[1].y);
+    i8x4_to_bf16(w[it].w, out[1].z, out[1].w);
+    uint4* d = reinterpret_cast<uint4*>(dst + (i / VPR) * (D + PAD) + (i % VPR) * 16);
+    d[0] = out[0];
+    d[1] = out[1];
+  }
+}
+
 // One block per (slot x kv head, chunk); the block walks over all query-row
 // tiles of its head, one 16-row tile per warp per pass.  Heads vary fastest
-// in the grid, as in partial_kernel.  Writes the same partials.
-template <int D>
+// in the grid, as in partial_kernel.  Writes the same partials.  TC is the
+// cache's type: bf16, or int8_t with per-row scales.
+template <typename TC, int D>
 __global__ void __launch_bounds__(THREADS) partial_kernel_mma(
     const __nv_bfloat16* __restrict__ q,  // [B * Hkv, GS, D]
-    const __nv_bfloat16* __restrict__ k,  // per slot [L?, Hkv, max_len, D]
-    const __nv_bfloat16* __restrict__ v,
+    const TC* __restrict__ k,             // per slot [L?, Hkv, max_len, D]
+    const TC* __restrict__ v,
+    const float* __restrict__ k_scale,    // per slot [L?, Hkv, max_len] (int8 only)
+    const float* __restrict__ v_scale,
     const uint8_t* __restrict__ mask,     // per slot [S, T_reg]
     const int* __restrict__ start_ptr,    // [B] committed prefix lengths
     const int* __restrict__ layer_ptr,    // [B] layer indices, or null (no layer dim)
@@ -371,8 +439,11 @@ __global__ void __launch_bounds__(THREADS) partial_kernel_mma(
     float* __restrict__ part_l,           // [B * Hkv, NC, GS] chunk row sum
     float* __restrict__ part_acc,         // [B * Hkv, NC, GS, D] chunk P.V
     int hkv, int gs, int s_len, int t_reg, int max_len, long long layer_stride,
-    long long slot_stride, long long mask_slot_stride, float scale) {
+    long long scale_layer_stride, long long slot_stride, long long scale_slot_stride,
+    long long mask_slot_stride, float scale) {
   static_assert(D % 16 == 0 && TILE % 16 == 0, "whole m16n8k16 steps");
+  constexpr bool QUANT = std::is_same<TC, int8_t>::value;
+  static_assert(QUANT || std::is_same<TC, __nv_bfloat16>::value, "bf16 or int8 cache");
   constexpr int LDS = D + PAD;
   const int bh = blockIdx.x;  // slot * hkv + kv head
   const int slot = bh / hkv;
@@ -391,15 +462,39 @@ __global__ void __launch_bounds__(THREADS) partial_kernel_mma(
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_mma);  // [TILE][LDS]
   __nv_bfloat16* vs = ks + TILE * LDS;                             // [TILE][LDS]
   __nv_bfloat16* qs = vs + TILE * LDS;                             // [QTILE][LDS]
+  // int8 cache only: the raw K and V rows in the V tile's space, and after
+  // the q tile the key scales times D^-0.5 and the value scales (both zero
+  // past ncols)
+  static_assert(2 * TILE * D <= TILE * LDS * sizeof(__nv_bfloat16), "raw rows fit");
+  int8_t* kraw = reinterpret_cast<int8_t*>(vs);                // [TILE][D]
+  int8_t* vraw = kraw + TILE * D;                              // [TILE][D]
+  float* ksc = reinterpret_cast<float*>(qs + QTILE * LDS);     // [TILE]
+  float* vsc = ksc + TILE;                                     // [TILE]
 
   const size_t base = (size_t)(slot * slot_stride + layer * layer_stride) +
                       ((size_t)hk * max_len + col0) * D;
   const __nv_bfloat16* qh = q + (size_t)bh * gs * D;
-  stage_bf16<D, TILE>(k + base, ncols, ks);
-  stage_bf16<D, QTILE>(qh, min(QTILE, gs), qs);
-  cp_async_commit();
-  stage_bf16<D, TILE>(v + base, ncols, vs);  // lands while q.k runs
-  cp_async_commit();
+  if constexpr (QUANT) {
+    stage_rows<int8_t, D, TILE>(k + base, ncols, kraw, D);
+    stage_rows<__nv_bfloat16, D, QTILE>(qh, min(QTILE, gs), qs, LDS);
+    cp_async_commit();
+    stage_rows<int8_t, D, TILE>(v + base, ncols, vraw, D);  // lands while q.k runs
+    cp_async_commit();
+    const size_t sbase = (size_t)(slot * scale_slot_stride + layer * scale_layer_stride) +
+                         (size_t)hk * max_len + col0;
+    const int c = threadIdx.x % TILE;  // one thread a key or value scale
+    if (threadIdx.x < TILE) {
+      ksc[c] = c < ncols ? k_scale[sbase + c] * scale : 0.f;
+    } else {
+      vsc[c] = c < ncols ? v_scale[sbase + c] : 0.f;
+    }
+  } else {
+    stage_rows<__nv_bfloat16, D, TILE>(k + base, ncols, ks, LDS);
+    stage_rows<__nv_bfloat16, D, QTILE>(qh, min(QTILE, gs), qs, LDS);
+    cp_async_commit();
+    stage_rows<__nv_bfloat16, D, TILE>(v + base, ncols, vs, LDS);  // lands while q.k runs
+    cp_async_commit();
+  }
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;  // accumulator rows g, g + 8; columns 2t, 2t + 1
@@ -409,18 +504,25 @@ __global__ void __launch_bounds__(THREADS) partial_kernel_mma(
   for (int p0 = 0; p0 < gs; p0 += QTILE) {
     if (p0 > 0) {
       __syncthreads();  // every warp has read the previous pass's q
-      stage_bf16<D, QTILE>(qh + (size_t)p0 * D, min(QTILE, gs - p0), qs);
+      stage_rows<__nv_bfloat16, D, QTILE>(qh + (size_t)p0 * D, min(QTILE, gs - p0), qs, LDS);
       cp_async_commit();
       cp_async_wait<0>();
     } else {
       cp_async_wait<1>();  // K and q; V may still be in flight
+      if constexpr (QUANT) {
+        __syncthreads();
+        convert_i8<D, false>(kraw, ncols, ks);
+      }
     }
     __syncthreads();
 
     const int r0 = p0 + warp * 16;  // this warp's tile of query rows
     const bool active = r0 < gs;
     const int ra = r0 + g, rb = ra + 8;
-    unsigned pf[TILE / 16][4];  // p as bf16 A fragments, one per 16-column k-step
+    // p as bf16 A fragments, one per 16-column k-step; int8: p * v_scale
+    // in two parts, pf (rounded to bf16) + pl (the rest, rounded to bf16)
+    unsigned pf[TILE / 16][4];
+    [[maybe_unused]] unsigned pl[TILE / 16][4];
     float m[2], l[2];
     if (active) {
       float sc[TILE / 8][4];
@@ -442,12 +544,24 @@ __global__ void __launch_bounds__(THREADS) partial_kernel_mma(
         }
       }
 
-      // scale after the product, as the plain version; then the visibility rule
+      // scale after the product, as the plain version (int8: times the key
+      // scale of each column); then the visibility rule
+      float csc[TILE / 8][2];  // the factor of columns j * 8 + 2t + {0, 1}
+#pragma unroll
+      for (int j = 0; j < TILE / 8; ++j) {
+        if constexpr (QUANT) {
+          const float2 f = *reinterpret_cast<const float2*>(ksc + j * 8 + 2 * t);
+          csc[j][0] = f.x;
+          csc[j][1] = f.y;
+        } else {
+          csc[j][0] = csc[j][1] = scale;
+        }
+      }
       if (all_visible) {
 #pragma unroll
         for (int j = 0; j < TILE / 8; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) sc[j][e] *= scale;
+          for (int e = 0; e < 4; ++e) sc[j][e] *= csc[j][e % 2];
       } else {
         const uint8_t* mrow[2] = {mask + (size_t)(ra % s_len) * t_reg,
                                   mask + (size_t)(rb % s_len) * t_reg};
@@ -459,7 +573,7 @@ __global__ void __launch_bounds__(THREADS) partial_kernel_mma(
             const int col = col0 + c;
             const bool ok = (e < 2 ? ra : rb) < gs && c < ncols &&
                             (col < start || mrow[e / 2][col - start] != 0);
-            sc[j][e] = ok ? sc[j][e] * scale : -INFINITY;
+            sc[j][e] = ok ? sc[j][e] * csc[j][e % 2] : -INFINITY;
           }
       }
 
@@ -483,11 +597,23 @@ __global__ void __launch_bounds__(THREADS) partial_kernel_mma(
         for (int e = 0; e < 4; ++e)  // a masked column contributes exactly 0,
           // also when the whole row is masked in this chunk (m = -inf)
           p[e] = sc[j][e] == -INFINITY ? 0.f : expf(sc[j][e] - m[e / 2]);
-        l[0] += p[0] + p[1];
+        l[0] += p[0] + p[1];  // before the value scale, as JAX sums p
         l[1] += p[2] + p[3];
-        // p is rounded to the value dtype before P.V, as in the plain version
-        pf[j / 2][(j % 2) * 2] = pack_bf16(p[0], p[1]);      // rows g
-        pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);  // rows g + 8
+        if constexpr (QUANT) {
+          // the value row scales fold into p in f32, then hi + lo in bf16
+          const float2 f = *reinterpret_cast<const float2*>(vsc + j * 8 + 2 * t);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // rows g, then g + 8
+            const float x0 = p[2 * h] * f.x, x1 = p[2 * h + 1] * f.y;
+            const unsigned hi = pack_bf16(x0, x1);
+            pf[j / 2][(j % 2) * 2 + h] = hi;
+            pl[j / 2][(j % 2) * 2 + h] = pack_bf16(x0 - bf16_lo(hi), x1 - bf16_hi(hi));
+          }
+        } else {
+          // p is rounded to the value dtype before P.V, as in the plain version
+          pf[j / 2][(j % 2) * 2] = pack_bf16(p[0], p[1]);      // rows g
+          pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);  // rows g + 8
+        }
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -499,41 +625,56 @@ __global__ void __launch_bounds__(THREADS) partial_kernel_mma(
     if (p0 == 0) {
       cp_async_wait<0>();  // V
       __syncthreads();
+      if constexpr (QUANT) {
+        convert_i8<D, true>(vraw, ncols, vs);
+        __syncthreads();
+      }
     }
 
     if (active) {
-      float o[D / 8][4];
+      // int8: D in two halves, so pf, pl and one half's accumulators fit
+      // in 128 registers (four blocks an SM, as the bf16 instantiation)
+      constexpr int DH = QUANT ? D / 2 : D;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int h0 = 0; h0 < D; h0 += DH) {
+        float o[DH / 8][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+        for (int j = 0; j < DH / 8; ++j)
 #pragma unroll
-      for (int kk = 0; kk < TILE / 16; ++kk) {
+          for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
 #pragma unroll
-        for (int jp = 0; jp < D / 16; ++jp) {
-          unsigned b[4];  // transposed: value rows (k) 0-7, 8-15 at d 0-7; then at d 8-15
-          ldmatrix_x4_trans(b, vs + (kk * 16 + lane % 16) * LDS + jp * 16 + (lane / 16) * 8);
-          mma_bf16(o[2 * jp], pf[kk], b[0], b[1]);
-          mma_bf16(o[2 * jp + 1], pf[kk], b[2], b[3]);
+        for (int kk = 0; kk < TILE / 16; ++kk) {
+#pragma unroll
+          for (int jp = 0; jp < DH / 16; ++jp) {
+            unsigned b[4];  // transposed: value rows (k) 0-7, 8-15 at d 0-7; then at d 8-15
+            ldmatrix_x4_trans(b, vs + (kk * 16 + lane % 16) * LDS + h0 + jp * 16 +
+                                     (lane / 16) * 8);
+            mma_bf16(o[2 * jp], pf[kk], b[0], b[1]);
+            mma_bf16(o[2 * jp + 1], pf[kk], b[2], b[3]);
+            if constexpr (QUANT) {
+              mma_bf16(o[2 * jp], pl[kk], b[0], b[1]);
+              mma_bf16(o[2 * jp + 1], pl[kk], b[2], b[3]);
+            }
+          }
         }
-      }
-      if (ra < gs) {
-        if (t == 0) {
-          part_m[part_head + ra] = m[0];
-          part_l[part_head + ra] = l[0];
-        }
-        float2* dst = reinterpret_cast<float2*>(part_acc + (part_head + ra) * D + 2 * t);
+        if (ra < gs) {
+          if (t == 0 && h0 == 0) {
+            part_m[part_head + ra] = m[0];
+            part_l[part_head + ra] = l[0];
+          }
+          float2* dst = reinterpret_cast<float2*>(part_acc + (part_head + ra) * D + h0 + 2 * t);
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) dst[j * 4] = make_float2(o[j][0], o[j][1]);
-      }
-      if (rb < gs) {
-        if (t == 0) {
-          part_m[part_head + rb] = m[1];
-          part_l[part_head + rb] = l[1];
+          for (int j = 0; j < DH / 8; ++j) dst[j * 4] = make_float2(o[j][0], o[j][1]);
         }
-        float2* dst = reinterpret_cast<float2*>(part_acc + (part_head + rb) * D + 2 * t);
+        if (rb < gs) {
+          if (t == 0 && h0 == 0) {
+            part_m[part_head + rb] = m[1];
+            part_l[part_head + rb] = l[1];
+          }
+          float2* dst = reinterpret_cast<float2*>(part_acc + (part_head + rb) * D + h0 + 2 * t);
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) dst[j * 4] = make_float2(o[j][2], o[j][3]);
+          for (int j = 0; j < DH / 8; ++j) dst[j * 4] = make_float2(o[j][2], o[j][3]);
+        }
       }
     }
   }
@@ -578,17 +719,17 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
   const int nc = (max_len + TILE - 1) / TILE;
   const float scale = 1.0f / sqrtf((float)D);
   // the attribute is set once per instantiation, not on every call
-  if constexpr (std::is_same<T, __nv_bfloat16>::value &&
-                std::is_same<TC, __nv_bfloat16>::value && D == 128) {
-    constexpr size_t smem = mma_smem_bytes<D>();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && D == 128) {
+    constexpr size_t smem = mma_smem_bytes<TC, D>();
     static const cudaError_t attr = cudaFuncSetAttribute(
-        partial_kernel_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        partial_kernel_mma<TC, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (attr != cudaSuccess) return (int)attr;
-    partial_kernel_mma<D><<<dim3(nslots * hkv, nc, 1), THREADS, smem, stream>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-        (const uint8_t*)mask, (const int*)start, (const int*)layer, (float*)part_m,
-        (float*)part_l, (float*)part_acc, hkv, gs, s_len, t_reg, max_len, layer_stride,
-        slot_stride, mask_slot_stride, scale);
+    partial_kernel_mma<TC, D><<<dim3(nslots * hkv, nc, 1), THREADS, smem, stream>>>(
+        (const __nv_bfloat16*)q, (const TC*)k, (const TC*)v, (const float*)k_scale,
+        (const float*)v_scale, (const uint8_t*)mask, (const int*)start, (const int*)layer,
+        (float*)part_m, (float*)part_l, (float*)part_acc, hkv, gs, s_len, t_reg, max_len,
+        layer_stride, scale_layer_stride, slot_stride, scale_slot_stride, mask_slot_stride,
+        scale);
   } else {
     constexpr size_t smem = smem_bytes<D>();
     static const cudaError_t attr = cudaFuncSetAttribute(

@@ -8,7 +8,9 @@ cache with per-row float32 scales, for a single request
 with its own cache, region, tree_start and layer (``verify_attention_batched``,
 row 1c: the batched grid of the JAX package's ``custom_vmap`` rule).  It is
 compiled with ``nvcc`` for ``sm_90a`` at first use (``ops/cuda_build.py``)
-and bound with ``ctypes``.
+and bound with ``ctypes``.  bf16 q at head_dim 128 runs on tensor cores
+(``partial_kernel_mma``) over a bf16 cache and over an int8 cache alike;
+float32 q and head_dim 16 run the CUDA-core ``partial_kernel``.
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain version
 (``verify_attention_ref``, ``verify_attention_batched_ref``) for CPU tensors;
