@@ -15,7 +15,12 @@ quantized in place).  The serving half runs too: batched decoding equal to
 per-request decoding (2 layers, float32, bf16-free and quantized), the
 trained toy checkpoint through the continuous-batching engine, and the
 engine at 32 layers in bfloat16 and quantized, with the batched-grid
-kernel's launches counted per round.  Prints one JSON line per phase, a
+kernel's launches counted per round.  Then LLaVA image prompts: the CLIP
+ViT-L tower on the card against the CPU, LLaVA-1.6 and 1.5 at 2 layers in
+float32 (spec == AR, batch == per request, CLIP-L at all 24 layers), at 32
+layers in bfloat16 with 576, 2,340 and 2,928 image tokens (vision-encode
+and prefill ms, the kernel's launches per round as on the text path), and
+the engine over image and text requests.  Prints one JSON line per phase, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failed phase raises and
 the script exits non-zero without that line; so does a machine without a
@@ -34,6 +39,7 @@ every attention ``kernel_vs_plain`` line (rows 1a, 1b, 1c).
 ``--q4-times``: kernel 2 alone.
 """
 
+import gc
 import json
 import os
 import re
@@ -737,6 +743,7 @@ def _decode_round_without_host_sync(model, prompt):
     from vispec_tpu_torch.models import draft as draft_mod
     from vispec_tpu_torch.ops import kv_cache as kv
     from vispec_tpu_torch.spec import loop
+    from vispec_tpu_torch.spec.spec_model import padded_text_embeds
 
     dev = model.device
     pad = 128
@@ -745,7 +752,7 @@ def _decode_round_without_host_sync(model, prompt):
     with torch.no_grad():
         state = loop.spec_prefill(
             model.tparams, model.dparams, model.tcfg, model.dcfg, model.spec, plan,
-            loop.SamplingParams(), model._padded_embeds(np.asarray(prompt), pad),
+            loop.SamplingParams(), padded_text_embeds(model.tparams, prompt, pad, dev),
             kv.reset(model.target_cache), kv.reset(model.draft_cache), 64, span)
         eos = torch.tensor(2, dtype=torch.int32, device=dev)
         cap = torch.tensor(32, dtype=torch.int32, device=dev)
@@ -904,11 +911,11 @@ def _warm_engine(model, dev):
     torch.cuda.empty_cache()
 
 
-def _serve(model, reqs, **kw):
-    """Serve ``reqs`` (prompt, cap) through a fresh engine at B = 4; returns
-    the engine, its outputs in order, each request's latency from
-    submission (all submitted at once) and the wall time."""
-    eng = model.serving_engine(batch_size=4, pad_bucket=(128, 256, 512), **kw)
+def _serve(model, reqs, pad_bucket=(128, 256, 512), **kw):
+    """Serve ``reqs`` (prompt or request dict, cap) through a fresh engine
+    at B = 4; returns the engine, its outputs in order, each request's
+    latency from submission (all submitted at once) and the wall time."""
+    eng = model.serving_engine(batch_size=4, pad_bucket=pad_bucket, **kw)
     eng.start_session()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1131,6 +1138,287 @@ def phase_quant_full_depth(dev, model, prompt, bf16_row):
     return spec_counts, qmodel
 
 
+# ---------------------------------------------------------------------------
+# LLaVA-1.5 / 1.6 image prompts
+# ---------------------------------------------------------------------------
+
+LLAVA_VOCAB = 32064  # llava-hf/llava-1.5-7b-hf, llava-v1.6-vicuna-7b-hf text vocab
+
+
+def _llava_models(dev, layers, dtype, seed, max_len=4096):
+    """LLaVA-1.6 (anyres) and LLaVA-1.5 SpecModels on one set of random
+    weights from ``seed``: openai/clip-vit-large-patch14-336 (24 layers,
+    feature layer -2), the projector 1024 -> 4096 -> 4096, Vicuna-7B widths
+    at ``layers`` layers with the LLaVA text vocab 32064 (image token 32000)
+    and 8192 positions (the JAX package's LLaVA setting), the ViSpec draft at
+    ``DraftConfig()`` widths over the same vocab, ``SpecConfig()``."""
+    from vispec_tpu_torch.configs import DraftConfig, LlamaConfig, SpecConfig
+    from vispec_tpu_torch.models import clip_vit, draft, llama, llava
+    from vispec_tpu_torch.spec.spec_model import SpecModel
+
+    tcfg = LlamaConfig(vocab_size=LLAVA_VOCAB, max_position_embeddings=8192,
+                       num_hidden_layers=layers)
+    dcfg = DraftConfig(vocab_size=LLAVA_VOCAB)
+    vcfg = clip_vit.ClipVisionConfig()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tparams = llama.init_params(tcfg, g, dev, dtype)
+    dparams = draft.init_params(dcfg, g, dev, dtype)
+    dparams["embed"] = tparams["embed"]
+    vparams = {"vision": clip_vit.init_params(vcfg, g, dev, dtype),
+               **llava.init_projector_params(g, vcfg.hidden_size, tcfg.hidden_size, dev,
+                                             dtype)}
+    out = {}
+    for name, anyres in (("llava-1.6", True), ("llava-1.5", False)):
+        cfg = llava.LlavaConfig(text=tcfg, vision=vcfg, anyres=anyres)
+        out[name] = SpecModel(tcfg, dcfg, SpecConfig(), tparams, dparams, max_len=max_len,
+                              dtype=dtype, device=dev, llava_cfg=cfg, vparams=vparams,
+                              image_token_index=cfg.image_token_index)
+    return out
+
+
+def _image_request(model, size, seed):
+    """16 text ids, the image's placeholders, 12 text ids; the image's
+    pixels in [0, 1] from ``seed``."""
+    rng = np.random.default_rng(seed)
+    ids = (rng.integers(3, 32000, 16).tolist()
+           + [model.image_token_index] * model.count_image_tokens(size)
+           + rng.integers(3, 32000, 12).tolist())
+    return {"input_ids": ids, "image_size": size,
+            "pixel_values": rng.uniform(0, 1, (*size, 3)).astype(np.float32)}
+
+
+def _cuda_ms(fn):
+    """(fn's result, its device time in ms from CUDA events)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_vision_tower_device(dev):
+    """``encode_image`` on the card against the same function on the CPU:
+    CLIP-L widths (1024, 16 heads, 336 px) at 2 tower layers, the projector
+    to 4096, one 480x640 image through the anyres path (resize, pad, five
+    tiles in one tower call, packing), float32 with TF32 off.  Limit 1e-4
+    of the output's largest magnitude."""
+    from vispec_tpu_torch.configs import LlamaConfig
+    from vispec_tpu_torch.models import clip_vit, llava
+
+    vcfg = clip_vit.ClipVisionConfig(num_hidden_layers=2)
+    cfg = llava.LlavaConfig(text=LlamaConfig(vocab_size=LLAVA_VOCAB), vision=vcfg)
+    g = torch.Generator().manual_seed(11)
+    cpu_params = {"vision": clip_vit.init_params(vcfg, g, "cpu", torch.float32),
+                  **llava.init_projector_params(g, vcfg.hidden_size, cfg.text.hidden_size,
+                                                "cpu", torch.float32)}
+
+    def to_dev(tree):
+        return {k: to_dev(v) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    gpu_params = to_dev(cpu_params)
+    img = np.random.default_rng(11).uniform(0, 1, (480, 640, 3)).astype(np.float32)
+    plan = llava.plan_anyres(480, 640, cfg)
+
+    def encode(params, device):
+        pixels = torch.as_tensor(img, device=device)
+        return llava.encode_image(params, cfg, llava.preprocess_anyres(pixels, plan, cfg),
+                                  plan)
+
+    t0 = time.perf_counter()
+    want = encode(cpu_params, "cpu")
+    cpu_s = time.perf_counter() - t0
+    encode(gpu_params, dev)  # warm-up
+    got, ms = _cuda_ms(lambda: encode(gpu_params, dev))
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    row = {"phase": "vision_tower_device", "tower_layers": 2, "dtype": "float32",
+           "image": [480, 640], "tiles": 1 + plan.grid_h * plan.grid_w,
+           "image_tokens": plan.n_tokens, "shape": list(got.shape),
+           "rel_max_abs_err": err, "limit": 1e-4, "device_ms": ms, "cpu_s": cpu_s,
+           "ok": err <= 1e-4 and tuple(got.shape) == (plan.n_tokens, cfg.text.hidden_size)}
+    emit(row)
+    assert row["ok"], row
+
+
+def phase_llava_exact(dev):
+    """LLaVA at full widths in float32 with TF32 off: CLIP-L with all 24
+    layers, the projector, Vicuna-7B widths at 2 target layers, vocab
+    32064, max_len 4096.  Greedy spec == AR for 64 new tokens with one
+    480x640 image (LLaVA-1.6 anyres, 2,340 image tokens) and with one
+    336x336 image (LLaVA-1.5, 576); then ``specgenerate_batch`` over [the
+    480x640 request, a text request, a 336x336 image request] on the 1.6
+    model equals ``specgenerate`` per request."""
+    models = _llava_models(dev, 2, torch.float32, seed=5)
+    for name, size in (("llava-1.6", (480, 640)), ("llava-1.5", (336, 336))):
+        model = models[name]
+        req = _image_request(model, size, seed=5)
+        ids, n = req["input_ids"], len(req["input_ids"])
+        spec = model.specgenerate(ids, max_new_tokens=64, pixel_values=req["pixel_values"],
+                                  image_size=size)
+        ar = model.ar_generate(ids, max_new_tokens=64, pixel_values=req["pixel_values"],
+                               image_size=size)
+        same = spec.sequences[:n + 64].tolist() == ar.sequences[:n + 64].tolist()
+        row = {"phase": "llava_exact", "model": name, "layers": 2, "tower_layers": 24,
+               "dtype": "float32", "max_len": model.max_len, "image": list(size),
+               "image_tokens": model.count_image_tokens(size), "prompt": n,
+               "new_tokens": [spec.new_tokens, ar.new_tokens], "rounds": spec.rounds,
+               "ok": same and spec.new_tokens >= 64}
+        emit(row)
+        assert row["ok"], f"llava_exact ({name}): spec != AR"
+        model.target_cache = model.draft_cache = None
+    model = models["llava-1.6"]
+    reqs = [_image_request(model, (480, 640), seed=5),
+            {"input_ids": np.random.default_rng(6).integers(3, 32000, 90).tolist()},
+            _image_request(model, (336, 336), seed=7)]
+    outs = model.specgenerate_batch(reqs, max_new_tokens=48)
+    same = []
+    for r, o in zip(reqs, outs):
+        ref = model.specgenerate(r["input_ids"], max_new_tokens=48,
+                                 pixel_values=r.get("pixel_values"),
+                                 image_size=r.get("image_size"))
+        n = len(r["input_ids"])
+        same.append(o.new_tokens == 48
+                    and o.sequences.tolist() == ref.sequences[:n + 48].tolist())
+    row = {"phase": "llava_exact", "model": "llava-1.6", "batch": len(reqs),
+           "prompts": [len(r["input_ids"]) for r in reqs], "new_tokens": 48,
+           "per_request_equal": same, "ok": all(same)}
+    emit(row)
+    assert row["ok"], "llava_exact: specgenerate_batch != per-request"
+    del models, model
+    torch.cuda.empty_cache()
+
+
+def phase_llava_full_depth(dev, models):
+    """LLaVA-1.5 (one 336x336 image, 576 image tokens) and LLaVA-1.6 (one
+    480x640 image, 2,340 tokens; one 672x672 image, 2,928) at all 32 layers
+    in bfloat16, max_len 4096, 128 new tokens by spec and by AR.  Per
+    image: the vision encode and the prefill (merge, plan, target and draft
+    prefill, first tree) in device ms from CUDA events after a warm-up,
+    decode tok/s, kernel 1a's launches against the text path's count (36
+    per dispatched round, 3 at prefill; 32 per AR step) and peak memory;
+    then the prefill under torch.profiler (``profile_llava_prefill``).
+    spec/AR agreement is reported, not required (bf16)."""
+    from vispec_tpu_torch.ops import kv_cache as kv
+    from vispec_tpu_torch.ops import verify_attention as va
+    from vispec_tpu_torch.spec import loop
+    from vispec_tpu_torch.spec.spec_model import output_rows, plan_prompt, _bucket
+
+    rows = []
+    for seed, (name, size) in enumerate((("llava-1.5", (336, 336)), ("llava-1.6", (480, 640)),
+                                         ("llava-1.6", (672, 672)))):
+        model = models[name]
+        req = _image_request(model, size, seed=20 + seed)
+        ids, n = req["input_ids"], len(req["input_ids"])
+        pixels = torch.as_tensor(req["pixel_values"], device=dev)
+        pad = _bucket(n)
+
+        def prefill():
+            embeds, _, shifted, spans = model._padded_prompt(ids, pad, pixels, size)
+            plan, span = plan_prompt(model.dcfg, shifted, spans, n, pad, dev)
+            return loop.spec_prefill(
+                model.tparams, model.dparams, model.tcfg, model.dcfg, model.spec, plan,
+                loop.SamplingParams(), embeds, kv.reset(model.target_cache),
+                kv.reset(model.draft_cache), output_rows(model.spec, 128), span)
+
+        with torch.no_grad():
+            model._encode_image(pixels, size)  # warm-up
+            prefill()
+            _, encode_ms = _cuda_ms(lambda: model._encode_image(pixels, size))
+            _, prefill_ms = _cuda_ms(prefill)
+        model.specgenerate(ids, max_new_tokens=8, pixel_values=pixels, image_size=size)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_launch_counts()
+        spec = model.specgenerate(ids, max_new_tokens=128, pixel_values=pixels,
+                                  image_size=size)
+        spec_launches = va.verify_attention.launches
+        _zero_launch_counts()
+        ar = model.ar_generate(ids, max_new_tokens=128, pixel_values=pixels,
+                               image_size=size)
+        ar_launches = va.verify_attention.launches
+        layers, depth = model.tcfg.num_hidden_layers, model.spec.depth
+        want_spec = depth + spec.dispatched * (layers + 1 + depth)
+        want_ar = ar.dispatched * layers
+        a, b = spec.sequences[n:], ar.sequences[n:]
+        m = min(len(a), len(b))
+        row = {"phase": "llava_full_depth", "model": name,
+               "layers": layers, "tower_layers": 24, "dtype": "bfloat16",
+               "max_len": model.max_len, "image": list(size),
+               "image_tokens": model.count_image_tokens(size), "prompt": n,
+               "pad_len": pad, "vision_encode_ms": encode_ms, "prefill_ms": prefill_ms,
+               "spec_tokens": spec.new_tokens, "spec_s": spec.decode_time,
+               "spec_tok_per_s": spec.new_tokens / spec.decode_time,
+               "rounds": spec.rounds, "dispatched_rounds": spec.dispatched,
+               "ar_tokens": ar.new_tokens, "ar_s": ar.decode_time,
+               "ar_tok_per_s": ar.new_tokens / ar.decode_time,
+               "agreeing_prefix": int(np.argmin(np.append(a[:m] == b[:m], False))),
+               "launches_1a_spec": spec_launches, "expected_spec": want_spec,
+               "launches_1a_per_round": (spec_launches - depth) / spec.dispatched,
+               "launches_ar": ar_launches, "expected_ar": want_ar,
+               "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30}
+        row["ok"] = (spec_launches == want_spec and ar_launches == want_ar
+                     and spec.new_tokens >= 128 and ar.new_tokens >= 128)
+        emit(row)
+        assert row["ok"], row
+        rows.append(row)
+        with torch.no_grad():
+            emit({"phase": "profile_llava_prefill", "image_tokens": row["image_tokens"],
+                  "pad_len": pad, **_profile(prefill)})
+        model.target_cache = model.draft_cache = None
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_serving_vision_full_depth(dev, model):
+    """The engine over the 32-layer bfloat16 LLaVA-1.5 model: B = 4,
+    ``max_span=576`` (one 336x336 image's span), pad buckets (128, 256, 512,
+    768), 8 requests of which 4 carry a 336x336 image (cap 64) and 4 are
+    text (seed 0: prompts of 64-448, caps of 64-128).  All complete;
+    requires 36 launches of 1c per dispatched round and 3 of 1a per
+    prefill, as on the text path."""
+    reqs = []
+    for i, (p, c) in enumerate(_serving_requests(4)):
+        reqs.append((_image_request(model, (336, 336), seed=40 + i), 64))
+        reqs.append((p, c))
+    kw = dict(pad_bucket=(128, 256, 512, 768), chunk_rounds=8, max_span=576)
+    warm = model.serving_engine(batch_size=4, **kw)
+    warm.run_all([{**reqs[0][0], "max_new_tokens": 4}])  # warm-up: an image admission
+    del warm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launch_counts()
+    eng, outs, latency, wall = _serve(model, reqs, **kw)
+    counts = _launch_counts()
+    rounds, prefills = eng.stats["rounds"], eng._n_prefills
+    depth = model.spec.depth
+    want = {"1a": depth * prefills, "1b": 0,
+            "1c": (model.tcfg.num_hidden_layers + 1 + depth) * rounds, "1c_int8": 0, "2": 0}
+    tokens = sum(len(o) for o in outs)
+    row = {"phase": "serving_vision_full_depth", "model": "llava-1.5",
+           "layers": model.tcfg.num_hidden_layers,
+           "dtype": "bfloat16", "max_len": model.max_len, "batch_size": 4,
+           "max_span": 576, "requests": len(reqs),
+           "image_requests": sum(isinstance(r, dict) for r, _ in reqs),
+           "prompt_lens": [len(r["input_ids"] if isinstance(r, dict) else r)
+                           for r, _ in reqs],
+           "caps": [c for _, c in reqs], "tokens": tokens, "wall_s": wall,
+           "tok_per_s": tokens / wall, "latency_p50_s": float(np.median(latency)),
+           "latency_max_s": max(latency), "rounds_dispatched": rounds,
+           "prefills": prefills, "admissions": eng.stats["admissions"],
+           "admit_dispatch_s": eng.stats["admit_dispatch_s"],
+           "launches": counts, "expected": want,
+           "launches_1c_per_round": counts["1c"] / rounds, "errors": dict(eng.errors),
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30}
+    row["ok"] = (counts == want and not eng.errors
+                 and all(_complete(o, c, model) for o, (_, c) in zip(outs, reqs)))
+    emit(row)
+    assert row["ok"], row
+    del eng
+    torch.cuda.empty_cache()
+    return row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU port only",
@@ -1156,10 +1444,19 @@ def main():
     phase_full_width_exact(dev)
     phase_quant_exact(dev)
     phase_batch_exact(dev)
+    phase_vision_tower_device(dev)
+    phase_llava_exact(dev)
     model, prompt, bf16_row = phase_full_width_depth(dev)
     serving_row = phase_serving_full_depth(dev, model)
     quant_counts, qmodel = phase_quant_full_depth(dev, model, prompt, bf16_row)
     serving_quant_counts = phase_serving_quant_full_depth(dev, qmodel)
+    del model, qmodel  # the 7B text weights, quantized in place, make room
+    gc.collect()
+    torch.cuda.empty_cache()
+    llava_models = _llava_models(dev, 32, torch.bfloat16, seed=0)
+    phase_llava_full_depth(dev, llava_models)
+    phase_serving_vision_full_depth(dev, llava_models["llava-1.5"])
+    del llava_models
 
     def entry(name, source, replaces, launches, case_rows, main_row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

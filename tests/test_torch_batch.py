@@ -264,7 +264,7 @@ def test_four_batched_rounds_match_jax_batched_decode_round():
     jreqs = jbatch.text_requests(jt, J_DCFG, prompts, MAX_LEN, slack)
     jstates = jbatch.batched_prefill(jt, jd, J_TCFG, J_DCFG, J_SPEC, jloop.SamplingParams(),
                                      jreqs, MAX_LEN, max_out, jnp.float32)
-    treqs = tbatch.text_requests(tt, T_DCFG, prompts, MAX_LEN, slack, device=CPU)
+    treqs = tbatch.prepare_requests(tt, T_DCFG, prompts, MAX_LEN, slack, device=CPU)
     tstates = tbatch.batched_prefill(tt, td, T_TCFG, T_DCFG, T_SPEC, tloop.SamplingParams(),
                                      treqs, MAX_LEN, max_out, torch.float32, device=CPU)
     _assert_same_tree(jstates.tree, tstates.tree)
@@ -346,7 +346,8 @@ def test_specgenerate_batch_reuses_its_cache_pool(batch_refs):
     with pytest.raises(NotImplementedError):
         model.specgenerate_batch([{"input_ids": PROMPTS[0]}], temperature=0.7)
     with pytest.raises(NotImplementedError):
-        model.specgenerate_batch([{"input_ids": PROMPTS[0], "pixel_values": np.zeros(3)}])
+        model.specgenerate_batch([{"input_ids": PROMPTS[0],
+                                   "pixel_values_videos": np.zeros((2, 4, 4, 3))}])
 
 
 def test_tau_fixture_batched_acceptance_matches_jax():

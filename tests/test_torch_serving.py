@@ -314,7 +314,7 @@ def test_unported_options_raise_not_implemented(params):
         ServingEngine(model, batch_size=2, temperature=0.7)
     eng = ServingEngine(model, batch_size=2)
     with pytest.raises(NotImplementedError):
-        eng.submit({"input_ids": [1, 2, 3], "pixel_values": np.zeros((4, 4, 3))})
+        eng.submit({"input_ids": [1, 2, 3], "pixel_values_videos": np.zeros((2, 4, 4, 3))})
     # JAX's error for sampling keys on an engine without per-request sampling
     with pytest.raises(ValueError, match=r"need ServingEngine\(per_request_sampling=True\)"):
         eng.submit({"input_ids": [1, 2, 3], "temperature": 1.0})

@@ -2,7 +2,8 @@
 parameter pytrees, to the port's tensors.
 
 Accepts the output of the JAX ``llama.init_params`` / ``draft.init_params``
-(converted leaf by leaf with ``numpy.asarray``) or the ``t/...`` and
+/ ``clip_vit.init_params`` / ``llava.init_projector_params`` (converted
+leaf by leaf with ``numpy.asarray``) or the ``t/...`` and
 ``d/...`` keys of an ``.npz`` file such as ``tests/data/tau_fixture.npz``.
 Layouts are unchanged: ``[in, out]`` matrices, layer-stacked ``[L, ...]``.
 Quantized leaves (the JAX ``QTensor`` / ``Q4Tensor`` NamedTuples of arrays)
@@ -22,6 +23,14 @@ from ..ops.quant import Q4Tensor, QTensor
 _QUANT_LEAVES = {("q", "s"): QTensor, ("packed", "s"): Q4Tensor}
 
 
+def _keeps_float32(key: str) -> bool:
+    """Leaves the JAX pytrees hold in float32 whatever the model dtype: the
+    norm weights (``input_norm``, ``final_norm``, CLIP's ``pre_norm_w`` /
+    ``_b``, ...) and CLIP's LayerNorm weights and biases (``ln1_w``,
+    ``ln1_b``, ``ln2_w``, ``ln2_b``)."""
+    return "norm" in key or key.startswith(("ln1_", "ln2_"))
+
+
 def _tensor(key: str, leaf) -> torch.Tensor:
     """One array leaf as a tensor (a copy); bfloat16 arrays keep their dtype."""
     arr = np.asarray(leaf)
@@ -36,9 +45,10 @@ def _tensor(key: str, leaf) -> torch.Tensor:
 def from_numpy(tree: Mapping, device="cuda", dtype: Optional[torch.dtype] = None) -> dict:
     """Nested dict of arrays -> nested dict of tensors on ``device``.
 
-    ``dtype`` casts floating leaves, except the norm weights (keys containing
-    ``norm``), which stay float32 as in the JAX pytrees; None keeps each
-    array's own dtype.  Quantized leaves keep their stored dtypes (int8 or
+    ``dtype`` casts floating leaves, except those the JAX pytrees keep in
+    float32: the norm weights (keys containing ``norm``) and the CLIP
+    tower's LayerNorm weights and biases (``ln1_*``, ``ln2_*``); None keeps
+    each array's own dtype.  Quantized leaves keep their stored dtypes (int8 or
     uint8 values, float32 scales).  A leaf that is neither raises TypeError."""
     out = {}
     for key, leaf in tree.items():
@@ -56,7 +66,7 @@ def from_numpy(tree: Mapping, device="cuda", dtype: Optional[torch.dtype] = None
             continue
         t = _tensor(key, leaf)
         if dtype is not None and t.is_floating_point():
-            t = t.to(torch.float32 if "norm" in key else dtype)
+            t = t.to(torch.float32 if _keeps_float32(key) else dtype)
         out[key] = t.to(device)
     return out
 

@@ -11,7 +11,9 @@ tree, caches, lengths, cap and done flag; finished requests keep executing
 single-request round, as the JAX package does.
 
 Prefill runs per request (``spec_prefill``) straight into its slot of the
-stacked caches, which ``cache_pool`` keeps across calls.
+stacked caches, which ``cache_pool`` keeps across calls; an image request
+(``prepare_requests``) is prefilled with its own draft plan and span
+bucket, as ``specgenerate`` would prefill it.
 """
 
 from __future__ import annotations
@@ -22,11 +24,10 @@ import numpy as np
 import torch
 
 from ..configs import DraftConfig, LlamaConfig, SpecConfig
-from ..models import draft as draft_mod
-from ..models import llama
 from ..ops import kv_cache as kv
 from . import loop as spec_loop
-from .spec_model import _bucket, _Readback, output_rows
+from .spec_model import (_bucket, _Readback, output_rows, padded_text_embeds,
+                         plan_prompt)
 
 
 def _slot_cache(cache: kv.KVCache, i: int) -> kv.KVCache:
@@ -52,8 +53,8 @@ def batched_prefill(
 ) -> spec_loop.SpecState:
     """Prefill each request into its slot and return the slot-stacked state.
 
-    Each request dict carries ``embeds`` [pad, D], ``real_len``, ``plan``
-    and ``max_span``.  ``cache_pool`` is a
+    Each request dict (``prepare_requests``) carries ``embeds`` [pad, D],
+    ``real_len``, ``plan`` and ``max_span``.  ``cache_pool`` is a
     list holding one (target, draft) pair of slot-stacked caches, reused
     across calls and replaced by a larger pair when a batch outgrows it;
     None allocates fresh buffers."""
@@ -91,28 +92,39 @@ def batched_prefill(
         draft_cache=lengths(dc_all, [st.draft_cache for st in states]))
 
 
-def text_requests(tparams, dcfg: DraftConfig, prompts: Sequence[Sequence[int]],
-                  max_len: int, slack: int, device="cuda") -> List[dict]:
-    """Prepare plain-text requests, each padded to its own 128-row bucket as
-    ``specgenerate`` pads it.  (The JAX package shares the longest prompt's
-    bucket so that one compiled prefill serves the batch; an eager prefill
-    gains nothing from that, and its own bucket gives each request the same
-    prefill products as a single-request run.)"""
+def prepare_requests(tparams, dcfg: DraftConfig, requests: Sequence, max_len: int,
+                     slack: int, device="cuda", padded_prompt=None) -> List[dict]:
+    """Prefill inputs of each request (a token list, or a dict with
+    ``input_ids`` and, for an image prompt, ``pixel_values`` /
+    ``image_size``), each padded to its own 128-row bucket and planned at
+    its own span buckets, as ``specgenerate`` pads and plans it.
+    ``padded_prompt`` is ``SpecModel._padded_prompt``, which merges the
+    image features; without it the requests are text only.  (The JAX
+    package shares the longest prompt's bucket and span bucket so that one
+    compiled prefill serves the batch; an eager prefill gains nothing from
+    that, and its own buckets give each request the same prefill as a
+    single-request run.)"""
+    requests = [r if isinstance(r, dict) else {"input_ids": r} for r in requests]
+    prompts = [np.asarray(r["input_ids"], np.int64) for r in requests]
     longest = max(len(p) for p in prompts)
     if _bucket(longest) > max_len or longest + slack > max_len:
         raise ValueError(
             f"longest prompt {longest} (bucketed {_bucket(longest)}) too long for "
             f"max_len={max_len} (needs {slack} rows of tree headroom)")
     out = []
-    for prompt in prompts:
-        l = len(prompt)
-        pad = _bucket(l)
-        embeds = llama.embed(tparams, torch.as_tensor(np.asarray(prompt, np.int64),
-                                                      device=device))
-        embeds = torch.cat([embeds, embeds.new_zeros((pad - l, embeds.shape[1]))])
-        plan, ms = draft_mod.make_prefill_plan(None, l, dcfg.num_q, pad, max_images=4,
-                                               max_span=_bucket(1, 64), device=device)
-        out.append(dict(embeds=embeds, real_len=l, plan=plan, max_span=_bucket(ms, 64)))
+    for r, ids in zip(requests, prompts):
+        l, pad = len(ids), _bucket(len(ids))
+        if padded_prompt is not None:
+            embeds, _, shifted, n_spans = padded_prompt(
+                ids, pad, r.get("pixel_values"), r.get("image_size"),
+                r.get("pixel_values_videos"))
+        elif r.get("pixel_values") is not None or r.get("pixel_values_videos") is not None:
+            raise ValueError("image requests need a model with a vision tower "
+                         "(SpecModel.specgenerate_batch)")
+        else:
+            embeds, shifted, n_spans = padded_text_embeds(tparams, ids, pad, device), None, 0
+        plan, max_span = plan_prompt(dcfg, shifted, n_spans, l, pad, device)
+        out.append(dict(embeds=embeds, real_len=l, plan=plan, max_span=max_span))
     return out
 
 
@@ -250,7 +262,7 @@ def generate_batch(
     spec_loop._require_greedy(sampling)
     slack = max(spec.total_tokens, spec.depth * spec.top_k + spec.depth + 2) + 10
     max_out = output_rows(spec, max_new_tokens)
-    requests = text_requests(tparams, dcfg, prompts, max_len, slack, device)
+    requests = prepare_requests(tparams, dcfg, prompts, max_len, slack, device)
     longest = max(len(p) for p in prompts)
     budget = min(max_new_tokens, max_len - longest - slack)
     if budget <= 0:

@@ -1,4 +1,5 @@
-"""Continuous-batching serving engine for greedy text requests.
+"""Continuous-batching serving engine for greedy requests, text or LLaVA
+image prompts.
 
 ``spec/batch.py`` decodes a fixed batch to completion.  This engine keeps a
 pool of ``batch_size`` slots decoding indefinitely: when a slot finishes,
@@ -15,8 +16,14 @@ The engine is online: ``submit()`` enqueues a request at any time,
 that finished, ``results[rid]`` holds outputs; ``run_all`` submits
 everything and steps until dry.
 
+An image request (a dict with ``pixel_values`` / ``image_size``, as
+``specgenerate`` takes them) is planned at the engine's fixed span buckets,
+``max_images`` and ``max_span``; a longer image span fails that request
+with a ValueError (recorded in ``errors``).  Image requests never take the
+prefix-snapshot path.
+
 Not ported yet, refused at construction or at ``submit``: sampling (T>0),
-per-request sampling, vision requests; medusa, tensor-parallel models and
+per-request sampling, video requests; medusa, tensor-parallel models and
 conversation snapshots have no counterpart in the port's ``SpecModel`` yet.
 """
 
@@ -33,10 +40,7 @@ from ..models import draft as draft_mod
 from ..ops import kv_cache as kv
 from . import batch as batch_mod
 from . import loop as spec_loop
-from .spec_model import _bucket, _Readback, output_rows
-
-_VISION_KEYS = ("pixel_values", "pixel_values_videos")
-
+from .spec_model import _bucket, _Readback, output_rows, padded_text_embeds
 
 def admit(states: spec_loop.SpecState, state1: spec_loop.SpecState, slot: int) -> None:
     """Write a freshly prefilled single-request state into slot ``slot`` in
@@ -70,6 +74,8 @@ class ServingEngine:
         pad_bucket=None,  # int, or a sequence of bucket sizes: each admission
         # pads to the smallest bucket that fits its prompt
         chunk_rounds: int = 8,
+        max_images: int = 4,  # image-span plan buckets, fixed for the engine
+        max_span: int = 64,
         prefix_ids: Optional[Sequence[int]] = None,  # shared TEXT prefix
         suffix_bucket: int = 128,  # pad bucket for prefix-cached suffixes
         per_request_sampling: bool = False,
@@ -96,6 +102,7 @@ class ServingEngine:
         if not self.buckets or any(b % 128 for b in self.buckets):
             raise ValueError(f"pad buckets must be 128-multiples: {self.buckets}")
         self.pad = self.buckets[-1]  # the largest bucket bounds the headroom
+        self.max_images, self.max_span = max_images, max_span
         self.max_new = min(max_new_tokens, model.max_len - self.pad - self.slack)
         if self.max_new <= 0:
             raise ValueError(f"no headroom: max_len={model.max_len}, pad bucket "
@@ -140,7 +147,7 @@ class ServingEngine:
         if self._prefix is not None:
             with torch.no_grad():
                 tc, dc = self._fresh_caches(self.buckets[-1])
-                pembeds = model._padded_embeds(self._prefix, ppad)
+                pembeds = padded_text_embeds(model.tparams, self._prefix, ppad, model.device)
                 self._snap = spec_loop.make_prefix_snapshot(
                     model.tparams, model.dparams, model.tcfg, model.dcfg, pembeds,
                     torch.tensor(plen, dtype=torch.int32, device=model.device), tc, dc)
@@ -183,20 +190,22 @@ class ServingEngine:
             done=torch.ones((b,), dtype=torch.bool, device=m.device))
 
     def _prefill_one(self, request) -> spec_loop.SpecState:
-        """Prefill one request (a token list or a dict with ``input_ids``)
-        into a fresh admission cache pair."""
+        """Prefill one request (a token list, or a dict with ``input_ids``
+        and optional ``pixel_values`` / ``image_size``) into a fresh
+        admission cache pair."""
         m = self.m
-        ids = np.asarray(request["input_ids"] if isinstance(request, dict) else request,
-                         np.int64)
+        req = request if isinstance(request, dict) else {"input_ids": request}
+        ids = np.asarray(req["input_ids"], np.int64)
         if ids.ndim != 1 or ids.shape[0] == 0:
             raise ValueError(f"input_ids must be a non-empty 1-D id list, got shape "
                              f"{ids.shape}")
-        if self._snap is not None:
+        if self._snap is not None and req.get("pixel_values") is None:
             plen = len(self._prefix)
             sl = len(ids) - plen
             if 0 < sl < self.suffix_bucket and np.array_equal(ids[:plen], self._prefix):
                 # an over-long suffix falls through to the full prefill below
-                sembeds = m._padded_embeds(ids[plen:], self.suffix_bucket)
+                sembeds = padded_text_embeds(m.tparams, ids[plen:], self.suffix_bucket,
+                                             m.device)
                 tc, dc = self._fresh_caches(self.buckets[-1])
                 self._n_prefills += 1
                 return spec_loop.spec_prefill_continue(
@@ -206,15 +215,20 @@ class ServingEngine:
                     self.max_out)
         l = len(ids)
         bucket = self._bucket_for(l)
-        embeds = m._padded_embeds(ids, bucket)
-        plan, max_span = draft_mod.make_prefill_plan(
-            None, l, m.dcfg.num_q, bucket, max_images=4, max_span=_bucket(1, 64),
-            device=m.device)
+        embeds, _, shifted, _ = m._padded_prompt(ids, bucket, req.get("pixel_values"),
+                                                 req.get("image_size"))
+        plan, ms = draft_mod.make_prefill_plan(
+            shifted, l, m.dcfg.num_q, bucket, max_images=self.max_images,
+            max_span=self.max_span, device=m.device)
+        if ms > self.max_span:
+            raise ValueError(
+                f"image span {ms} exceeds engine max_span={self.max_span}; "
+                f"construct the engine with a larger bucket")
         tc, dc = self._fresh_caches(bucket)
         self._n_prefills += 1
         return spec_loop.spec_prefill(
             m.tparams, m.dparams, m.tcfg, m.dcfg, m.spec, plan, self.sampling, embeds,
-            tc, dc, self.max_out, _bucket(max_span, 64))
+            tc, dc, self.max_out, self.max_span)
 
     # ------------------------------------------------------------------
     # Online serving API: submit() requests at any time, step() one decode
@@ -248,8 +262,9 @@ class ServingEngine:
                       "rounds": 0}
 
     def submit(self, request, max_new_tokens: Optional[int] = None) -> int:
-        """Enqueue a request (token list or dict with ``input_ids``); returns
-        a request id.  Admission into a decode slot happens inside step().
+        """Enqueue a request (token list, or dict with ``input_ids`` and
+        optional ``pixel_values`` / ``image_size``); returns a request id.
+        Admission into a decode slot happens inside step().
 
         ``max_new_tokens`` (kwarg or request-dict key) caps this request's
         generation (clamped to the engine's budget); the cap rides the
@@ -258,8 +273,8 @@ class ServingEngine:
         if not hasattr(self, "_queue"):
             self.start_session()
         if isinstance(request, dict):
-            if any(request.get(k) is not None for k in _VISION_KEYS):
-                raise NotImplementedError("vision requests are not ported yet")
+            if request.get("pixel_values_videos") is not None:
+                raise NotImplementedError("video requests (Qwen2.5-VL) are not ported yet")
             if any(k in request for k in ("temperature", "top_p",
                                           "repetition_penalty", "top_k")):
                 raise ValueError(

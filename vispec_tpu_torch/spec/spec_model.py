@@ -1,9 +1,12 @@
-"""User-facing speculative-decoding model, text path: ``SpecModel`` with
+"""User-facing speculative-decoding model: ``SpecModel`` with
 ``specgenerate`` (greedy ViSpec decoding), ``ar_generate`` (the
 autoregressive baseline it must equal token for token), and the serving
 half: ``specgenerate_batch`` (a fixed batch decoded together,
 ``spec/batch.py``) and ``serving_engine`` (continuous batching,
-``spec/serving.py``).
+``spec/serving.py``).  Prompts are text or LLaVA-1.5/1.6 image prompts: a
+model built with ``llava_cfg`` and ``vparams`` encodes each image
+(``models/llava.py``) and writes its features over the prompt's
+``image_token_index`` rows; the draft compresses each image span.
 
 The host loop keeps the JAX version's shape: rounds are queued in chunks,
 each round latches ``done`` on the device, and the host reads the per-round
@@ -15,14 +18,14 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..configs import DraftConfig, LlamaConfig, SpecConfig
 from ..models import draft as draft_mod
-from ..models import llama
+from ..models import llama, llava
 from ..ops import kv_cache as kv
 from ..ops.quant import quantize_draft_params, quantize_target_params
 from . import loop as spec_loop
@@ -30,6 +33,29 @@ from . import loop as spec_loop
 
 def _bucket(n: int, step: int = 128) -> int:
     return max(step, ((n + step - 1) // step) * step)
+
+
+def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """[L, D] -> [n, D] with zero rows after the L."""
+    return torch.cat([x, x.new_zeros((n - x.shape[0], x.shape[1]))])
+
+
+def padded_text_embeds(tparams: dict, input_ids, pad_len: int, device) -> torch.Tensor:
+    """Token embeddings of a text prompt, zero rows to ``pad_len``."""
+    ids = torch.as_tensor(np.asarray(input_ids, np.int64), device=device)
+    return _pad_rows(llama.embed(tparams, ids), pad_len)
+
+
+def plan_prompt(dcfg: DraftConfig, shifted, n_spans: int, real_len: int, pad_len: int,
+                device):
+    """The draft's prefill plan at ``specgenerate``'s buckets: the image-span
+    count in steps of four (at least four), the longest span rounded up to
+    64 rows.  Returns (plan, max_span)."""
+    max_images = max(4, -(-n_spans // 4) * 4)
+    plan, max_span = draft_mod.make_prefill_plan(
+        shifted, real_len, dcfg.num_q, pad_len, max_images=max_images,
+        max_span=_bucket(1, 64), device=device)
+    return plan, _bucket(max_span, 64)
 
 
 # The JAX package's models/medusa.NUM_HEADS: a medusa round commits up to
@@ -77,7 +103,9 @@ class _Readback:
 
 
 class SpecModel:
-    """Target + draft pair with a preallocated KV runtime (text path)."""
+    """Target + draft pair with a preallocated KV runtime; with ``llava_cfg``
+    and ``vparams`` (``{"vision": clip_vit params, **projector params}``) it
+    takes LLaVA image prompts."""
 
     def __init__(
         self,
@@ -92,6 +120,9 @@ class SpecModel:
         device="cuda",
         quantize_draft=False,  # False | True/"int8" | "int4" | "int4_head" | "mixed" | "auto"
         quantize_kv: bool = False,  # int8 target KV cache with per-row scales
+        llava_cfg: Optional[llava.LlavaConfig] = None,
+        vparams: Optional[dict] = None,
+        image_token_index: Optional[int] = None,
     ):
         if max_len % 128 != 0:
             raise ValueError(
@@ -102,6 +133,8 @@ class SpecModel:
         self.quantize_kv = bool(quantize_kv)
         self.tcfg, self.dcfg, self.spec = tcfg, dcfg, spec
         self.tparams, self.dparams = tparams, dparams
+        self.llava_cfg, self.vparams = llava_cfg, vparams
+        self.image_token_index = image_token_index
         if quantize_draft:
             self.quantize_draft_inplace(
                 "int8" if quantize_draft is True else quantize_draft)
@@ -169,7 +202,8 @@ class SpecModel:
         (``ops.quant.quantize_target_params``), replacing the entries of the
         caller's parameter dicts so each bf16 matrix can be freed.  Outputs
         change (the verifier itself is quantized), but speculative output
-        still equals autoregressive output on the same weights."""
+        still equals autoregressive output on the same weights.  The vision
+        tower and projector (``vparams``) stay as they are."""
         quantize_target_params(self.tparams, mode=mode, inplace=True)
         self.quantize_target = mode
 
@@ -180,11 +214,73 @@ class SpecModel:
         draft_scratch = self.spec.depth * self.spec.top_k + self.spec.depth + 2
         return max(self.spec.total_tokens, draft_scratch) + 10
 
-    def _padded_embeds(self, input_ids: np.ndarray, pad_len: int) -> torch.Tensor:
-        ids = torch.as_tensor(input_ids, dtype=torch.int64, device=self.device)
-        embeds = llama.embed(self.tparams, ids)
-        pad = embeds.new_zeros((pad_len - embeds.shape[0], embeds.shape[1]))
-        return torch.cat([embeds, pad], dim=0)
+    # ------------------------------------------------------------------
+    def count_image_tokens(self, image_size: Tuple[int, int]) -> int:
+        """Number of image-token placeholders one image of this size
+        expands to; it must agree with the vision path's feature count."""
+        if self.llava_cfg is None:
+            raise ValueError("not a vision model")
+        oh, ow = image_size
+        if self.llava_cfg.anyres:
+            return llava.plan_anyres(oh, ow, self.llava_cfg).n_tokens
+        return self.llava_cfg.patches_per_side ** 2
+
+    def _encode_image(self, image, image_size) -> torch.Tensor:
+        """One image [H, W, 3] in [0, 1] -> its packed features [n_tokens,
+        hidden]: the anyres tiles (LLaVA-1.6) or one square tile (1.5)."""
+        cfg = self.llava_cfg
+        img = torch.as_tensor(image, dtype=torch.float32, device=self.device)
+        oh, ow = image_size if image_size is not None else img.shape[:2]
+        if cfg.anyres:
+            plan = llava.plan_anyres(oh, ow, cfg)
+            tiles = llava.preprocess_anyres(img, plan, cfg)
+        else:
+            plan = None
+            size = cfg.vision.image_size
+            tiles = llava.normalize(llava.resize_image(img, size, size))[None]
+        return llava.encode_image(self.vparams, cfg, tiles, plan)
+
+    def _prompt_embeds(self, input_ids, pixel_values=None, image_size=None,
+                       pixel_values_videos=None):
+        """Token embeds [L, D] with the image features written over the
+        image-token rows, features of several images concatenated in prompt
+        order; returns (embeds, image mask [L] or None)."""
+        if pixel_values_videos is not None:
+            raise NotImplementedError("video prompts (Qwen2.5-VL) are not ported yet")
+        ids = np.asarray(input_ids, np.int64)
+        images, sizes = _as_image_list(pixel_values, image_size)
+        if not images:
+            return llama.embed(self.tparams, torch.as_tensor(ids, device=self.device)), None
+        if self.llava_cfg is None or self.vparams is None:
+            raise ValueError("pixel_values given to a model without a vision tower "
+                             "(construct it with llava_cfg and vparams)")
+        feats = torch.cat([self._encode_image(img, isz) for img, isz in zip(images, sizes)])
+        image_mask = ids == self.image_token_index
+        positions = np.nonzero(image_mask)[0]
+        if positions.size != feats.shape[0]:
+            raise ValueError(
+                f"image token count {positions.size} != features {feats.shape[0]}")
+        # the image rows are overwritten: look them up as id 0, so that an
+        # image_token_index past the vocab cannot fault (JAX's take fills them)
+        embeds = llama.embed(self.tparams, torch.as_tensor(np.where(image_mask, 0, ids),
+                                                           device=self.device))
+        embeds = llava.merge_image_embeds(embeds, feats,
+                                          torch.as_tensor(positions, device=self.device))
+        return embeds, image_mask
+
+    def _padded_prompt(self, input_ids, pad_len: int, pixel_values=None,
+                       image_size=None, pixel_values_videos=None):
+        """Vision-merged embeds padded to ``pad_len``, the image mask, the
+        SHIFTED image mask (what the draft's prefill plan takes) and its
+        span count."""
+        embeds, image_mask = self._prompt_embeds(input_ids, pixel_values, image_size,
+                                                 pixel_values_videos)
+        embeds = _pad_rows(embeds, pad_len)
+        shifted = image_mask[1:] if image_mask is not None else None
+        n_spans = 0
+        if shifted is not None:
+            n_spans = int((shifted & ~np.concatenate([[False], shifted[:-1]])).sum())
+        return embeds, image_mask, shifted, n_spans
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -195,10 +291,16 @@ class SpecModel:
         top_p: float = 0.0,
         top_k: int = 0,
         max_new_tokens: int = 512,
+        pixel_values=None,
+        image_size=None,
+        pixel_values_videos=None,
         stop_token_id: Optional[int] = None,
     ) -> GenerationResult:
-        """Greedy speculative decoding of a text prompt.  Generation stops
-        at EOS or at ``stop_token_id`` (an extra stop id, such as Llama 3's
+        """Greedy speculative decoding of a prompt.  ``pixel_values`` is one
+        image [H, W, 3] in [0, 1] or a list of them, ``image_size`` its
+        (height, width) or their list; the prompt holds each image's
+        ``count_image_tokens`` placeholders.  Generation stops at EOS or at
+        ``stop_token_id`` (an extra stop id, such as Llama 3's
         ``<|eot_id|>``); the output keeps the tokens up to and including the
         first of either."""
         input_ids = np.asarray(input_ids, np.int64)
@@ -214,11 +316,9 @@ class SpecModel:
         sampling = spec_loop.SamplingParams(temperature, top_p, int(top_k))
         max_out = min(self.max_len, output_rows(self.spec, max_new_tokens))
 
-        embeds = self._padded_embeds(input_ids, pad_len)
-        plan, max_span = draft_mod.make_prefill_plan(
-            None, l, self.dcfg.num_q, pad_len, max_images=4,
-            max_span=_bucket(1, 64), device=self.device)
-        max_span = _bucket(max_span, 64)
+        embeds, _, shifted, n_spans = self._padded_prompt(
+            input_ids, pad_len, pixel_values, image_size, pixel_values_videos)
+        plan, max_span = plan_prompt(self.dcfg, shifted, n_spans, l, pad_len, self.device)
         state = spec_loop.spec_prefill(
             self.tparams, self.dparams, self.tcfg, self.dcfg, self.spec, plan,
             sampling, embeds, kv.reset(self.target_cache),
@@ -316,8 +416,12 @@ class SpecModel:
         top_p: float = 0.0,
         top_k: int = 0,
         max_new_tokens: int = 512,
+        pixel_values=None,
+        image_size=None,
+        pixel_values_videos=None,
     ) -> GenerationResult:
-        """Plain greedy AR baseline over the same runtime."""
+        """Plain greedy AR baseline over the same runtime (image prompts as
+        in ``specgenerate``)."""
         input_ids = np.asarray(input_ids, np.int64)
         l = int(input_ids.shape[0])
         if l == 0:
@@ -327,7 +431,8 @@ class SpecModel:
             raise ValueError(f"prompt length {l} (bucketed {pad_len}) too long for "
                              f"max_len={self.max_len}")
         sampling = spec_loop.SamplingParams(temperature, top_p, int(top_k))
-        embeds = self._padded_embeds(input_ids, pad_len)
+        embeds = self._padded_prompt(input_ids, pad_len, pixel_values, image_size,
+                                     pixel_values_videos)[0]
         tok, cache = spec_loop.ar_prefill(self.tparams, self.tcfg, sampling, embeds,
                                           l, kv.reset(self.target_cache))
         t0 = time.perf_counter()
@@ -395,23 +500,21 @@ class SpecModel:
         top_p: float = 0.0,
         top_k: int = 0,
     ) -> List[GenerationResult]:
-        """Batched multi-request decoding of text requests (dicts with
-        ``input_ids``): each request is padded to its own 128-row bucket and
-        prefilled on its own into its slot of the pooled stacked caches,
-        then all decode together in batched rounds; finished requests are
-        frozen in place until the batch drains.  Greedy outputs equal
-        ``specgenerate``'s."""
+        """Batched multi-request decoding of request dicts (``input_ids``
+        and, for an image prompt, ``pixel_values`` / ``image_size`` as in
+        ``specgenerate``): each request is padded to its own 128-row bucket,
+        planned at its own span buckets and prefilled on its own into its
+        slot of the pooled stacked caches, then all decode together in
+        batched rounds; finished requests are frozen in place until the
+        batch drains.  Greedy outputs equal ``specgenerate``'s."""
         from . import batch as batch_mod
 
-        for r in requests:
-            if r.get("pixel_values") is not None or r.get("pixel_values_videos") is not None:
-                raise NotImplementedError("vision requests are not ported yet")
         sampling = spec_loop.SamplingParams(temperature, top_p, int(top_k))
         spec_loop._require_greedy(sampling)
         slack = self._cache_slack()
         prompts = [np.asarray(r["input_ids"], np.int64) for r in requests]
-        reqs = batch_mod.text_requests(self.tparams, self.dcfg, prompts, self.max_len,
-                                       slack, self.device)
+        reqs = batch_mod.prepare_requests(self.tparams, self.dcfg, requests, self.max_len,
+                                          slack, self.device, self._padded_prompt)
         max_out = min(self.max_len, output_rows(self.spec, max_new_tokens))
         states = batch_mod.batched_prefill(
             self.tparams, self.dparams, self.tcfg, self.dcfg, self.spec, sampling, reqs,
@@ -439,3 +542,23 @@ class SpecModel:
         from .serving import ServingEngine
 
         return ServingEngine(self, batch_size, **kw)
+
+
+def _as_image_list(pixel_values, image_size):
+    """One image or a list of images (a multi-image prompt) -> parallel
+    lists of images and sizes."""
+    if pixel_values is None:
+        return [], []
+    if isinstance(pixel_values, (list, tuple)):
+        if image_size is None:
+            sizes = [None] * len(pixel_values)
+        elif isinstance(image_size, (list, tuple)) and (
+                not image_size or isinstance(image_size[0], (list, tuple))):
+            sizes = list(image_size)
+        else:
+            raise ValueError("image_size must be a list of (h, w) when "
+                             "pixel_values is a list")
+        if len(sizes) != len(pixel_values):
+            raise ValueError("len(image_size) != len(pixel_values)")
+        return list(pixel_values), sizes
+    return [pixel_values], [image_size]
