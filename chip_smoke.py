@@ -223,10 +223,13 @@ def kernel_case(name, seed, dev, dtype, h, hkv, s, t_reg, start, layers, mask, f
 
 def phase_kernel(dev):
     """Table row 1a's four main-path geometries at 7B width (H = Hkv = 32,
-    D = 128, max_len 2048), plus GQA, float32 and a ragged region end.
-    Starts are not 64-row aligned and every region crosses a 64-row tile
-    edge.  The bf16 cases run the tensor-core partial kernel, float32 the
-    CUDA-core one."""
+    D = 128, max_len 2048), plus GQA, float32 and a ragged region end; then
+    the LLaVA-1.6 prompts' geometry at max_len 4096 (64 chunks): the verify
+    after the 2,956-row prompt of a 672x672 image, the draft expansion
+    after the 2,368-row prompt of a 480x640 image, and a region that ends
+    at max_len.  Starts are not 64-row aligned and every region crosses a
+    64-row tile edge.  The bf16 cases run the tensor-core partial kernel,
+    float32 the CUDA-core one."""
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(0)
     tree = torch.tril(torch.rand((30, 30), generator=g) < 0.3)
@@ -249,6 +252,12 @@ def phase_kernel(dev):
         # ragged: the region ends one column into a 64-row chunk (total 321)
         kernel_case("region_one_column_into_a_chunk", 6, dev, bf16, 32, 32, 30, 30,
                     5 * 64 + 1 - 30, 32, tree, flush),
+        kernel_case("llava_target_verify_4096", 7, dev, bf16, 32, 32, 30, 30, 2956, 32, tree,
+                    flush, max_len=4096),
+        kernel_case("llava_draft_expand_4096", 8, dev, bf16, 32, 32, 8, 24, 2368, None,
+                    expand, flush, max_len=4096),
+        kernel_case("region_ends_at_max_len_4096", 9, dev, bf16, 32, 32, 30, 30, 4096 - 30,
+                    32, tree, flush, max_len=4096),
     ]
     return rows
 
@@ -314,8 +323,9 @@ def kernel_case_int8(name, seed, dev, h, hkv, s, t_reg, start, layers, mask, flu
 
 def phase_kernel_int8(dev):
     """Table row 1b's main-path geometries at 7B width: the target verify and
-    the AR step over the 32-layer int8 cache, GQA with 4 groups, and a
-    region that ends one column into a 64-row chunk."""
+    the AR step over the 32-layer int8 cache, GQA with 4 groups, a region
+    that ends one column into a 64-row chunk, and the verify after a
+    2,956-row LLaVA-1.6 prompt at max_len 4096."""
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(1)
     tree = torch.tril(torch.rand((30, 30), generator=g) < 0.3)
@@ -329,6 +339,8 @@ def phase_kernel_int8(dev):
         kernel_case_int8("gqa_groups4_int8", 12, dev, 32, 8, 30, 30, 301, 32, tree, flush),
         kernel_case_int8("region_one_column_into_a_chunk_int8", 13, dev, 32, 32, 30, 30,
                          5 * 64 + 1 - 30, 32, tree, flush),
+        kernel_case_int8("llava_target_verify_int8_4096", 14, dev, 32, 32, 30, 30, 2956, 32,
+                         tree, flush, max_len=4096),
     ]
 
 
@@ -423,10 +435,14 @@ def phase_kernel_batched(dev):
     777, 1500 and layers 0, 5, 17, 31), the draft append and expansion over
     the layerless draft cache, GQA with 4 groups, float32, ragged starts
     (0, max_len - T_reg), and the int8 KV cache at the verify, at S = 1 and
-    at the ragged starts."""
+    at the ragged starts.  Then the LLaVA engine's geometry at max_len 4096
+    (64 chunks): starts 604 / 391 / 604 / 66 (two 604-row LLaVA-1.5 image
+    prompts, two text prompts) at the verify, the draft expansion and the
+    int8 verify."""
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(2)
     b, starts, layers = 4, (301, 129, 777, 1500), (0, 5, 17, 31)
+    llava_starts = (604, 391, 604, 66)
     tree = torch.tril(torch.rand((b, 30, 30), generator=g) < 0.3)
     tree |= torch.eye(30, dtype=torch.bool)
     tree[:, :, 0] = True
@@ -452,6 +468,10 @@ def phase_kernel_batched(dev):
         # prefix, a region ending one column into a chunk, a short slot
         kernel_case_batched("batched_ragged_starts", 27, dev, bf16, 32, 32, 30, 30,
                             (2048 - 30, 0, 5 * 64 + 1 - 30, 77), layers, tree, flush),
+        kernel_case_batched("batched_llava_verify_4096", 29, dev, bf16, 32, 32, 30, 30,
+                            llava_starts, layers, tree, flush, max_len=4096),
+        kernel_case_batched("batched_llava_draft_expand_4096", 30, dev, bf16, 32, 32, 8, 24,
+                            llava_starts, None, expand, flush, max_len=4096),
     ]
     rows_int8 = [
         kernel_case_batched("batched_target_verify_int8", 25, dev, bf16, 32, 32, 30, 30,
@@ -461,6 +481,8 @@ def phase_kernel_batched(dev):
         kernel_case_batched("batched_ragged_starts_int8", 28, dev, bf16, 32, 32, 30, 30,
                             (2048 - 30, 0, 5 * 64 + 1 - 30, 77), layers, tree, flush,
                             int8=True),
+        kernel_case_batched("batched_llava_verify_int8_4096", 31, dev, bf16, 32, 32, 30, 30,
+                            llava_starts, layers, tree, flush, int8=True, max_len=4096),
     ]
     return rows, rows_int8
 
@@ -1187,15 +1209,21 @@ def _image_request(model, size, seed):
             "pixel_values": rng.uniform(0, 1, (*size, 3)).astype(np.float32)}
 
 
-def _cuda_ms(fn):
-    """(fn's result, its device time in ms from CUDA events)."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(end)
+def _median_cuda_ms(fn, n=10):
+    """(fn's last result, the median and the range of ``n`` times of one
+    call in ms, each from CUDA events around a call issued on an idle
+    device, so the host's issue is inside it), after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return out, float(np.median(times)), [min(times), max(times)]
 
 
 def phase_vision_tower_device(dev):
@@ -1229,13 +1257,13 @@ def phase_vision_tower_device(dev):
     t0 = time.perf_counter()
     want = encode(cpu_params, "cpu")
     cpu_s = time.perf_counter() - t0
-    encode(gpu_params, dev)  # warm-up
-    got, ms = _cuda_ms(lambda: encode(gpu_params, dev))
+    got, ms, ms_range = _median_cuda_ms(lambda: encode(gpu_params, dev))
     err = float((got.cpu() - want).abs().max() / want.abs().max())
     row = {"phase": "vision_tower_device", "tower_layers": 2, "dtype": "float32",
            "image": [480, 640], "tiles": 1 + plan.grid_h * plan.grid_w,
            "image_tokens": plan.n_tokens, "shape": list(got.shape),
-           "rel_max_abs_err": err, "limit": 1e-4, "device_ms": ms, "cpu_s": cpu_s,
+           "rel_max_abs_err": err, "limit": 1e-4, "device_ms": ms,
+           "device_ms_range": ms_range, "cpu_s": cpu_s,
            "ok": err <= 1e-4 and tuple(got.shape) == (plan.n_tokens, cfg.text.hidden_size)}
     emit(row)
     assert row["ok"], row
@@ -1294,10 +1322,12 @@ def phase_llava_full_depth(dev, models):
     480x640 image, 2,340 tokens; one 672x672 image, 2,928) at all 32 layers
     in bfloat16, max_len 4096, 128 new tokens by spec and by AR.  Per
     image: the vision encode and the prefill (merge, plan, target and draft
-    prefill, first tree) in device ms from CUDA events after a warm-up,
-    decode tok/s, kernel 1a's launches against the text path's count (36
-    per dispatched round, 3 at prefill; 32 per AR step) and peak memory;
-    then the prefill under torch.profiler (``profile_llava_prefill``).
+    prefill, first tree), each the median (and range) of 10 calls timed by
+    CUDA events after a warm-up, decode tok/s, kernel 1a's launches against
+    the text path's count (36 per dispatched round, 3 at prefill; 32 per AR
+    step) and peak memory; then the encode and the prefill under
+    torch.profiler (``profile_llava_encode``, ``profile_llava_prefill``:
+    device-busy ms and the idle share of one call).
     spec/AR agreement is reported, not required (bf16)."""
     from vispec_tpu_torch.ops import kv_cache as kv
     from vispec_tpu_torch.ops import verify_attention as va
@@ -1321,11 +1351,12 @@ def phase_llava_full_depth(dev, models):
                 loop.SamplingParams(), embeds, kv.reset(model.target_cache),
                 kv.reset(model.draft_cache), output_rows(model.spec, 128), span)
 
+        def encode():
+            return model._encode_image(pixels, size)
+
         with torch.no_grad():
-            model._encode_image(pixels, size)  # warm-up
-            prefill()
-            _, encode_ms = _cuda_ms(lambda: model._encode_image(pixels, size))
-            _, prefill_ms = _cuda_ms(prefill)
+            _, encode_ms, encode_range = _median_cuda_ms(encode)
+            _, prefill_ms, prefill_range = _median_cuda_ms(prefill)
         model.specgenerate(ids, max_new_tokens=8, pixel_values=pixels, image_size=size)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1346,7 +1377,9 @@ def phase_llava_full_depth(dev, models):
                "layers": layers, "tower_layers": 24, "dtype": "bfloat16",
                "max_len": model.max_len, "image": list(size),
                "image_tokens": model.count_image_tokens(size), "prompt": n,
-               "pad_len": pad, "vision_encode_ms": encode_ms, "prefill_ms": prefill_ms,
+               "pad_len": pad, "vision_encode_ms": encode_ms,
+               "vision_encode_ms_range": encode_range, "prefill_ms": prefill_ms,
+               "prefill_ms_range": prefill_range,
                "spec_tokens": spec.new_tokens, "spec_s": spec.decode_time,
                "spec_tok_per_s": spec.new_tokens / spec.decode_time,
                "rounds": spec.rounds, "dispatched_rounds": spec.dispatched,
@@ -1363,6 +1396,8 @@ def phase_llava_full_depth(dev, models):
         assert row["ok"], row
         rows.append(row)
         with torch.no_grad():
+            emit({"phase": "profile_llava_encode", "image": list(size),
+                  "image_tokens": row["image_tokens"], **_profile(encode)})
             emit({"phase": "profile_llava_prefill", "image_tokens": row["image_tokens"],
                   "pad_len": pad, **_profile(prefill)})
         model.target_cache = model.draft_cache = None

@@ -264,7 +264,8 @@ def test_four_batched_rounds_match_jax_batched_decode_round():
     jreqs = jbatch.text_requests(jt, J_DCFG, prompts, MAX_LEN, slack)
     jstates = jbatch.batched_prefill(jt, jd, J_TCFG, J_DCFG, J_SPEC, jloop.SamplingParams(),
                                      jreqs, MAX_LEN, max_out, jnp.float32)
-    treqs = tbatch.prepare_requests(tt, T_DCFG, prompts, MAX_LEN, slack, device=CPU)
+    treqs = tbatch.prepare_requests(T_DCFG, prompts, MAX_LEN, slack,
+                                    tbatch.text_prompt(tt, CPU), device=CPU)
     tstates = tbatch.batched_prefill(tt, td, T_TCFG, T_DCFG, T_SPEC, tloop.SamplingParams(),
                                      treqs, MAX_LEN, max_out, torch.float32, device=CPU)
     _assert_same_tree(jstates.tree, tstates.tree)

@@ -142,7 +142,7 @@ def test_prompt_embeds_and_counts_match_jax(weights):
     with pytest.raises(ValueError, match="image token count"):
         jmodel._prompt_embeds(ids[:-45], [jnp.asarray(i) for i in imgs], sizes)
     with pytest.raises(ValueError, match="image token count"):
-        tmodel._prompt_embeds(ids[:-45], imgs, sizes)
+        tmodel._padded_prompt(ids[:-45], pad, imgs, sizes)
 
 
 def test_image_token_index_outside_the_vocab_matches_jax(weights):

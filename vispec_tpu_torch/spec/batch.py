@@ -92,18 +92,29 @@ def batched_prefill(
         draft_cache=lengths(dc_all, [st.draft_cache for st in states]))
 
 
-def prepare_requests(tparams, dcfg: DraftConfig, requests: Sequence, max_len: int,
-                     slack: int, device="cuda", padded_prompt=None) -> List[dict]:
+def text_prompt(tparams, device="cuda"):
+    """The ``padded_prompt`` of ``prepare_requests`` for token lists:
+    ``padded_text_embeds`` in ``SpecModel._padded_prompt``'s signature."""
+    def padded(ids, pad, *images):
+        if any(x is not None for x in images):
+            raise ValueError("image requests need a model with a vision tower "
+                             "(SpecModel.specgenerate_batch)")
+        return padded_text_embeds(tparams, ids, pad, device), None, None, 0
+    return padded
+
+
+def prepare_requests(dcfg: DraftConfig, requests: Sequence, max_len: int, slack: int,
+                     padded_prompt, device="cuda") -> List[dict]:
     """Prefill inputs of each request (a token list, or a dict with
     ``input_ids`` and, for an image prompt, ``pixel_values`` /
     ``image_size``), each padded to its own 128-row bucket and planned at
     its own span buckets, as ``specgenerate`` pads and plans it.
     ``padded_prompt`` is ``SpecModel._padded_prompt``, which merges the
-    image features; without it the requests are text only.  (The JAX
-    package shares the longest prompt's bucket and span bucket so that one
-    compiled prefill serves the batch; an eager prefill gains nothing from
-    that, and its own buckets give each request the same prefill as a
-    single-request run.)"""
+    image features, or ``text_prompt`` for token lists.  (The JAX package
+    shares the longest prompt's bucket and span bucket so that one compiled
+    prefill serves the batch; an eager prefill gains nothing from that, and
+    its own buckets give each request the same prefill as a single-request
+    run.)"""
     requests = [r if isinstance(r, dict) else {"input_ids": r} for r in requests]
     prompts = [np.asarray(r["input_ids"], np.int64) for r in requests]
     longest = max(len(p) for p in prompts)
@@ -114,15 +125,9 @@ def prepare_requests(tparams, dcfg: DraftConfig, requests: Sequence, max_len: in
     out = []
     for r, ids in zip(requests, prompts):
         l, pad = len(ids), _bucket(len(ids))
-        if padded_prompt is not None:
-            embeds, _, shifted, n_spans = padded_prompt(
-                ids, pad, r.get("pixel_values"), r.get("image_size"),
-                r.get("pixel_values_videos"))
-        elif r.get("pixel_values") is not None or r.get("pixel_values_videos") is not None:
-            raise ValueError("image requests need a model with a vision tower "
-                         "(SpecModel.specgenerate_batch)")
-        else:
-            embeds, shifted, n_spans = padded_text_embeds(tparams, ids, pad, device), None, 0
+        embeds, _, shifted, n_spans = padded_prompt(
+            ids, pad, r.get("pixel_values"), r.get("image_size"),
+            r.get("pixel_values_videos"))
         plan, max_span = plan_prompt(dcfg, shifted, n_spans, l, pad, device)
         out.append(dict(embeds=embeds, real_len=l, plan=plan, max_span=max_span))
     return out
@@ -262,7 +267,8 @@ def generate_batch(
     spec_loop._require_greedy(sampling)
     slack = max(spec.total_tokens, spec.depth * spec.top_k + spec.depth + 2) + 10
     max_out = output_rows(spec, max_new_tokens)
-    requests = prepare_requests(tparams, dcfg, prompts, max_len, slack, device)
+    requests = prepare_requests(dcfg, prompts, max_len, slack, text_prompt(tparams, device),
+                                device)
     longest = max(len(p) for p in prompts)
     budget = min(max_new_tokens, max_len - longest - slack)
     if budget <= 0:

@@ -35,15 +35,10 @@ def _bucket(n: int, step: int = 128) -> int:
     return max(step, ((n + step - 1) // step) * step)
 
 
-def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
-    """[L, D] -> [n, D] with zero rows after the L."""
-    return torch.cat([x, x.new_zeros((n - x.shape[0], x.shape[1]))])
-
-
 def padded_text_embeds(tparams: dict, input_ids, pad_len: int, device) -> torch.Tensor:
     """Token embeddings of a text prompt, zero rows to ``pad_len``."""
-    ids = torch.as_tensor(np.asarray(input_ids, np.int64), device=device)
-    return _pad_rows(llama.embed(tparams, ids), pad_len)
+    x = llama.embed(tparams, torch.as_tensor(np.asarray(input_ids, np.int64), device=device))
+    return torch.cat([x, x.new_zeros((pad_len - x.shape[0], x.shape[1]))])
 
 
 def plan_prompt(dcfg: DraftConfig, shifted, n_spans: int, real_len: int, pad_len: int,
@@ -240,17 +235,20 @@ class SpecModel:
             tiles = llava.normalize(llava.resize_image(img, size, size))[None]
         return llava.encode_image(self.vparams, cfg, tiles, plan)
 
-    def _prompt_embeds(self, input_ids, pixel_values=None, image_size=None,
-                       pixel_values_videos=None):
-        """Token embeds [L, D] with the image features written over the
-        image-token rows, features of several images concatenated in prompt
-        order; returns (embeds, image mask [L] or None)."""
+    def _padded_prompt(self, input_ids, pad_len: int, pixel_values=None,
+                       image_size=None, pixel_values_videos=None):
+        """The prompt's token embeds padded to ``pad_len`` with the image
+        features written over the image-token rows, features of several
+        images concatenated in prompt order (the JAX package's
+        ``_prompt_embeds`` and ``_padded_prompt``).  Returns (embeds, the
+        image mask [L], the SHIFTED image mask (what the draft's prefill plan
+        takes), its span count); a text prompt has (embeds, None, None, 0)."""
         if pixel_values_videos is not None:
             raise NotImplementedError("video prompts (Qwen2.5-VL) are not ported yet")
         ids = np.asarray(input_ids, np.int64)
         images, sizes = _as_image_list(pixel_values, image_size)
         if not images:
-            return llama.embed(self.tparams, torch.as_tensor(ids, device=self.device)), None
+            return padded_text_embeds(self.tparams, ids, pad_len, self.device), None, None, 0
         if self.llava_cfg is None or self.vparams is None:
             raise ValueError("pixel_values given to a model without a vision tower "
                              "(construct it with llava_cfg and vparams)")
@@ -262,24 +260,12 @@ class SpecModel:
                 f"image token count {positions.size} != features {feats.shape[0]}")
         # the image rows are overwritten: look them up as id 0, so that an
         # image_token_index past the vocab cannot fault (JAX's take fills them)
-        embeds = llama.embed(self.tparams, torch.as_tensor(np.where(image_mask, 0, ids),
-                                                           device=self.device))
+        embeds = padded_text_embeds(self.tparams, np.where(image_mask, 0, ids), pad_len,
+                                    self.device)
         embeds = llava.merge_image_embeds(embeds, feats,
                                           torch.as_tensor(positions, device=self.device))
-        return embeds, image_mask
-
-    def _padded_prompt(self, input_ids, pad_len: int, pixel_values=None,
-                       image_size=None, pixel_values_videos=None):
-        """Vision-merged embeds padded to ``pad_len``, the image mask, the
-        SHIFTED image mask (what the draft's prefill plan takes) and its
-        span count."""
-        embeds, image_mask = self._prompt_embeds(input_ids, pixel_values, image_size,
-                                                 pixel_values_videos)
-        embeds = _pad_rows(embeds, pad_len)
-        shifted = image_mask[1:] if image_mask is not None else None
-        n_spans = 0
-        if shifted is not None:
-            n_spans = int((shifted & ~np.concatenate([[False], shifted[:-1]])).sum())
+        shifted = image_mask[1:]
+        n_spans = int((shifted & ~np.concatenate([[False], shifted[:-1]])).sum())
         return embeds, image_mask, shifted, n_spans
 
     # ------------------------------------------------------------------
@@ -513,8 +499,8 @@ class SpecModel:
         spec_loop._require_greedy(sampling)
         slack = self._cache_slack()
         prompts = [np.asarray(r["input_ids"], np.int64) for r in requests]
-        reqs = batch_mod.prepare_requests(self.tparams, self.dcfg, requests, self.max_len,
-                                          slack, self.device, self._padded_prompt)
+        reqs = batch_mod.prepare_requests(self.dcfg, requests, self.max_len, slack,
+                                          self._padded_prompt, self.device)
         max_out = min(self.max_len, output_rows(self.spec, max_new_tokens))
         states = batch_mod.batched_prefill(
             self.tparams, self.dparams, self.tcfg, self.dcfg, self.spec, sampling, reqs,
