@@ -759,30 +759,40 @@ def phase_tau_fixture_batch(dev):
     assert diverged > 0, "tau fixture batched: no round with divergent per-slot accepts"
 
 
-def _decode_round_without_host_sync(model, prompt):
+def _decode_round_without_host_sync(model, prompt, sampling=None):
     """One decode round with CUDA's sync debug mode set to error: the round
-    must not wait on the device (no .item(), no blocking copy)."""
+    must not wait on the device (no .item(), no blocking copy).  Greedy by
+    default; ``sampling`` makes it a sampled round (drawing from a key), and
+    a model with Medusa heads runs a Medusa round."""
     from vispec_tpu_torch.models import draft as draft_mod
     from vispec_tpu_torch.ops import kv_cache as kv
+    from vispec_tpu_torch.ops import rng
     from vispec_tpu_torch.spec import loop
     from vispec_tpu_torch.spec.spec_model import padded_text_embeds
 
     dev = model.device
     pad = 128
-    plan, span = draft_mod.make_prefill_plan(None, len(prompt), model.dcfg.num_q, pad,
-                                             max_span=64, device=dev)
+    sampling = sampling or loop.SamplingParams()
+    key = None if sampling.greedy else rng.key(0, dev)
+    embeds = padded_text_embeds(model.tparams, prompt, pad, dev)
     with torch.no_grad():
-        state = loop.spec_prefill(
-            model.tparams, model.dparams, model.tcfg, model.dcfg, model.spec, plan,
-            loop.SamplingParams(), padded_text_embeds(model.tparams, prompt, pad, dev),
-            kv.reset(model.target_cache), kv.reset(model.draft_cache), 64, span)
+        if model.mparams is not None:
+            state = loop.medusa_prefill(model.tparams, model.mparams, model.tcfg,
+                                        model.spec, sampling, embeds, len(prompt),
+                                        kv.reset(model.target_cache), 64, key=key)
+        else:
+            plan, span = draft_mod.make_prefill_plan(None, len(prompt), model.dcfg.num_q,
+                                                     pad, max_span=64, device=dev)
+            state = loop.spec_prefill(
+                model.tparams, model.dparams, model.tcfg, model.dcfg, model.spec, plan,
+                sampling, embeds, kv.reset(model.target_cache), kv.reset(model.draft_cache),
+                64, span, key=key)
         eos = torch.tensor(2, dtype=torch.int32, device=dev)
         cap = torch.tensor(32, dtype=torch.int32, device=dev)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            loop.decode_round(model.tparams, model.dparams, model.tcfg, model.dcfg,
-                              model.spec, loop.SamplingParams(), state, eos, cap)
+            model._round(sampling, state, eos, cap)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
@@ -1454,6 +1464,472 @@ def phase_serving_vision_full_depth(dev, model):
     return row
 
 
+# ---------------------------------------------------------------------------
+# Sampling (T > 0) and the EAGLE-2 and Medusa drafters
+# ---------------------------------------------------------------------------
+
+WALK_TOKENS, WALK_PARENT = [5, 7, 9, 1, 2, 9], [0, 0, 0, 1, 1, 2]
+
+
+def _walk_tree(tokens, parent, n, dev):
+    """A hand-built tree (tests/test_tree.py's) stacked over ``n`` slots."""
+    from vispec_tpu_torch.ops.tree import Tree
+
+    t = len(tokens)
+    mask = np.eye(t, dtype=bool)
+    for i in range(1, t):
+        mask[i] |= mask[parent[i]]
+    fields = (np.asarray(tokens, np.int32), np.asarray(parent, np.int32), mask,
+              (mask.sum(1) - 1).astype(np.int32))
+    return Tree(*(torch.as_tensor(f, device=dev).expand(n, *f.shape) for f in fields))
+
+
+def _np_sequential_accept(p, rs, max_depth=3):
+    """The sequential reject-and-renormalise walk in numpy over the walk
+    tree: at the accepted node, its children in node order; accept child x
+    with probability p(x), else zero x's mass and renormalise.  Returns the
+    best node."""
+    depth = np.eye(6, dtype=bool)
+    for i in range(1, 6):
+        depth[i] |= depth[WALK_PARENT[i]]
+    depth = depth.sum(1) - 1
+    cur = 0
+    for d in range(max_depth):
+        gtp = p[cur].astype(np.float64) / p[cur].sum()
+        accepted = None
+        for c in (i for i in range(1, 6) if WALK_PARENT[i] == cur and depth[i] == d + 1):
+            x = WALK_TOKENS[c]
+            if rs.uniform() <= gtp[x]:
+                accepted = c
+                break
+            gtp[x] = 0.0
+            gtp = gtp / gtp.sum() if gtp.sum() > 0 else gtp
+        if accepted is None:
+            return cur
+        cur = accepted
+    return cur
+
+
+def phase_sampling_device(dev):
+    """The sampling ops on the card against the CPU and against their
+    distributions: the key stream's splits and uniforms bit for bit;
+    ``process_logits`` (T 0.7, top-p 0.9) and ``sample_probs_dyn`` (three
+    slots: greedy; T 1, top-p 0.9, penalty 1.3, k 20; T 0.7, top-p 0.95,
+    k 50 of a 50 bucket) on tie-free float32 logits [30, 32000] within 1e-6
+    with identical keep sets; the tree walk's best node over 20,000 slots
+    within 4 sigma + 0.01 of the numpy sequential walk; the depth-1 outcome
+    (accepted child or residual draw) within 0.02 of p over 20,000 slots."""
+    from vispec_tpu_torch.ops import rng, sampling, tree
+
+    kc, kd = rng.keys(range(64), "cpu"), rng.keys(range(64), dev)
+    splits_equal = torch.equal(torch.stack(rng.split(kd, 3)).cpu(),
+                               torch.stack(rng.split(kc, 3)))
+    uniforms_equal = torch.equal(rng.uniform(kd, (4, 30)).cpu(), rng.uniform(kc, (4, 30)))
+    gumbel_err = float((rng.gumbel(kd, (32000,)).cpu() - rng.gumbel(kc, (32000,))).abs().max())
+
+    g = torch.Generator().manual_seed(0)
+    perm = torch.stack([torch.randperm(32000, generator=g) for _ in range(30)])
+    logits = perm.float() * (8.0 / 32000) - 4.0  # distinct values in every row
+    want = sampling.process_logits(logits, 0.7, 0.9, 0)
+    got = sampling.process_logits(logits.to(dev), 0.7, 0.9, 0).cpu()
+    warp_keep = torch.equal(got > -1e8, want > -1e8)
+    keep = want > -1e8
+    warp_err = float((got[keep] - want[keep]).abs().max())
+    knobs = [torch.tensor(v) for v in ([0.0, 1.0, 0.7], [0.0, 0.9, 0.95], [1.0, 1.3, 1.0],
+                                       [0.0, 20.0, 50.0])]
+    seen = torch.zeros((3, 32001), dtype=torch.bool)
+    seen[:, torch.randperm(32000, generator=g)[:500]] = True
+    lg = logits.reshape(3, 10, 32000)
+    want = sampling.sample_probs_dyn(lg, *knobs[:3], seen, 50, top_k_dyn=knobs[3])
+    got = sampling.sample_probs_dyn(lg.to(dev), *(k.to(dev) for k in knobs[:3]),
+                                    seen.to(dev), 50, top_k_dyn=knobs[3].to(dev)).cpu()
+    probs_keep = torch.equal(got > 0, want > 0)
+    probs_err = float((got - want).abs().max())
+
+    trials = 20000
+    p = np.random.default_rng(3).uniform(0.05, 1.0, (6, 12))
+    p[:, 9] *= 4
+    p = (p / p.sum(-1, keepdims=True)).astype(np.float32)
+    keys = rng.keys(range(trials), dev)
+    best, _, _ = tree.sampling_accept(
+        _walk_tree(WALK_TOKENS, WALK_PARENT, trials, dev),
+        torch.as_tensor(p, device=dev).expand(trials, 6, 12), rng.uniform(keys, (3, 6)), 3)
+    ours = np.bincount(best.cpu().numpy(), minlength=6) / trials
+    rs = np.random.default_rng(7)
+    ref = np.bincount([_np_sequential_accept(p, rs) for _ in range(trials)],
+                      minlength=6) / trials
+    walk_dev = np.abs(ours - ref)
+    walk_ok = bool(np.all(walk_dev < 4 * np.sqrt(np.maximum(ref * (1 - ref) / trials, 1e-9))
+                          + 0.01))
+    p1 = np.asarray([0.4, 0.3, 0.2, 0.1], np.float32)
+    k_acc, k_bonus = rng.split(rng.keys(range(trials, 2 * trials), dev), 2)
+    best, acc, resid = tree.sampling_accept(
+        _walk_tree([9, 0, 1], [0, 0, 0], trials, dev),
+        torch.as_tensor(np.tile(p1, (3, 1)), device=dev).expand(trials, 3, 4),
+        rng.uniform(k_acc, (1, 3)), 1)
+    bonus = sampling.sample_categorical(k_bonus, resid)
+    toks = torch.where(acc > 0, torch.tensor([9, 0, 1], device=dev)[best.long()], bonus)
+    freq = np.bincount(toks.cpu().numpy(), minlength=4)[:4] / trials
+    outcome_err = float(np.abs(freq - p1).max())
+    row = {"phase": "sampling_device", "splits_equal": splits_equal,
+           "uniforms_equal": uniforms_equal, "gumbel_max_abs_err": gumbel_err,
+           "process_logits_max_abs_err": warp_err, "process_logits_keep_equal": warp_keep,
+           "sample_probs_dyn_max_abs_err": probs_err, "sample_probs_dyn_keep_equal": probs_keep,
+           "limit": 1e-6, "walk_trials": trials, "walk_best_freq": ours.tolist(),
+           "walk_reference_freq": ref.tolist(), "walk_ok": walk_ok,
+           "outcome_freq": freq.tolist(), "outcome_max_abs_err": outcome_err,
+           "outcome_limit": 0.02}
+    row["ok"] = (splits_equal and uniforms_equal and warp_keep and probs_keep
+                 and warp_err <= 1e-6 and probs_err <= 1e-6 and walk_ok
+                 and outcome_err <= 0.02)
+    emit(row)
+    assert row["ok"], row
+
+
+def _medusa_params(model, seed=7):
+    """Medusa heads for ``model``'s target: the zero initializer plus
+    N(0, 0.02) noise from ``seed`` (random, not the identity)."""
+    from vispec_tpu_torch.models import medusa
+
+    dev, dtype = model.device, model.dtype
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {k: v + torch.randn(v.shape, generator=g, device=dev, dtype=dtype) * 0.02
+            for k, v in medusa.init_params(model.tcfg.hidden_size, dev, dtype).items()}
+
+
+def _medusa_model(model, mparams, **kw):
+    """A Medusa SpecModel over ``model``'s target (a layerless stub draft)."""
+    from vispec_tpu_torch.spec.spec_model import (SpecModel, _stub_draft_config,
+                                                  _stub_draft_params)
+
+    return SpecModel(model.tcfg, _stub_draft_config(model.tcfg), model.spec, model.tparams,
+                     _stub_draft_params(model.tparams, model.dtype), max_len=model.max_len,
+                     dtype=model.dtype, device=model.device, mparams=mparams, **kw)
+
+
+def _eagle_model(model, seed, **kw):
+    """An EAGLE-2 SpecModel over ``model``'s target: its draft's config with
+    ``vision=False`` (no adaptor, no img_fc), random from ``seed``, sharing
+    the target's embedding."""
+    import dataclasses
+
+    from vispec_tpu_torch.models import draft
+    from vispec_tpu_torch.spec.spec_model import SpecModel
+
+    dcfg = dataclasses.replace(model.dcfg, vision=False)
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    dparams = draft.init_params(dcfg, g, model.device, model.dtype)
+    dparams["embed"] = model.tparams["embed"]
+    return SpecModel(model.tcfg, dcfg, model.spec, model.tparams, dparams,
+                     max_len=model.max_len, dtype=model.dtype, device=model.device, **kw)
+
+
+SAMPLING_MIX = [{}, {"temperature": 1.0}, {"temperature": 1.0, "repetition_penalty": 1.3},
+                {"temperature": 0.7, "top_p": 0.9}]
+
+
+def phase_sampling_exact(dev):
+    """Vicuna-7B widths, 2 target layers, float32 with TF32 off; every check
+    token for token.  T 0.7 with top_k 1: spec == AR == greedy (64 tokens).
+    T 1: ``specgenerate_batch`` (prompts of 40 / 90 / 130 / 200) == per
+    request with seeds seed + i.  The per-request engine (B = 4, engine
+    top_k 1) over a greedy / T 1 / penalty 1.3 / top-p 0.9 mix == single
+    runs with each request's knobs.  Medusa spec == AR, over an int8 KV
+    cache too, and Medusa's batch and engine == single runs.  EAGLE-2 spec
+    == AR, bf16-free and with an int8 and an int4 draft.  The quantized mode
+    (int8 KV, int4 draft, int8 target) at T 0.7 with top_k 1: spec == AR ==
+    its greedy.  Kernels 1a, 1b and 2 must each have run on these paths
+    (launch counts per run in the line)."""
+    model = _full_width_model(dev, 2, torch.float32, seed=1)
+    prompt = np.random.default_rng(1).integers(3, 32000, 100).tolist()
+    n = len(prompt)
+    greedy = model.specgenerate(prompt, max_new_tokens=64).sequences[:n + 64].tolist()
+    ar = model.ar_generate(prompt, max_new_tokens=64).sequences.tolist()
+    checks = {
+        "spec_greedy_eq_ar": greedy == ar,
+        "spec_t07_topk1_eq_greedy": model.specgenerate(
+            prompt, max_new_tokens=64, temperature=0.7, top_k=1,
+            seed=3).sequences[:n + 64].tolist() == greedy,
+        "ar_t07_topk1_eq_greedy": model.ar_generate(
+            prompt, max_new_tokens=64, temperature=0.7, top_k=1, seed=3).sequences.tolist()
+        == greedy}
+    rng_ = np.random.default_rng(3)
+    prompts = [rng_.integers(3, 32000, k).tolist() for k in (40, 90, 130, 200)]
+    batch = model.specgenerate_batch([{"input_ids": p} for p in prompts], temperature=1.0,
+                                     max_new_tokens=32, seed=10)
+    checks["batch_t1_eq_per_request"] = [r.sequences.tolist() for r in batch] == [
+        model.specgenerate(p, temperature=1.0, max_new_tokens=32,
+                           seed=10 + i).sequences[:len(p) + 32].tolist()
+        for i, p in enumerate(prompts)]
+    eng = model.serving_engine(batch_size=4, max_new_tokens=32, top_k=1, chunk_rounds=4,
+                               pad_bucket=(128, 256), per_request_sampling=True)
+    outs = eng.run_all([dict(input_ids=p, **c) for p, c in zip(prompts, SAMPLING_MIX)])
+    checks["per_request_engine_eq_single"] = [o.tolist() for o in outs] == [
+        model.specgenerate(p, max_new_tokens=32, top_k=1, **c).sequences[
+            len(p):len(p) + 32].tolist() for p, c in zip(prompts, SAMPLING_MIX)]
+
+    launches = {}
+
+    def counted(label, fn):
+        _zero_launch_counts()
+        out = fn()
+        launches[label] = {k: v for k, v in _launch_counts().items() if v}
+        return out
+
+    mparams = _medusa_params(model)
+    med = _medusa_model(model, mparams)
+    mres = counted("medusa", lambda: med.specgenerate(prompt, max_new_tokens=64))
+    checks["medusa_spec_eq_ar"] = mres.sequences[:n + 64].tolist() == ar
+    medq = _medusa_model(model, mparams, quantize_kv=True)
+    checks["medusa_int8_kv_spec_eq_ar"] = (
+        counted("medusa_int8_kv", lambda: medq.specgenerate(prompt, max_new_tokens=64))
+        .sequences[:n + 64].tolist()
+        == medq.ar_generate(prompt, max_new_tokens=64).sequences.tolist())
+    del medq
+    singles = [med.specgenerate(p, max_new_tokens=32).sequences[len(p):len(p) + 32].tolist()
+               for p in prompts[:3]]
+    checks["medusa_batch_eq_single"] = [
+        r.sequences[len(p):].tolist() for p, r in zip(
+            prompts, med.specgenerate_batch([{"input_ids": p} for p in prompts[:3]],
+                                            max_new_tokens=32))] == singles
+    meng = med.serving_engine(batch_size=2, max_new_tokens=32, chunk_rounds=4,
+                              pad_bucket=(128, 256))
+    checks["medusa_engine_eq_single"] = [o.tolist() for o in meng.run_all(prompts[:3])] \
+        == singles
+    del med, meng
+    for label, quant in (("eagle", {}), ("eagle_int8_draft", {"quantize_draft": "int8"}),
+                         ("eagle_int4_draft", {"quantize_draft": "int4"})):
+        eagle = _eagle_model(model, seed=4, **quant)
+        checks[label + "_spec_eq_ar"] = counted(label, lambda: eagle.specgenerate(
+            prompt, max_new_tokens=64)).sequences[:n + 64].tolist() == ar
+        del eagle
+    del model
+    torch.cuda.empty_cache()
+    # a sampled round of the quantized mode: int8 KV (1b), int4 draft (2)
+    qmodel = _full_width_model(dev, 2, torch.float32, seed=1, quantize_kv=True,
+                               quantize_draft="int4")
+    qmodel.quantize_target_inplace()
+    qgreedy = qmodel.specgenerate(prompt, max_new_tokens=64).sequences[:n + 64].tolist()
+    checks["quant_t07_topk1_eq_greedy"] = counted(
+        "quant_sampled", lambda: qmodel.specgenerate(
+            prompt, max_new_tokens=64, temperature=0.7, top_k=1, seed=3)).sequences[
+        :n + 64].tolist() == qgreedy
+    checks["quant_ar_t07_topk1_eq_greedy"] = qmodel.ar_generate(
+        prompt, max_new_tokens=64, temperature=0.7, top_k=1, seed=3).sequences.tolist() \
+        == qgreedy
+    # each kernel of these paths ran: 1a (Medusa, EAGLE-2), 1b (int8 KV), 2 (int4)
+    ran = (launches["medusa"].get("1a") and launches["medusa_int8_kv"].get("1b")
+           and launches["eagle"].get("1a") and launches["eagle_int4_draft"].get("2")
+           and launches["quant_sampled"].get("1b") and launches["quant_sampled"].get("2"))
+    row = {"phase": "sampling_exact", "layers": 2, "dtype": "float32", "new_tokens": 64,
+           "medusa_accept_lengths": mres.acceptance_lengths[:16], **checks,
+           "launches": launches, "ok": all(checks.values()) and bool(ran)}
+    emit(row)
+    assert row["ok"], row
+    del qmodel
+    torch.cuda.empty_cache()
+
+
+def phase_tau_fixture_sampling(dev):
+    """The trained toy checkpoint at T > 0: T 1 with top_k 1 equals greedy
+    on the six tau prompts; with the lm_head sharpened x8
+    (tests/test_e2e_tau.py), mean tau over the six prompts at T 0.5 exceeds
+    tau at T 1, which is at least 1.0."""
+    model = _tau_model(dev)
+    prompts = [np.random.default_rng(100 + s).integers(1, 90, 16).tolist() for s in range(6)]
+    same = [model.specgenerate(p, max_new_tokens=40, temperature=1.0, top_k=1,
+                               seed=s).sequences[:56].tolist()
+            == model.specgenerate(p, max_new_tokens=40).sequences[:56].tolist()
+            for s, p in enumerate(prompts)]
+    model.tparams = dict(model.tparams, lm_head=model.tparams["lm_head"] * 8.0)
+
+    def tau(temperature):
+        taus = []
+        for s, p in enumerate(prompts):
+            r = model.specgenerate(p, max_new_tokens=40, temperature=temperature, seed=s)
+            taus.extend(a + 1 for a in r.acceptance_lengths)
+        return float(np.mean(taus))
+
+    t05, t1 = tau(0.5), tau(1.0)
+    row = {"phase": "tau_fixture_sampling", "topk1_eq_greedy": same, "tau_t05": t05,
+           "tau_t1": t1, "ok": all(same) and t05 > t1 >= 1.0}
+    emit(row)
+    assert row["ok"], row
+
+
+def _accept_step_ms(dev, sampling_params, b=None):
+    """Median (and range) of 10 CUDA-event timings of one round's acceptance
+    at the verify's shape, [30, 32000] logits (``[B, 30, 32000]`` for ``b``
+    slots): greedy (argmax, walk, bonus) or sampled (warps, softmax,
+    uniforms, walk, Gumbel bonus)."""
+    from vispec_tpu_torch.ops import rng, sampling, tree
+    from vispec_tpu_torch.spec import loop
+
+    lead = () if b is None else (b,)
+    g = torch.Generator(device=dev).manual_seed(1)
+    logits = torch.randn((*lead, 30, 32000), generator=g, device=dev) * 3
+    parent = torch.as_tensor([0] + [i // 2 for i in range(1, 30)], device=dev)
+    mask = torch.eye(30, dtype=torch.bool, device=dev)
+    for i in range(1, 30):
+        mask[i] |= mask[parent[i]]
+    t = tree.Tree(torch.randint(0, 32000, (*lead, 30), generator=g, device=dev,
+                                dtype=torch.int32), parent.to(torch.int32).expand(*lead, 30),
+                  mask.expand(*lead, 30, 30), (mask.sum(1) - 1).to(torch.int32).expand(*lead, 30))
+    key = rng.keys(range(b), dev) if b else rng.key(0, dev)
+    samp = torch.tensor([1.0, 0.9, 1.3, 20.0], device=dev).expand(*lead, 4)
+    seen = torch.zeros((*lead, 32001), dtype=torch.bool, device=dev)
+
+    def step():
+        if sampling_params.greedy:
+            am = torch.argmax(logits, -1).to(torch.int32)
+            best, _ = tree.greedy_accept(t, am)
+            return best
+        _, k_acc, k_bonus = rng.split(key, 3)
+        probs = loop._probs(logits, sampling_params, samp, seen)
+        _, _, resid = tree.sampling_accept(t, probs, rng.uniform(k_acc, (5, 30)), 5)
+        return sampling.sample_categorical(k_bonus, resid)
+
+    _, ms, ms_range = _median_cuda_ms(step)
+    return ms, ms_range
+
+
+def phase_sampling_full_depth(dev, model, prompt):
+    """Vicuna-7B at 32 layers in bfloat16 (the ``full_width_depth`` model),
+    128 new tokens after its 128-token prompt, three runs each (median and
+    range of tok/s): ViSpec spec at T 1 / top-p 0.9 and AR at T 1 (seeds
+    0-2); Medusa spec (random heads from a seed) and EAGLE-2 spec (a random
+    ``vision=False`` draft) at T 0.  Gates: kernel 1a launched 36 times a
+    sampled ViSpec round + 3 at prefill, 32 a Medusa round (none at
+    prefill), 36 an EAGLE-2 round + 3, 32 a sampled AR step; a sampled round
+    and a Medusa round make no host read.  Reports the acceptance step's
+    device-and-issue ms greedy against sampled (single request and B = 4),
+    one profiled 16-token sampled run (launches a round, 1a apart; idle
+    share) and peak memory."""
+    from vispec_tpu_torch.ops import verify_attention as va
+    from vispec_tpu_torch.spec import loop
+
+    layers, depth = model.tcfg.num_hidden_layers, model.spec.depth
+    med = _medusa_model(model, _medusa_params(model))
+    eagle = _eagle_model(model, seed=4)
+    sampled = loop.SamplingParams(1.0, 0.9)
+    _decode_round_without_host_sync(model, prompt, sampled)
+    _decode_round_without_host_sync(med, prompt)
+    runs = {
+        "spec_t1_topp09": lambda s: model.specgenerate(prompt, max_new_tokens=128,
+                                                       temperature=1.0, top_p=0.9, seed=s),
+        "ar_t1": lambda s: model.ar_generate(prompt, max_new_tokens=128, temperature=1.0,
+                                             seed=s),
+        "medusa_t0": lambda s: med.specgenerate(prompt, max_new_tokens=128),
+        "eagle_t0": lambda s: eagle.specgenerate(prompt, max_new_tokens=128),
+    }
+    # warm-up: the sampling ops' and the drafters' first launches
+    model.specgenerate(prompt, max_new_tokens=8, temperature=1.0, top_p=0.9, seed=9)
+    model.ar_generate(prompt, max_new_tokens=8, temperature=1.0, seed=9)
+    med.specgenerate(prompt, max_new_tokens=8)
+    eagle.specgenerate(prompt, max_new_tokens=8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    row = {"phase": "sampling_full_depth", "layers": layers, "dtype": "bfloat16",
+           "max_len": model.max_len, "prompt": len(prompt), "new_tokens": 128}
+    ok = True
+    for name, fn in runs.items():
+        rates, launches, taus = [], [], []
+        for s in range(3):
+            _zero_launch_counts()
+            r = fn(s)
+            got = va.verify_attention.launches
+            if name in ("ar_t1", "medusa_t0"):
+                want = r.dispatched * layers
+            else:
+                want = depth + r.dispatched * (layers + 1 + depth)
+            ok &= got == want and r.new_tokens >= 128
+            rates.append(r.new_tokens / r.decode_time)
+            launches.append([got, want, r.dispatched])
+            if r.acceptance_lengths:
+                taus.append(float(np.mean([a + 1 for a in r.acceptance_lengths])))
+        row[name] = {"tok_per_s_median": float(np.median(rates)),
+                     "tok_per_s_range": [min(rates), max(rates)], "tok_per_s": rates,
+                     "launches_1a_expected_dispatched": launches, "tau": taus}
+    row["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    for label, params, b in (("greedy", loop.SamplingParams(), None),
+                             ("sampled", sampled, None),
+                             ("greedy_b4", loop.SamplingParams(), 4),
+                             ("per_request_b4",
+                              loop.SamplingParams(0.0, 0.0, 50, per_request=True), 4)):
+        ms, ms_range = _accept_step_ms(dev, params, b)
+        row[f"accept_step_ms_{label}"] = ms
+        row[f"accept_step_ms_{label}_range"] = ms_range
+    row["ok"] = ok
+    emit(row)
+    assert row["ok"], row
+    _zero_launch_counts()
+    res = []
+    prof = _profile(lambda: res.append(model.specgenerate(
+        prompt, max_new_tokens=16, temperature=1.0, top_p=0.9, seed=5)))
+    n = res[0].dispatched
+    attn = sum(prof["port_kernels"].get(k, (0, 0.0))[0]
+               for k in ("partial_kernel_mma", "combine_kernel"))
+    emit({"phase": "profile_sampled_spec_16_tokens", "dispatched_rounds": n,
+          "launches_1a": va.verify_attention.launches,
+          "launches_per_round": prof["kernel_launches"] / n,
+          "attention_launches_per_round": attn / n,
+          "other_launches_per_round": (prof["kernel_launches"] - attn) / n, **prof})
+    del eagle
+    torch.cuda.empty_cache()
+    return med
+
+
+def phase_serving_sampling_full_depth(dev, model, med):
+    """The engine at Vicuna-7B, 32 layers, bfloat16: ``ServingEngine(
+    batch_size=4, per_request_sampling=True, top_k=50)`` over the 8
+    ``serving_full_depth`` requests, their knobs cycling through greedy /
+    T 1 / T 1 with penalty 1.3 / T 0.7 with top-p 0.9 / T 1 with top_k 20;
+    then the Medusa engine (greedy) over the same 8.  Gates: kernel 1c 36
+    launches a round (Medusa 32), 1a 3 a prefill (Medusa none), no failed
+    request, every request complete."""
+    knobs = SAMPLING_MIX + [{"temperature": 1.0, "top_k": 20}]
+    base = _serving_requests(8)
+    reqs = [({"input_ids": p, **knobs[i % len(knobs)]}, c) for i, (p, c) in enumerate(base)]
+    layers, depth = model.tcfg.num_hidden_layers, model.spec.depth
+    rows = []
+    for label, m, kw, per_round, per_prefill in (
+            ("per_request_sampling", model,
+             dict(per_request_sampling=True, top_k=50, chunk_rounds=8),
+             layers + 1 + depth, depth),
+            ("medusa_greedy", med, dict(chunk_rounds=8), layers, 0)):
+        requests = reqs if label == "per_request_sampling" else base
+        warm = m.serving_engine(batch_size=4, pad_bucket=(128, 256, 512), **kw)
+        warm.run_all([dict(r, max_new_tokens=4) if isinstance(r, dict) else
+                      {"input_ids": r, "max_new_tokens": 4} for r, _ in requests[:4]])
+        del warm
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_launch_counts()
+        eng, outs, latency, wall = _serve(m, requests, **kw)
+        counts = _launch_counts()
+        rounds, prefills = eng.stats["rounds"], eng._n_prefills
+        want = {"1a": per_prefill * prefills, "1b": 0, "1c": per_round * rounds,
+                "1c_int8": 0, "2": 0}
+        tokens = sum(len(o) for o in outs)
+        row = {"phase": "serving_sampling_full_depth", "mode": label, "layers": layers,
+               "dtype": "bfloat16", "batch_size": 4, "requests": len(requests),
+               "knobs": [{k: v for k, v in r.items() if k != "input_ids"}
+                         if isinstance(r, dict) else {} for r, _ in requests],
+               "tokens": tokens, "wall_s": wall, "tok_per_s": tokens / wall,
+               "latency_p50_s": float(np.median(latency)), "latency_max_s": max(latency),
+               "rounds_dispatched": rounds, "prefills": prefills,
+               "launches": counts, "expected": want, "errors": dict(eng.errors),
+               "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30}
+        row["ok"] = (counts == want and not eng.errors
+                     and all(_complete(o, c, m) for o, (_, c) in zip(outs, requests)))
+        emit(row)
+        assert row["ok"], row
+        rows.append(row)
+        del eng
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU port only",
@@ -1479,10 +1955,18 @@ def main():
     phase_full_width_exact(dev)
     phase_quant_exact(dev)
     phase_batch_exact(dev)
+    phase_sampling_device(dev)
+    phase_sampling_exact(dev)
+    phase_tau_fixture_sampling(dev)
     phase_vision_tower_device(dev)
     phase_llava_exact(dev)
     model, prompt, bf16_row = phase_full_width_depth(dev)
     serving_row = phase_serving_full_depth(dev, model)
+    med = phase_sampling_full_depth(dev, model, prompt)
+    phase_serving_sampling_full_depth(dev, model, med)
+    del med
+    gc.collect()
+    torch.cuda.empty_cache()
     quant_counts, qmodel = phase_quant_full_depth(dev, model, prompt, bf16_row)
     serving_quant_counts = phase_serving_quant_full_depth(dev, qmodel)
     del model, qmodel  # the 7B text weights, quantized in place, make room

@@ -344,8 +344,12 @@ def test_specgenerate_batch_reuses_its_cache_pool(batch_refs):
     for p, res in zip(PROMPTS, results2):
         assert res.sequences[len(p):].tolist() == results[PROMPTS.index(p)].sequences[
             len(p):len(p) + 8].tolist()
-    with pytest.raises(NotImplementedError):
-        model.specgenerate_batch([{"input_ids": PROMPTS[0]}], temperature=0.7)
+    # sampled: request i draws from the key of seed + i, as specgenerate does
+    sampled = model.specgenerate_batch([{"input_ids": p} for p in PROMPTS[:2]],
+                                       temperature=0.7, max_new_tokens=8, seed=4)
+    for i, (p, res) in enumerate(zip(PROMPTS, sampled)):
+        ref = model.specgenerate(p, temperature=0.7, max_new_tokens=8, seed=4 + i)
+        assert res.sequences.tolist() == ref.sequences[:len(p) + 8].tolist()
     with pytest.raises(NotImplementedError):
         model.specgenerate_batch([{"input_ids": PROMPTS[0],
                                    "pixel_values_videos": np.zeros((2, 4, 4, 3))}])

@@ -447,3 +447,120 @@ def test_verify_attention_batched_refuses_a_cache_without_the_slot_dim(cuda_devi
                                     st.repeat(2), mask[None].expand(2, *mask.shape)
                                     .contiguous(), layer.repeat(2))
     assert va.verify_attention_batched.launches == before
+
+
+# ---------------------------------------------------------------------------
+# Sampling and Medusa: the key stream, host reads, depth-5 regions
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_key_stream_is_equal_on_the_card_and_the_cpu(cuda_device):
+    """Keys, splits and uniforms are integer hashes: bit for bit the same on
+    the card; the Gumbel noise within float32 log rounding."""
+    from vispec_tpu_torch.ops import rng
+
+    kc, kd = rng.keys(range(100), "cpu"), rng.keys(range(100), cuda_device)
+    assert torch.equal(kd.cpu(), kc)
+    assert torch.equal(torch.stack(rng.split(kd, 3)).cpu(), torch.stack(rng.split(kc, 3)))
+    assert torch.equal(rng.uniform(kd, (5, 30)).cpu(), rng.uniform(kc, (5, 30)))
+    torch.testing.assert_close(rng.gumbel(kd, (1000,)).cpu(), rng.gumbel(kc, (1000,)),
+                               rtol=1e-5, atol=1e-5)
+
+
+def _toy_model(dev, **kw):
+    """A tests/torch_parity.py-sized model on the card (head dim 16)."""
+    from vispec_tpu_torch.configs import DraftConfig, LlamaConfig, SpecConfig
+    from vispec_tpu_torch.models import draft, llama
+    from vispec_tpu_torch.spec.spec_model import SpecModel
+
+    w = dict(vocab_size=256, hidden_size=64, intermediate_size=128, num_attention_heads=4,
+             num_key_value_heads=2, max_position_embeddings=512)
+    tcfg, dcfg = LlamaConfig(num_hidden_layers=3, **w), DraftConfig(**w)
+    g = torch.Generator(device=dev).manual_seed(0)
+    tparams = llama.init_params(tcfg, g, dev, torch.float32)
+    dparams = draft.init_params(dcfg, g, dev, torch.float32)
+    dparams["embed"] = tparams["embed"]
+    return SpecModel(tcfg, dcfg, SpecConfig(total_tokens=12, depth=3, top_k=4), tparams,
+                     dparams, max_len=256, dtype=torch.float32, device=dev, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["sampled", "per_request", "medusa"])
+def test_sampled_and_medusa_rounds_make_no_host_read(cuda_device, mode):
+    """One decode round under CUDA's sync debug mode set to error: a sampled
+    round (T 1, top-p 0.9, a repetition penalty), a per-request round and a
+    Medusa round wait on nothing."""
+    from vispec_tpu_torch.models import draft as draft_mod
+    from vispec_tpu_torch.models import medusa
+    from vispec_tpu_torch.ops import rng
+    from vispec_tpu_torch.spec import loop
+    from vispec_tpu_torch.spec.spec_model import padded_text_embeds
+
+    dev = cuda_device
+    mparams = medusa.init_params(64, dev, torch.float32) if mode == "medusa" else None
+    model = _toy_model(dev, mparams=mparams)
+    prompt = list(range(10, 30))
+    embeds = padded_text_embeds(model.tparams, prompt, 128, dev)
+    key = rng.key(0, dev)
+    if mode == "medusa":
+        sampling = loop.SamplingParams()
+        state = loop.medusa_prefill(model.tparams, mparams, model.tcfg, model.spec, sampling,
+                                    embeds, len(prompt), model.target_cache, 64)
+    else:
+        sampling, samp, seen = loop.SamplingParams(1.0, 0.9, 0, 1.3), None, None
+        if mode == "per_request":
+            sampling = loop.SamplingParams(0.0, 0.0, 8, per_request=True)
+            samp = torch.tensor([1.0, 0.9, 1.3, 4.0], device=dev)
+        seen = model._seen_mask(loop.SamplingParams(1.0, repetition_penalty=1.3), prompt)
+        plan, span = draft_mod.make_prefill_plan(None, len(prompt), model.dcfg.num_q, 128,
+                                                 max_span=64, device=dev)
+        state = loop.spec_prefill(model.tparams, model.dparams, model.tcfg, model.dcfg,
+                                  model.spec, plan, sampling, embeds, model.target_cache,
+                                  model.draft_cache, 64, span, key=key, seen=seen, samp=samp)
+    eos = torch.tensor(2, dtype=torch.int32, device=dev)
+    cap = torch.tensor(32, dtype=torch.int32, device=dev)
+    model._round(sampling, state, eos, cap)  # warm-up: first launches, kernel build
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = model._round(sampling, state, eos, cap)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert int(state.new_token) >= 1  # the round committed at least its bonus token
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_medusa_depth5_region_matches_plain_in_1a_and_1c(cuda_device, dtype):
+    """Medusa's verify region: trees of depth 5 from ``medusa.expand_tree``
+    (30 nodes, SpecConfig()) as the region mask at Vicuna-7B's verify
+    shape, through kernel 1a and, four different trees at ragged starts,
+    through kernel 1c, against the plain versions."""
+    from vispec_tpu_torch.configs import SpecConfig
+    from vispec_tpu_torch.models import medusa
+
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(21)
+    heads = {k: v + 0.3 * torch.randn(v.shape, generator=g, device=dev)
+             for k, v in medusa.init_params(128, dev, torch.float32).items()}
+    head_w = torch.randn((128, 1000), generator=g, device=dev)
+    trees = medusa.expand_tree(heads, SpecConfig(), torch.randn((4, 128), generator=g,
+                                                                device=dev),
+                               torch.zeros(4, dtype=torch.int32, device=dev), head_w)
+    assert int(trees.depth.max()) == 5 and trees.mask.shape == (4, 30, 30)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    layers, max_len = 4, 2048
+    q = torch.randn((4, 32, 30, 128), generator=g, device=dev, dtype=dtype)
+    k = torch.randn((4, layers, 32, max_len, 128), generator=g, device=dev, dtype=dtype)
+    v = torch.randn(k.shape, generator=g, device=dev, dtype=dtype)
+    st = torch.tensor([301, 129, 777, 1500], dtype=torch.int32, device=dev)
+    layer = torch.tensor([0, 3, 1, 2], dtype=torch.int32, device=dev)
+    one = va.verify_attention(q[0], k[0], v[0], st[0], trees.mask[0], layer[0])
+    ref = va.verify_attention_ref(q[0], k[0], v[0], st[0], trees.mask[0], layer[0])
+    out = va.verify_attention_batched(q, k, v, st, trees.mask, layer)
+    ref_b = va.verify_attention_batched_ref(q, k, v, st, trees.mask, layer)
+    torch.cuda.synchronize()
+    assert (one.float() - ref.float()).abs().max().item() <= tol
+    assert (out.float() - ref_b.float()).abs().max().item() <= tol

@@ -308,10 +308,6 @@ def test_chunk_ladder_trims_dead_rounds(params):
 
 def test_unported_options_raise_not_implemented(params):
     model = _model(params)
-    with pytest.raises(NotImplementedError):
-        ServingEngine(model, batch_size=2, per_request_sampling=True)
-    with pytest.raises(NotImplementedError):
-        ServingEngine(model, batch_size=2, temperature=0.7)
     eng = ServingEngine(model, batch_size=2)
     with pytest.raises(NotImplementedError):
         eng.submit({"input_ids": [1, 2, 3], "pixel_values_videos": np.zeros((2, 4, 4, 3))})

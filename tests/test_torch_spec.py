@@ -98,14 +98,6 @@ def test_specgenerate_equals_ar_and_jax():
     assert tres.sequences[:len(prompt) + 40].tolist() == ares.sequences.tolist()
 
 
-def test_non_greedy_sampling_is_refused():
-    _, _, tt, td = make_models(seed=2)
-    tmodel = TSpecModel(T_TCFG, T_DCFG, T_SPEC, tt, td, max_len=MAX_LEN,
-                        dtype=torch.float32, device=CPU)
-    with pytest.raises(NotImplementedError):
-        tmodel.specgenerate([1, 2, 3], temperature=0.7, max_new_tokens=4)
-
-
 def test_tau_fixture():
     """tests/test_e2e_tau.py's stored trained toy checkpoint through the port:
     spec == AR on each of its six prompts, and tau >= recorded - 0.15."""

@@ -1,5 +1,6 @@
-"""Static-shape draft-tree algebra (greedy half): tree construction from the
-flat beam pool, the accepted path, and the greedy acceptance walk.
+"""Static-shape draft-tree algebra: tree construction from the flat beam
+pool, the accepted path, and the acceptance walks (greedy, and the
+rejection-sampling walk of T > 0).
 
 The tree is a parent-pointer array of static size T = total_tokens: node 0 is
 the sampled root, nodes follow ascending flat-candidate order so
@@ -95,3 +96,59 @@ def greedy_accept(
     depth_if = torch.where(accepted, tree.depth, -1)
     best = torch.argmax(depth_if, dim=-1).to(torch.int32)
     return best, take_rows(depth_if, -1, best.unsqueeze(-1)).squeeze(-1)
+
+
+def sampling_accept(
+    tree: Tree,
+    probs: torch.Tensor,  # [B?, T, V] — processed target probabilities per node
+    uniforms: torch.Tensor,  # [B?, max_depth, T] in [0, 1)
+    max_depth: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Temperature > 0 acceptance: multi-candidate rejection sampling down
+    the tree.  At the current node, its children in node order: child j is
+    accepted iff ``u_j * (1 - sum_{i<j} p(x_i)) <= p(x_j)`` (the closed form
+    of reject-and-renormalise), evaluated for all children of a depth at
+    once.  A child of probability 0 is never accepted, even at u = 0, so
+    one-hot probabilities (greedy slots) give the greedy walk.
+
+    Returns (best_node [B?], accept_length [B?], residual [B?, V]): the
+    distribution of the bonus token, the leftover of the node where the
+    walk stopped with its children's tokens removed and renormalised, or
+    the last node's own p if the walk accepted at every depth."""
+    device = tree.tokens.device
+    node_ids = torch.arange(tree.size, device=device)
+    lead = tree.tokens.shape[:-1]
+    cur = torch.zeros(lead, dtype=torch.int64, device=device)
+    alive = torch.ones(lead, dtype=torch.bool, device=device)
+    resid = probs[..., 0, :]
+    # an id past the vocab is clamped, as JAX's gather clamps (only the
+    # root's id can be one, and the root is nobody's child)
+    tokens = tree.tokens.to(torch.int64).clamp(0, probs.shape[-1] - 1)
+    for d in range(max_depth):
+        is_child = ((tree.parent == cur.unsqueeze(-1)) & (node_ids != 0)
+                    & (tree.depth == d + 1))
+        p_cur = take_rows(probs, -2, cur.unsqueeze(-1)).squeeze(-2)  # [B?, V]
+        child_p = torch.where(is_child, torch.gather(p_cur, -1, tokens), 0.0)
+        before = torch.cumsum(child_p, dim=-1) - child_p  # earlier children's mass
+        accept = is_child & (child_p > 0) & (
+            uniforms[..., d, :] * torch.clamp(1.0 - before, min=1e-20) <= child_p)
+        any_accept = torch.any(accept, dim=-1) & alive
+        first = torch.argmax(accept.to(torch.uint8), dim=-1)  # first True in node order
+        dies_here = alive & ~any_accept
+        resid = torch.where(dies_here.unsqueeze(-1), _residual(p_cur, tokens, is_child),
+                            resid)
+        cur = torch.where(any_accept, first, cur)
+        alive = alive & any_accept
+    p_last = take_rows(probs, -2, cur.unsqueeze(-1)).squeeze(-2)
+    resid = torch.where(alive.unsqueeze(-1), p_last, resid)
+    accept_length = take_rows(tree.depth, -1, cur.unsqueeze(-1)).squeeze(-1)
+    return cur.to(torch.int32), accept_length, resid
+
+
+def _residual(p: torch.Tensor, tokens: torch.Tensor, is_child: torch.Tensor) -> torch.Tensor:
+    """p with every child token's mass removed, renormalised.  A non-child
+    node carrying a child's token must not clear its mark: the marks are
+    scattered with ``amax``, as JAX's ``.at[tokens].max``."""
+    removed = torch.zeros_like(p).scatter_reduce(-1, tokens, is_child.to(p.dtype), "amax")
+    out = p * (1.0 - removed)
+    return out / torch.clamp(out.sum(dim=-1, keepdim=True), min=1e-20)

@@ -10,10 +10,12 @@ tree, caches, lengths, cap and done flag; finished requests keep executing
 (latched by ``done``) until the batch drains.  A batch of one takes the
 single-request round, as the JAX package does.
 
-Prefill runs per request (``spec_prefill``) straight into its slot of the
-stacked caches, which ``cache_pool`` keeps across calls; an image request
-(``prepare_requests``) is prefilled with its own draft plan and span
-bucket, as ``specgenerate`` would prefill it.
+Prefill runs per request (``spec_prefill``, or ``medusa_prefill`` for a
+Medusa model) straight into its slot of the stacked caches, which
+``cache_pool`` keeps across calls; an image request (``prepare_requests``)
+is prefilled with its own draft plan and span bucket, as ``specgenerate``
+would prefill it.  At T > 0 request i draws from the key of ``seed + i``,
+as in the JAX package; a slot's key rides the stacked state.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from ..configs import DraftConfig, LlamaConfig, SpecConfig
 from ..ops import kv_cache as kv
+from ..ops import rng
 from . import loop as spec_loop
 from .spec_model import (_bucket, _Readback, output_rows, padded_text_embeds,
                          plan_prompt)
@@ -50,34 +53,51 @@ def batched_prefill(
     cache_pool: Optional[List] = None,
     quantize_kv: bool = False,  # int8 target caches (kv_cache.init_cache)
     device="cuda",
+    seed: int = 0,
+    mparams: Optional[dict] = None,  # Medusa heads: medusa_prefill, no draft cache
 ) -> spec_loop.SpecState:
     """Prefill each request into its slot and return the slot-stacked state.
 
     Each request dict (``prepare_requests``) carries ``embeds`` [pad, D],
-    ``real_len``, ``plan`` and ``max_span``.  ``cache_pool`` is a
-    list holding one (target, draft) pair of slot-stacked caches, reused
-    across calls and replaced by a larger pair when a batch outgrows it;
-    None allocates fresh buffers."""
+    ``real_len``, ``plan`` and ``max_span`` (a Medusa prefill takes neither
+    plan nor draft cache).  ``cache_pool`` is a list holding one (target,
+    draft) pair of slot-stacked caches, reused across calls and replaced by
+    a larger pair when a batch outgrows it (a Medusa batch leaves the draft
+    entry None); None allocates fresh buffers.  At T > 0 request i draws
+    from the key of ``seed + i``."""
     b = len(requests)
-    if cache_pool and cache_pool[0][0].k.shape[0] >= b:
+    medusa = mparams is not None
+    if (cache_pool and cache_pool[0][0].k.shape[0] >= b
+            and (medusa or cache_pool[0][1] is not None)):
         tc_all, dc_all = cache_pool[0]
     else:
         if cache_pool:
             cache_pool.clear()  # free the smaller pair before the larger one lands
         tc_all = kv.init_cache(tcfg.num_hidden_layers, tcfg.num_key_value_heads, max_len,
                                tcfg.head_dim, dtype, device, quantized=quantize_kv, slots=b)
-        dc_all = kv.init_cache(1, dcfg.num_key_value_heads, max_len, dcfg.head_dim, dtype,
-                               device, slots=b)
+        dc_all = None if medusa else kv.init_cache(
+            1, dcfg.num_key_value_heads, max_len, dcfg.head_dim, dtype, device, slots=b)
         if cache_pool is not None:
             cache_pool.append((tc_all, dc_all))
-    states = [
-        spec_loop.spec_prefill(
+    keys = [None] * b if sampling.greedy else rng.keys(
+        [seed + i for i in range(b)], device).unbind(0)
+
+    def prefill(i, req):
+        if medusa:
+            return spec_loop.medusa_prefill(tparams, mparams, tcfg, spec, sampling,
+                                            req["embeds"], req["real_len"],
+                                            _slot_cache(tc_all, i), max_out, key=keys[i])
+        return spec_loop.spec_prefill(
             tparams, dparams, tcfg, dcfg, spec, req["plan"], sampling, req["embeds"],
-            _slot_cache(tc_all, i), _slot_cache(dc_all, i), max_out, req["max_span"])
-        for i, req in enumerate(requests)]
-    # the rows already sit in the stacked buffers: stack only the rest
+            _slot_cache(tc_all, i), _slot_cache(dc_all, i), max_out, req["max_span"],
+            key=keys[i])
+
+    states = [prefill(i, req) for i, req in enumerate(requests)]
+    # the rows already sit in the stacked buffers: stack only the rest (a
+    # Medusa state's dummy draft caches are stacked as they are)
     stacked = spec_loop.stack_states(
-        [st._replace(target_cache=None, draft_cache=None) for st in states])
+        [st._replace(target_cache=None, draft_cache=st.draft_cache if medusa else None)
+         for st in states])
 
     def lengths(all_cache: kv.KVCache, caches) -> kv.KVCache:
         return kv.KVCache(
@@ -89,7 +109,8 @@ def batched_prefill(
 
     return stacked._replace(
         target_cache=lengths(tc_all, [st.target_cache for st in states]),
-        draft_cache=lengths(dc_all, [st.draft_cache for st in states]))
+        draft_cache=stacked.draft_cache if medusa else lengths(
+            dc_all, [st.draft_cache for st in states]))
 
 
 def text_prompt(tparams, device="cuda"):
@@ -133,6 +154,28 @@ def prepare_requests(dcfg: DraftConfig, requests: Sequence, max_len: int, slack:
     return out
 
 
+def _rounds_chunk(round_fn, states: spec_loop.SpecState, eos_id, max_new_tokens,
+                  n_rounds: int):
+    """``n_rounds`` rounds of ``round_fn(state, eos, caps)`` queued back to
+    back with no host read; returns (states, cumulative counters
+    ``[n_rounds, B]``).  A batch of one takes the single-request round (and
+    its kernel), as the JAX package squeezes its unit batch."""
+    device = states.done.device
+    eos = torch.as_tensor(eos_id, dtype=torch.int32, device=device)
+    caps = torch.as_tensor(max_new_tokens, dtype=torch.int32, device=device)
+    counts = []
+    if states.done.shape[0] == 1:
+        state = spec_loop.map_states(lambda x: x[0], states)
+        for _ in range(n_rounds):
+            state = round_fn(state, eos, caps.reshape(-1)[0])
+            counts.append(state.new_token[None])
+        return spec_loop.map_states(lambda x: x[None], state), torch.stack(counts)
+    for _ in range(n_rounds):
+        states = round_fn(states, eos, caps)
+        counts.append(states.new_token)
+    return states, torch.stack(counts)
+
+
 def batched_decode_rounds_chunk(
     tparams, dparams, tcfg: LlamaConfig, dcfg: DraftConfig, spec: SpecConfig,
     sampling: spec_loop.SamplingParams,
@@ -145,24 +188,26 @@ def batched_decode_rounds_chunk(
     returns (states, cumulative counters ``[n_rounds, B]``).  The caches are
     written in place; ``states`` must not be used again except through what
     this returns."""
-    device = states.done.device
-    eos = torch.as_tensor(eos_id, dtype=torch.int32, device=device)
-    caps = torch.as_tensor(max_new_tokens, dtype=torch.int32, device=device)
-    counts = []
-    if states.done.shape[0] == 1:
-        # a batch of one takes the single-request round (and its kernel), as
-        # the JAX package squeezes its unit batch
-        state = spec_loop.map_states(lambda x: x[0], states)
-        for _ in range(n_rounds):
-            state = spec_loop.decode_round(tparams, dparams, tcfg, dcfg, spec, sampling,
-                                           state, eos, caps.reshape(-1)[0])
-            counts.append(state.new_token[None])
-        return spec_loop.map_states(lambda x: x[None], state), torch.stack(counts)
-    for _ in range(n_rounds):
-        states = spec_loop.decode_round(tparams, dparams, tcfg, dcfg, spec, sampling,
-                                        states, eos, caps)
-        counts.append(states.new_token)
-    return states, torch.stack(counts)
+    def one(state, eos, caps):
+        return spec_loop.decode_round(tparams, dparams, tcfg, dcfg, spec, sampling, state,
+                                      eos, caps)
+    return _rounds_chunk(one, states, eos_id, max_new_tokens, n_rounds)
+
+
+def batched_medusa_rounds_chunk(
+    tparams, mparams, tcfg: LlamaConfig, spec: SpecConfig,
+    sampling: spec_loop.SamplingParams,
+    states: spec_loop.SpecState,
+    eos_id,
+    max_new_tokens,
+    n_rounds: int = 8,
+):
+    """``batched_decode_rounds_chunk`` for Medusa rounds
+    (``loop.medusa_decode_round``)."""
+    def one(state, eos, caps):
+        return spec_loop.medusa_decode_round(tparams, mparams, tcfg, spec, sampling, state,
+                                             eos, caps)
+    return _rounds_chunk(one, states, eos_id, max_new_tokens, n_rounds)
 
 
 def apply_count_diffs(counts_np, prev, accepts, slot_keys) -> None:
@@ -204,11 +249,12 @@ def pick_chunk_rounds(max_chunk: int, prev, rounds_in, caps, live) -> int:
 def drain_batch(
     tparams, dparams, tcfg, dcfg, spec, sampling, states,
     budget: int, eos_id: int, chunk_rounds: int = 8,
+    mparams: Optional[dict] = None,
 ):
-    """Run batched rounds until every request is done or the budget is hit,
-    each dispatch sized from the chunk ladder, with one host read per chunk.
-    Returns (states, per-request acceptance-length lists, rounds
-    dispatched)."""
+    """Run batched rounds (Medusa rounds with ``mparams``) until every
+    request is done or the budget is hit, each dispatch sized from the chunk
+    ladder, with one host read per chunk.  Returns (states, per-request
+    acceptance-length lists, rounds dispatched)."""
     b = int(states.done.shape[0])
     prev = np.zeros(b, np.int64)
     rounds_in = np.zeros(b, np.int64)
@@ -219,9 +265,14 @@ def drain_batch(
     rounds = 0
     while rounds < budget:
         ch = pick_chunk_rounds(chunk_rounds, prev, rounds_in, caps, live)
-        states, counts = batched_decode_rounds_chunk(
-            tparams, dparams, tcfg, dcfg, spec, sampling, states, eos_id, budget,
-            n_rounds=ch)
+        if mparams is not None:
+            states, counts = batched_medusa_rounds_chunk(
+                tparams, mparams, tcfg, spec, sampling, states, eos_id, budget,
+                n_rounds=ch)
+        else:
+            states, counts = batched_decode_rounds_chunk(
+                tparams, dparams, tcfg, dcfg, spec, sampling, states, eos_id, budget,
+                n_rounds=ch)
         vals = np.asarray(_Readback(torch.cat(
             [counts.reshape(-1), states.done.to(torch.int32)])).values())
         apply_count_diffs(vals[:ch * b].reshape(ch, b), prev, accepts, slot_keys)
@@ -260,11 +311,11 @@ def generate_batch(
     cache_pool: Optional[List] = None,
     quantize_kv: bool = False,
     device="cuda",
+    seed: int = 0,
 ) -> List[np.ndarray]:
     """Decode a batch of text prompts to completion; returns generated ids per
-    request."""
+    request (request i sampled from the key of ``seed + i`` at T > 0)."""
     sampling = spec_loop.SamplingParams(temperature, top_p, int(top_k))
-    spec_loop._require_greedy(sampling)
     slack = max(spec.total_tokens, spec.depth * spec.top_k + spec.depth + 2) + 10
     max_out = output_rows(spec, max_new_tokens)
     requests = prepare_requests(dcfg, prompts, max_len, slack, text_prompt(tparams, device),
@@ -277,7 +328,7 @@ def generate_batch(
     with torch.no_grad():
         states = batched_prefill(tparams, dparams, tcfg, dcfg, spec, sampling, requests,
                                  max_len, max_out, dtype, cache_pool=cache_pool,
-                                 quantize_kv=quantize_kv, device=device)
+                                 quantize_kv=quantize_kv, device=device, seed=seed)
         states, _, _ = drain_batch(tparams, dparams, tcfg, dcfg, spec, sampling, states,
                                    budget, eos_id, chunk_rounds)
     return finished_outputs(states, eos_id)

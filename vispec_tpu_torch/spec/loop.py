@@ -1,17 +1,25 @@
-"""The speculative decode loop, greedy path: draft-expand / verify / accept /
-commit as one round of device work with no read back to the host.
+"""The speculative decode loop: draft-expand / verify / accept / commit as one
+round of device work with no read back to the host.
 
 Every round verifies the drafted tree with the target, walks the tree for
-the accepted path, commits the accepted rows to the target cache, appends
-them to the draft and grows the next tree.  ``latch_done`` freezes a
-finished request on the device, so the host may run rounds ahead of the
-counters it reads.
+the accepted path (greedy, or rejection sampling at T > 0), commits the
+accepted rows to the target cache, appends them to the draft and grows the
+next tree.  ``latch_done`` freezes a finished request on the device, so the
+host may run rounds ahead of the counters it reads.  The Medusa drafter
+(``medusa_prefill``, ``medusa_decode_round``) shares the verify, accept and
+commit, and grows its next tree from heads on the target's hidden state.
+
+Sampling draws from the state's ``key`` (``ops/rng.py``, split at prefill
+and into three each round, as the JAX package splits its keys), with the
+knobs of a static ``SamplingParams`` or, in the per-request mode, the
+state's ``samp`` vector; the repetition penalty's ``seen`` mask rides the
+state too.  None of it reads the host.
 
 The round also runs B requests at once over a slot-stacked ``SpecState``
 (every leaf with a leading slot dim; the batched and serving paths, which
 the JAX package gets from ``jax.vmap``): the same code, with per-slot
-lengths, trees and caps, and one launch of each kernel per call for the
-whole batch.  Prefill and the prefix-snapshot continuation stay
+lengths, trees, keys and caps, and one launch of each kernel per call for
+the whole batch.  Prefill and the prefix-snapshot continuation stay
 single-request, as in JAX; ``stack_states`` and ``map_states`` move states
 in and out of the stacked layout.
 """
@@ -26,10 +34,14 @@ import torch
 from ..configs import DraftConfig, LlamaConfig, SpecConfig
 from ..models import draft as draft_mod
 from ..models import llama
+from ..models import medusa as medusa_mod
 from ..ops import kv_cache as kv
+from ..ops import rng
 from ..ops.attention import causal_mask
 from ..ops.kv_cache import take_rows
-from ..ops.tree import Tree, greedy_accept, path_to_root
+from ..ops.sampling import (mark_seen, process_logits, sample_categorical,
+                            sample_probs_dyn, update_seen)
+from ..ops.tree import Tree, greedy_accept, path_to_root, sampling_accept
 
 
 def target_forward(tparams, tcfg, embeds, pos, cache, mask, region=None,
@@ -54,6 +66,12 @@ class SpecState(NamedTuple):
     new_token: torch.Tensor  # [] int32
     done: torch.Tensor  # [] bool
     fuse_b: torch.Tensor  # [hidden] f32 — folded fuse constant (last_img fixed)
+    key: Optional[torch.Tensor] = None  # [] int64 random key (ops/rng.py);
+    # None on the greedy paths, which draw nothing
+    seen: Optional[torch.Tensor] = None  # [vocab+1] bool committed-token mask
+    # of the repetition penalty; None when the penalty is off
+    samp: Optional[torch.Tensor] = None  # [4] f32 per-request knobs
+    # (temperature, top_p, repetition_penalty, top_k) in the per-request mode
 
 
 def _map_leaf(fn, *xs):
@@ -79,21 +97,59 @@ def stack_states(states) -> SpecState:
 
 
 class SamplingParams(NamedTuple):
-    """Sampling configuration; only greedy (temperature 0) is ported."""
+    """Sampling configuration.  ``per_request=True`` takes per-slot knobs
+    from ``SpecState.samp`` (``ops.sampling.sample_probs_dyn``): one pass
+    serves a batch mixing greedy and sampled requests; only ``top_k`` stays
+    static here, the width of the per-request top-k's sort."""
 
     temperature: float = 0.0
     top_p: float = 0.0
     top_k: int = 0
+    repetition_penalty: float = 1.0  # > 1 penalizes seen tokens
+    per_request: bool = False
 
     @property
     def greedy(self) -> bool:
-        return self.temperature <= 1e-5
+        return (not self.per_request) and self.temperature <= 1e-5
 
 
-def _require_greedy(sampling: SamplingParams) -> None:
-    if not sampling.greedy:
-        raise NotImplementedError(
-            "only greedy decoding (temperature 0) is ported; sampling comes later")
+def _samp_k(samp):
+    """The per-request top-k (``samp[..., 3]``) when the knob vector has
+    one; a 3-knob vector applies the static bucket to every slot."""
+    return samp[..., 3] if samp is not None and samp.shape[-1] > 3 else None
+
+
+def _probs(logits, sampling: SamplingParams, samp, seen):
+    """Sampling probabilities of ``logits [..., V]``: the per-request
+    transform, or the static warps and a softmax."""
+    if sampling.per_request:
+        return sample_probs_dyn(logits, samp[..., 0], samp[..., 1], samp[..., 2], seen,
+                                sampling.top_k, top_k_dyn=_samp_k(samp))
+    return torch.softmax(process_logits(logits, sampling.temperature, sampling.top_p,
+                                        sampling.top_k, sampling.repetition_penalty,
+                                        seen), dim=-1)
+
+
+def _draw_token(logits, sampling: SamplingParams, samp, seen, key):
+    """The token after ``logits [V]``: every prefill's first (JAX's
+    ``_first_token``) and each AR step's next.  The greedy argmax, or a draw
+    from the static or per-request probabilities with a key split off
+    ``key`` (a draw over a greedy slot's one-hot is its argmax); marked in
+    ``seen``.  Returns (token, key, seen)."""
+    if key is not None:
+        key, k_sample = rng.split(key, 2)
+    if sampling.greedy:
+        token = torch.argmax(logits).to(torch.int32)
+    else:
+        token = sample_categorical(k_sample, _probs(logits, sampling, samp, seen))
+    if seen is not None:
+        seen = mark_seen(seen, token)
+    return token, key, seen
+
+
+def _need_key(key, sampling: SamplingParams):
+    if key is None and not sampling.greedy:
+        raise ValueError("a sampled prefill needs a random key (ops.rng.key)")
 
 
 def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -125,9 +181,13 @@ def spec_prefill(
     draft_cache: kv.KVCache,
     max_out: int,
     max_span: int = 1,
+    key: Optional[torch.Tensor] = None,  # [] int64; required unless greedy
+    seen: Optional[torch.Tensor] = None,  # [vocab+1] bool prompt-token mask
+    samp: Optional[torch.Tensor] = None,  # [4] f32 per-request knobs
 ) -> SpecState:
-    """Target prompt prefill, first greedy token, draft prefill + first tree."""
-    _require_greedy(sampling)
+    """Target prompt prefill, first token (the greedy argmax or a draw from
+    a key split off ``key``), draft prefill + first tree."""
+    _need_key(key, sampling)
     pad_len = inputs_embeds.shape[0]
     device = inputs_embeds.device
     real_len = plan.real_len
@@ -138,7 +198,7 @@ def spec_prefill(
                                           target_cache, mask, seq_len=real_len)
     target_cache = kv.advance(target_cache, real_len)
     last_logits = llama.lm_head(tparams, _take(hidden, real_len - 1))
-    first_token = torch.argmax(last_logits).to(torch.int32)
+    first_token, key, seen = _draw_token(last_logits, sampling, samp, seen, key)
 
     # draft prefill embeds: shifted merged embeds with the sampled token's
     # embedding at slot real_len-1
@@ -167,6 +227,7 @@ def spec_prefill(
         new_token=zero(torch.int32),
         done=zero(torch.bool),
         fuse_b=b_eff,
+        key=key, seen=seen, samp=samp,
     )
 
 
@@ -247,13 +308,16 @@ def spec_prefill_continue(
     target_cache: kv.KVCache,
     draft_cache: kv.KVCache,
     max_out: int,
+    key: Optional[torch.Tensor] = None,
+    seen: Optional[torch.Tensor] = None,
+    samp: Optional[torch.Tensor] = None,
 ) -> SpecState:
     """``spec_prefill`` for ``prefix + suffix`` that only computes the
     suffix: the snapshot's KV rows are copied into the caches, the target
     runs over the suffix positions, and the draft continues from the
     boundary row.  The same target KV and hiddens as a full prefill (same
     weights, same positions), up to summation order."""
-    _require_greedy(sampling)
+    _need_key(key, sampling)
     device = suffix_embeds.device
     plen = snap.prefix_len
     pad_s = suffix_embeds.shape[0]
@@ -277,7 +341,7 @@ def spec_prefill_continue(
                                             target_cache, mask, seq_len=plen + suffix_len)
     target_cache = kv.advance(target_cache, suffix_len)
     last_logits = llama.lm_head(tparams, _take(hidden_s, suffix_len - 1))
-    first_token = torch.argmax(last_logits).to(torch.int32)
+    first_token, key, seen = _draw_token(last_logits, sampling, samp, seen, key)
 
     # ---- draft continuation over positions [plen-1, plen+suffix_len) ----
     # row j (block-relative) is position plen-1+j: hidden + NEXT token's embed
@@ -312,7 +376,7 @@ def spec_prefill_continue(
         last_img=last_img,
         output=torch.zeros((max_out,), dtype=torch.int32, device=device),
         out_len=zero(torch.int32), new_token=zero(torch.int32),
-        done=zero(torch.bool), fuse_b=b_eff)
+        done=zero(torch.bool), fuse_b=b_eff, key=key, seen=seen, samp=samp)
 
 
 # ---------------------------------------------------------------------------
@@ -320,11 +384,12 @@ def spec_prefill_continue(
 # ---------------------------------------------------------------------------
 
 
-def _verify_accept_commit(tparams, tcfg, state: SpecState, eos_id, max_new_tokens,
-                          max_path: int):
-    """Target verify over the tree block, greedy tree walk, KV commit and
-    output append.  Returns (hidden [B?, T, D], path, jcols, acc, bonus,
-    target_cache, output, out_len, new_token, done)."""
+def _verify_accept_commit(tparams, tcfg, sampling: SamplingParams, state: SpecState,
+                          eos_id, max_new_tokens, max_path: int, max_accept_depth: int):
+    """Every drafter's round core: target verify over the tree block, the
+    acceptance walk (greedy, or rejection sampling from the state's key),
+    KV commit and output append.  Returns (hidden [B?, T, D], path, jcols,
+    acc, bonus, target_cache, output, out_len, new_token, done, key, seen)."""
     tree = state.tree
     t = tree.size
     device = tree.tokens.device
@@ -337,9 +402,17 @@ def _verify_accept_commit(tparams, tcfg, state: SpecState, eos_id, max_new_token
         region=(tree_start, tree.mask), return_new_kv=True, seq_len=tree_start + t)
     logits = llama.lm_head(tparams, hidden)  # [B?, T, V] float32
 
-    argmax_toks = torch.argmax(logits, dim=-1).to(torch.int32)
-    best, acc = greedy_accept(tree, argmax_toks)
-    bonus = take_rows(argmax_toks, -1, best.unsqueeze(-1)).squeeze(-1)
+    key = state.key
+    if sampling.greedy:
+        argmax_toks = torch.argmax(logits, dim=-1).to(torch.int32)
+        best, acc = greedy_accept(tree, argmax_toks)
+        bonus = take_rows(argmax_toks, -1, best.unsqueeze(-1)).squeeze(-1)
+    else:
+        key, k_accept, k_bonus = rng.split(key, 3)
+        probs = _probs(logits, sampling, state.samp, state.seen)
+        best, acc, resid = sampling_accept(
+            tree, probs, rng.uniform(k_accept, (max_accept_depth, t)), max_accept_depth)
+        bonus = sample_categorical(k_bonus, resid)
 
     path = path_to_root(tree, best, max_path)
     target_cache = kv.commit_from_blocks(target_cache, tree_start, new_kv[0],
@@ -355,8 +428,14 @@ def _verify_accept_commit(tparams, tcfg, state: SpecState, eos_id, max_new_token
     out_len = (state.out_len + acc + 1).to(torch.int32)
     new_token = (state.new_token + acc + 1).to(torch.int32)
     done = state.done | eos_hit | (new_token > max_new_tokens)
+
+    seen = state.seen
+    if seen is not None:
+        # the committed tokens and the bonus (the next tree's root, already
+        # part of the sequence) enter the penalty's history after the round
+        seen = mark_seen(update_seen(seen, committed, valid), bonus)
     return (hidden, path, jcols, acc, bonus, target_cache, output, out_len,
-            new_token, done)
+            new_token, done, key, seen)
 
 
 def decode_round(
@@ -375,11 +454,10 @@ def decode_round(
     through what this returns (as the JAX version donates it).  A
     slot-stacked state runs every slot in the same pass, with
     ``max_new_tokens`` a scalar or a ``[B]`` vector of per-slot caps."""
-    _require_greedy(sampling)
     max_path = spec.depth + 2
     (hidden, path, jcols, acc, bonus, target_cache, output, out_len,
-     new_token, done) = _verify_accept_commit(
-        tparams, tcfg, state, eos_id, max_new_tokens, max_path)
+     new_token, done, key, seen) = _verify_accept_commit(
+        tparams, tcfg, sampling, state, eos_id, max_new_tokens, max_path, spec.depth + 1)
 
     tree = state.tree
     accept_hidden = take_rows(hidden, -2, path)  # [B?, max_path, hidden]
@@ -400,18 +478,21 @@ def decode_round(
 
     new_state = state._replace(
         tree=new_tree, target_cache=target_cache, draft_cache=draft_cache,
-        output=output, out_len=out_len, new_token=new_token, done=done)
+        output=output, out_len=out_len, new_token=new_token, done=done, key=key,
+        seen=seen)
     return latch_done(state, new_state)
 
 
 def latch_done(prev: SpecState, new: SpecState) -> SpecState:
     """Freeze a finished request after an unconditionally executed round:
-    the small cursors and the output are selected on ``prev.done``; the big
-    K/V buffers are not — rows written past the frozen lengths are
-    unreachable and overwritten by the next live round.  In the batched
-    layout each slot latches on its own ``done``."""
+    the small cursors, the output, the key and the seen mask are selected on
+    ``prev.done``; the big K/V buffers are not — rows written past the
+    frozen lengths are unreachable and overwritten by the next live round.
+    In the batched layout each slot latches on its own ``done``."""
 
     def sel(old, upd):
+        if upd is None:
+            return None
         done = prev.done.reshape(prev.done.shape + (1,) * (old.dim() - prev.done.dim()))
         return torch.where(done, old, upd)
 
@@ -427,7 +508,85 @@ def latch_done(prev: SpecState, new: SpecState) -> SpecState:
         out_len=sel(prev.out_len, new.out_len),
         new_token=sel(prev.new_token, new.new_token),
         done=prev.done | new.done,
+        key=sel(prev.key, new.key),
+        seen=sel(prev.seen, new.seen),
     )
+
+
+# ---------------------------------------------------------------------------
+# Medusa (no draft transformer: heads on the target's hidden state)
+# ---------------------------------------------------------------------------
+
+
+def medusa_prefill(
+    tparams: dict,
+    mparams: dict,
+    tcfg: LlamaConfig,
+    spec: SpecConfig,
+    sampling: SamplingParams,
+    inputs_embeds: torch.Tensor,  # [pad_len, hidden]
+    real_len,
+    target_cache: kv.KVCache,
+    max_out: int,
+    key: Optional[torch.Tensor] = None,
+    samp: Optional[torch.Tensor] = None,
+) -> SpecState:
+    """Target prompt prefill, first token, and the first tree from the heads
+    on the last prompt hidden.  The state carries a dummy draft cache of
+    8 rows (the JAX package's), which no Medusa round reads."""
+    _need_key(key, sampling)
+    pad_len = inputs_embeds.shape[0]
+    device = inputs_embeds.device
+    real_len = torch.as_tensor(real_len, device=device)
+    position_ids = torch.arange(pad_len, dtype=torch.int32, device=device)
+    mask = causal_mask(pad_len, target_cache.max_len, 0, device)
+    hidden, target_cache = target_forward(tparams, tcfg, inputs_embeds, position_ids,
+                                          target_cache, mask, seq_len=real_len)
+    target_cache = kv.advance(target_cache, real_len)
+    last_hidden = _take(hidden, real_len - 1)
+    last_logits = llama.lm_head(tparams, last_hidden)
+    first_token, key, _ = _draw_token(last_logits, sampling, samp, None, key)
+    tree = medusa_mod.expand_tree(mparams, spec, last_hidden, first_token,
+                                  tparams["lm_head"])
+
+    def zero(dtype):
+        return torch.zeros((), dtype=dtype, device=device)
+
+    return SpecState(
+        tree=tree, target_cache=target_cache,
+        draft_cache=kv.init_cache(1, 1, 8, 8, inputs_embeds.dtype, device),
+        last_img=inputs_embeds.new_zeros((tcfg.hidden_size,)),
+        output=torch.zeros((max_out,), dtype=torch.int32, device=device),
+        out_len=zero(torch.int32), new_token=zero(torch.int32), done=zero(torch.bool),
+        fuse_b=torch.zeros((1,), dtype=torch.float32, device=device),
+        key=key, samp=samp)
+
+
+def medusa_decode_round(
+    tparams: dict,
+    mparams: dict,
+    tcfg: LlamaConfig,
+    spec: SpecConfig,
+    sampling: SamplingParams,
+    state: SpecState,
+    eos_id,
+    max_new_tokens,
+) -> SpecState:
+    """A Medusa round: the shared verify, accept and commit over a tree of
+    depth NUM_HEADS, then the next tree from the heads on the deepest
+    accepted node's hidden state.  Slot-stacked states as ``decode_round``."""
+    max_path = medusa_mod.NUM_HEADS + 1
+    (hidden, path, _, acc, bonus, target_cache, output, out_len,
+     new_token, done, key, _) = _verify_accept_commit(
+        tparams, tcfg, sampling, state, eos_id, max_new_tokens, max_path,
+        medusa_mod.NUM_HEADS)
+    best = take_rows(path, -1, torch.clamp(acc, 0, max_path - 1).unsqueeze(-1))
+    best_hidden = take_rows(hidden, -2, best).squeeze(-2)
+    new_tree = medusa_mod.expand_tree(mparams, spec, best_hidden, bonus, tparams["lm_head"])
+    new_state = state._replace(
+        tree=new_tree, target_cache=target_cache, output=output, out_len=out_len,
+        new_token=new_token, done=done, key=key)
+    return latch_done(state, new_state)
 
 
 # ---------------------------------------------------------------------------
@@ -441,10 +600,12 @@ def ar_step(
     sampling: SamplingParams,
     token: torch.Tensor,  # [] int32
     cache: kv.KVCache,
+    key: Optional[torch.Tensor] = None,  # required unless greedy
+    seen: Optional[torch.Tensor] = None,  # [vocab+1] bool (repetition penalty)
 ):
-    """One greedy AR decode step over the same KV runtime; returns
-    (next token [] int32, cache)."""
-    _require_greedy(sampling)
+    """One AR decode step over the same KV runtime; returns (next token []
+    int32, cache, key, seen).  The penalty's mask updates per token."""
+    _need_key(key, sampling)
     embeds = llama.embed(tparams, token.reshape(1))
     pos = cache.length.reshape(1)
     ones = torch.ones((1, 1), dtype=torch.bool, device=token.device)
@@ -452,8 +613,9 @@ def ar_step(
                                    region=(cache.length, ones),
                                    seq_len=cache.length + 1)
     cache = kv.advance(cache, 1)
-    nxt = torch.argmax(llama.lm_head(tparams, hidden[0])).to(torch.int32)
-    return nxt, cache
+    nxt, key, seen = _draw_token(llama.lm_head(tparams, hidden[0]), sampling, None, seen,
+                                  key)
+    return nxt, cache, key, seen
 
 
 def ar_prefill(
@@ -463,9 +625,12 @@ def ar_prefill(
     inputs_embeds: torch.Tensor,  # [pad_len, hidden]
     real_len,
     cache: kv.KVCache,
+    key: Optional[torch.Tensor] = None,
+    seen: Optional[torch.Tensor] = None,
 ):
-    """Prompt prefill for the AR baseline; returns (first token, cache)."""
-    _require_greedy(sampling)
+    """Prompt prefill for the AR baseline; returns (first token, cache, key,
+    seen)."""
+    _need_key(key, sampling)
     pad_len = inputs_embeds.shape[0]
     device = inputs_embeds.device
     real_len = torch.as_tensor(real_len, device=device)
@@ -474,5 +639,6 @@ def ar_prefill(
     hidden, cache = target_forward(tparams, tcfg, inputs_embeds, pos, cache, mask,
                                    seq_len=real_len)
     cache = kv.advance(cache, real_len)
-    logits = llama.lm_head(tparams, _take(hidden, real_len - 1))
-    return torch.argmax(logits).to(torch.int32), cache
+    nxt, key, seen = _draw_token(llama.lm_head(tparams, _take(hidden, real_len - 1)),
+                                  sampling, None, seen, key)
+    return nxt, cache, key, seen

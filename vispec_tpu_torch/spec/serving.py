@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine for greedy requests, text or LLaVA
-image prompts.
+"""Continuous-batching serving engine: text or LLaVA image prompts,
+greedy or sampled, over the ViSpec, EAGLE-2 or Medusa drafter.
 
 ``spec/batch.py`` decodes a fixed batch to completion.  This engine keeps a
 pool of ``batch_size`` slots decoding indefinitely: when a slot finishes,
@@ -22,9 +22,17 @@ An image request (a dict with ``pixel_values`` / ``image_size``, as
 with a ValueError (recorded in ``errors``).  Image requests never take the
 prefix-snapshot path.
 
-Not ported yet, refused at construction or at ``submit``: sampling (T>0),
-per-request sampling, video requests; medusa, tensor-parallel models and
-conversation snapshots have no counterpart in the port's ``SpecModel`` yet.
+Sampling: the engine's ``temperature`` / ``top_p`` / ``top_k`` apply to
+every slot, and admission n draws from the key of ``seed + n``.  With
+``per_request_sampling`` each request may carry its own ``temperature``,
+``top_p``, ``repetition_penalty`` and ``top_k`` (the engine's values are
+the defaults, and its ``top_k`` bounds the per-request k): one batched
+round mixes greedy and sampled slots.  A Medusa model's admissions run
+``medusa_prefill`` with a tiny dummy draft cache; Medusa refuses a prefix
+cache and a repetition penalty, with the JAX package's messages.
+
+Not ported yet: video requests (refused at ``submit``), tensor-parallel
+models and conversation snapshots.
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ import torch
 
 from ..models import draft as draft_mod
 from ..ops import kv_cache as kv
+from ..ops import rng
+from ..ops.sampling import seen_mask
 from . import batch as batch_mod
 from . import loop as spec_loop
 from .spec_model import _bucket, _Readback, output_rows, padded_text_embeds
@@ -78,13 +88,24 @@ class ServingEngine:
         max_span: int = 64,
         prefix_ids: Optional[Sequence[int]] = None,  # shared TEXT prefix
         suffix_bucket: int = 128,  # pad bucket for prefix-cached suffixes
-        per_request_sampling: bool = False,
+        per_request_sampling: bool = False,  # per-slot knobs from submit()
+        seed: int = 0,  # admission n draws from the key of seed + n
     ):
-        if per_request_sampling:
+        if model.mparams is not None and prefix_ids is not None:
             raise NotImplementedError(
-                "per-request sampling is not ported yet (sampling comes later)")
-        self.sampling = spec_loop.SamplingParams(temperature, top_p, int(top_k))
-        spec_loop._require_greedy(self.sampling)
+                "prefix caching needs the draft-side snapshot; medusa has no "
+                "draft transformer — construct the engine without prefix_ids")
+        self.per_request = bool(per_request_sampling)
+        if self.per_request:
+            # the constructor's knobs become the defaults of requests that
+            # name none; only top_k stays static (the sort's width, and the
+            # largest k a request may ask for)
+            self.sampling = spec_loop.SamplingParams(0.0, 0.0, int(top_k), 1.0,
+                                                     per_request=True)
+            self._default_samp = (float(temperature), float(top_p), 1.0, float(top_k))
+        else:
+            self.sampling = spec_loop.SamplingParams(temperature, top_p, int(top_k))
+        self.seed = seed
         self.m = model
         self.b = batch_size
         self.chunk_rounds = chunk_rounds
@@ -154,8 +175,13 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def _fresh_caches(self, bucket: int):
-        """A new zero cache pair of the bucket's admission rows."""
+        """A new zero cache pair of the bucket's admission rows (a Medusa
+        model's draft entry is None)."""
         m = self.m
+        if m.mparams is not None:
+            return (kv.init_cache(m.tcfg.num_hidden_layers, m.tcfg.num_key_value_heads,
+                                  self._t_rows[bucket], m.tcfg.head_dim, m.dtype,
+                                  m.device, quantized=m.quantize_kv), None)
         return (
             kv.init_cache(m.tcfg.num_hidden_layers, m.tcfg.num_key_value_heads,
                           self._t_rows[bucket], m.tcfg.head_dim, m.dtype, m.device,
@@ -177,19 +203,40 @@ class ServingEngine:
     def _empty_stacked(self, template: spec_loop.SpecState) -> spec_loop.SpecState:
         """Slot-stacked state with every slot drained.  Non-cache leaves
         replicate the template prefill (overwritten on admission or latched
-        by ``done``); the caches are allocated at the model's max_len."""
+        by ``done``); the caches are allocated at the model's max_len, but a
+        Medusa state's tiny dummy draft cache is stacked as it is."""
         m, b = self.m, self.b
+        medusa = m.mparams is not None
         st = spec_loop.stack_states(
-            [template._replace(target_cache=None, draft_cache=None)] * b)
+            [template._replace(target_cache=None,
+                               draft_cache=template.draft_cache if medusa else None)] * b)
         return st._replace(
             target_cache=kv.init_cache(
                 m.tcfg.num_hidden_layers, m.tcfg.num_key_value_heads, m.max_len,
                 m.tcfg.head_dim, m.dtype, m.device, quantized=m.quantize_kv, slots=b),
-            draft_cache=kv.init_cache(1, m.dcfg.num_key_value_heads, m.max_len,
-                                      m.dcfg.head_dim, m.dtype, m.device, slots=b),
+            draft_cache=st.draft_cache if medusa else kv.init_cache(
+                1, m.dcfg.num_key_value_heads, m.max_len, m.dcfg.head_dim, m.dtype,
+                m.device, slots=b),
             done=torch.ones((b,), dtype=torch.bool, device=m.device))
 
-    def _prefill_one(self, request) -> spec_loop.SpecState:
+    def _draws(self, rid, ids):
+        """(key, seen, samp) of an admission: the key of ``seed + n`` for
+        the n-th prefill (None when greedy), and in the per-request mode the
+        request's knobs and its prompt's seen mask (always carried there:
+        any slot may be penalized, and a penalty of 1.0 is an identity)."""
+        m = self.m
+        self._n_prefills += 1
+        key = None if self.sampling.greedy else rng.key(self.seed + self._n_prefills,
+                                                        m.device)
+        if not self.per_request:
+            return key, None, None
+        samp = torch.tensor(self._req_samp.get(rid, self._default_samp),
+                            dtype=torch.float32, device=m.device)
+        seen = None if m.mparams is not None else torch.as_tensor(
+            seen_mask(m.tcfg.vocab_size, ids), device=m.device)
+        return key, seen, samp
+
+    def _prefill_one(self, request, rid=None) -> spec_loop.SpecState:
         """Prefill one request (a token list, or a dict with ``input_ids``
         and optional ``pixel_values`` / ``image_size``) into a fresh
         admission cache pair."""
@@ -207,16 +254,23 @@ class ServingEngine:
                 sembeds = padded_text_embeds(m.tparams, ids[plen:], self.suffix_bucket,
                                              m.device)
                 tc, dc = self._fresh_caches(self.buckets[-1])
-                self._n_prefills += 1
+                key, seen, samp = self._draws(rid, ids)
                 return spec_loop.spec_prefill_continue(
                     m.tparams, m.dparams, m.tcfg, m.dcfg, m.spec, self.sampling,
                     self._snap, sembeds,
                     torch.tensor(sl, dtype=torch.int32, device=m.device), tc, dc,
-                    self.max_out)
+                    self.max_out, key=key, seen=seen, samp=samp)
         l = len(ids)
         bucket = self._bucket_for(l)
         embeds, _, shifted, _ = m._padded_prompt(ids, bucket, req.get("pixel_values"),
                                                  req.get("image_size"))
+        if m.mparams is not None:
+            # Medusa: heads on the target hidden; no plan, no draft cache
+            tc, _ = self._fresh_caches(bucket)
+            key, _, samp = self._draws(rid, ids)
+            return spec_loop.medusa_prefill(m.tparams, m.mparams, m.tcfg, m.spec,
+                                            self.sampling, embeds, l, tc, self.max_out,
+                                            key=key, samp=samp)
         plan, ms = draft_mod.make_prefill_plan(
             shifted, l, m.dcfg.num_q, bucket, max_images=self.max_images,
             max_span=self.max_span, device=m.device)
@@ -225,10 +279,10 @@ class ServingEngine:
                 f"image span {ms} exceeds engine max_span={self.max_span}; "
                 f"construct the engine with a larger bucket")
         tc, dc = self._fresh_caches(bucket)
-        self._n_prefills += 1
+        key, seen, samp = self._draws(rid, ids)
         return spec_loop.spec_prefill(
             m.tparams, m.dparams, m.tcfg, m.dcfg, m.spec, plan, self.sampling, embeds,
-            tc, dc, self.max_out, self.max_span)
+            tc, dc, self.max_out, self.max_span, key=key, seen=seen, samp=samp)
 
     # ------------------------------------------------------------------
     # Online serving API: submit() requests at any time, step() one decode
@@ -243,6 +297,7 @@ class ServingEngine:
         self.acceptance: Dict[int, List[int]] = {}
         self._emitted: Dict[int, int] = {}  # rid -> streamed-token cursor
         self._req_cap: Dict[int, int] = {}  # rid -> per-request token budget
+        self._req_samp: Dict[int, tuple] = {}  # rid -> (T, top_p, penalty, top_k)
         self._caps = np.full(self.b, self.max_new, np.int32)  # per-slot caps
         self._canceled: set = set()
         self._cancel_req: List[int] = []  # active cancels, applied by step()
@@ -269,25 +324,49 @@ class ServingEngine:
         ``max_new_tokens`` (kwarg or request-dict key) caps this request's
         generation (clamped to the engine's budget); the cap rides the
         batched round as a per-slot vector, so a short request frees its
-        slot as soon as its own budget is hit."""
+        slot as soon as its own budget is hit.
+
+        With ``per_request_sampling``, dict keys ``temperature`` /
+        ``top_p`` / ``repetition_penalty`` / ``top_k`` set this request's
+        sampling (unset keys take the engine's values); ``top_k`` must not
+        exceed the engine's, and 0 disables the warp for this request."""
         if not hasattr(self, "_queue"):
             self.start_session()
         if isinstance(request, dict):
             if request.get("pixel_values_videos") is not None:
                 raise NotImplementedError("video requests (Qwen2.5-VL) are not ported yet")
-            if any(k in request for k in ("temperature", "top_p",
-                                          "repetition_penalty", "top_k")):
-                raise ValueError(
-                    "per-request sampling keys need "
-                    "ServingEngine(per_request_sampling=True); this engine uses "
-                    "one static sampling config for all slots")
             if max_new_tokens is None:
                 max_new_tokens = request.get("max_new_tokens")
         cap = self.max_new if max_new_tokens is None else int(max_new_tokens)
         if cap < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {cap}")
+        if self.per_request:
+            d = request if isinstance(request, dict) else {}
+            req_k = int(d.get("top_k", self._default_samp[3]))
+            if req_k > self.sampling.top_k:
+                raise ValueError(
+                    f"request top_k={req_k} exceeds the engine's static "
+                    f"top_k bucket {self.sampling.top_k} (the ctor value "
+                    f"bounds the per-request k — construct the engine with "
+                    f"top_k >= the largest k you will serve)")
+            samp = (float(d.get("temperature", self._default_samp[0])),
+                    float(d.get("top_p", self._default_samp[1])),
+                    float(d.get("repetition_penalty", self._default_samp[2])),
+                    float(req_k))
+            if samp[2] != 1.0 and self.m.mparams is not None:
+                raise ValueError("repetition_penalty is not supported with "
+                                 "the medusa drafter")
+        elif isinstance(request, dict) and any(
+                k in request for k in ("temperature", "top_p", "repetition_penalty",
+                                       "top_k")):
+            raise ValueError(
+                "per-request sampling keys need "
+                "ServingEngine(per_request_sampling=True); this engine uses "
+                "one static sampling config for all slots")
         rid = self._next_rid
         self._next_rid += 1
+        if self.per_request:
+            self._req_samp[rid] = samp
         self.acceptance[rid] = []
         self._emitted[rid] = 0
         self._req_cap[rid] = min(cap, self.max_new)
@@ -325,7 +404,8 @@ class ServingEngine:
             raise KeyError(
                 f"request {rid}: unknown, unfinished, or already popped "
                 "(pop_result must be called exactly once per finished rid)") from None
-        for d in (self.acceptance, self._emitted, self._req_cap, self.errors):
+        for d in (self.acceptance, self._emitted, self._req_cap, self._req_samp,
+                  self.errors):
             d.pop(rid, None)
         self._canceled.discard(rid)
         return out
@@ -341,7 +421,7 @@ class ServingEngine:
             rid, request = self._queue.popleft()
             t_adm = time.perf_counter()
             try:
-                s1 = self._prefill_one(request)
+                s1 = self._prefill_one(request, rid)
             except (ValueError, KeyError, TypeError) as e:
                 # a malformed request fails that request, not the engine
                 self.results[rid] = np.zeros(0, np.int64)
@@ -412,9 +492,14 @@ class ServingEngine:
         if not self._active:
             return failed
         chunk = self._pick_chunk()
-        states, counts = batch_mod.batched_decode_rounds_chunk(
-            m.tparams, m.dparams, m.tcfg, m.dcfg, m.spec, self.sampling, self._states,
-            m.eos_token_id, self._caps, n_rounds=chunk)
+        if m.mparams is not None:
+            states, counts = batch_mod.batched_medusa_rounds_chunk(
+                m.tparams, m.mparams, m.tcfg, m.spec, self.sampling, self._states,
+                m.eos_token_id, self._caps, n_rounds=chunk)
+        else:
+            states, counts = batch_mod.batched_decode_rounds_chunk(
+                m.tparams, m.dparams, m.tcfg, m.dcfg, m.spec, self.sampling,
+                self._states, m.eos_token_id, self._caps, n_rounds=chunk)
         self._states = states
         for slot in self._active:
             self._slot_rounds[slot] += chunk

@@ -1,12 +1,18 @@
 """User-facing speculative-decoding model: ``SpecModel`` with
-``specgenerate`` (greedy ViSpec decoding), ``ar_generate`` (the
-autoregressive baseline it must equal token for token), and the serving
-half: ``specgenerate_batch`` (a fixed batch decoded together,
+``specgenerate`` (speculative decoding, greedy or sampled), ``ar_generate``
+(the autoregressive baseline it must equal token for token when greedy, and
+in distribution when sampled), and the serving half: ``specgenerate_batch`` (a fixed batch decoded together,
 ``spec/batch.py``) and ``serving_engine`` (continuous batching,
 ``spec/serving.py``).  Prompts are text or LLaVA-1.5/1.6 image prompts: a
 model built with ``llava_cfg`` and ``vparams`` encodes each image
 (``models/llava.py``) and writes its features over the prompt's
 ``image_token_index`` rows; the draft compresses each image span.
+
+Three drafters: ViSpec's draft (a ``DraftConfig`` with ``vision=True``),
+EAGLE-2's (the same draft without the image adaptor, ``vision=False``),
+and Medusa's heads on the target (``mparams``; ``models/medusa.py``).
+Sampling takes ``temperature`` / ``top_p`` / ``top_k``, a ``seed`` for the
+request's random key and a ``repetition_penalty`` (active at T > 0).
 
 The host loop keeps the JAX version's shape: rounds are queued in chunks,
 each round latches ``done`` on the device, and the host reads the per-round
@@ -26,8 +32,11 @@ import torch
 from ..configs import DraftConfig, LlamaConfig, SpecConfig
 from ..models import draft as draft_mod
 from ..models import llama, llava
+from ..models import medusa
 from ..ops import kv_cache as kv
+from ..ops import rng
 from ..ops.quant import quantize_draft_params, quantize_target_params
+from ..ops.sampling import seen_mask
 from . import loop as spec_loop
 
 
@@ -53,17 +62,27 @@ def plan_prompt(dcfg: DraftConfig, shifted, n_spans: int, real_len: int, pad_len
     return plan, _bucket(max_span, 64)
 
 
-# The JAX package's models/medusa.NUM_HEADS: a medusa round commits up to
-# NUM_HEADS + 1 tokens, and the output buffers leave room for whichever
-# drafter commits more per round.
-MEDUSA_NUM_HEADS = 5
+def _stub_draft_config(tcfg: LlamaConfig, num_q: int = 2) -> DraftConfig:
+    """Placeholder draft config of a model without a draft transformer (a
+    target-only model, or Medusa): sized so an unused draft cache stays
+    small."""
+    return DraftConfig(
+        vocab_size=tcfg.vocab_size, hidden_size=tcfg.hidden_size,
+        intermediate_size=128, num_attention_heads=tcfg.num_attention_heads,
+        num_key_value_heads=1, num_q=num_q)
+
+
+def _stub_draft_params(tparams: dict, dtype) -> dict:
+    """Draft parameters without a layer: the target's embedding only."""
+    return {"embed": tparams["embed"], "layer": {},
+            "fc_w": torch.zeros((1,), dtype=dtype, device=tparams["embed"].device)}
 
 
 def output_rows(spec: SpecConfig, max_new_tokens: int) -> int:
     """Rows of a request's output buffer: the budget plus two rounds'
     commits of the drafter that commits more per round (the JAX package's
     ``max_new_tokens + 2 * max(depth + 2, NUM_HEADS + 1)``)."""
-    return max_new_tokens + 2 * max(spec.depth + 2, MEDUSA_NUM_HEADS + 1)
+    return max_new_tokens + 2 * max(spec.depth + 2, medusa.NUM_HEADS + 1)
 
 
 @dataclass
@@ -118,6 +137,7 @@ class SpecModel:
         llava_cfg: Optional[llava.LlavaConfig] = None,
         vparams: Optional[dict] = None,
         image_token_index: Optional[int] = None,
+        mparams: Optional[dict] = None,  # Medusa heads => the Medusa decode path
     ):
         if max_len % 128 != 0:
             raise ValueError(
@@ -128,6 +148,7 @@ class SpecModel:
         self.quantize_kv = bool(quantize_kv)
         self.tcfg, self.dcfg, self.spec = tcfg, dcfg, spec
         self.tparams, self.dparams = tparams, dparams
+        self.mparams = mparams
         self.llava_cfg, self.vparams = llava_cfg, vparams
         self.image_token_index = image_token_index
         if quantize_draft:
@@ -174,7 +195,11 @@ class SpecModel:
 
     def _derive_fuse_mats(self) -> None:
         """Precompute the request-independent decode fuse matrices into
-        dparams (draft.fuse_weight_mats)."""
+        dparams (draft.fuse_weight_mats); a draft without a layer (the stub
+        of a target-only or Medusa model) has no fuse path."""
+        d = self.dparams
+        if not d.get("layer") or getattr(d.get("fc_w"), "ndim", 0) != 2:
+            return
         w_e, w_h = draft_mod.fuse_weight_mats(self.dparams, self.dcfg)
         self.dparams = dict(self.dparams)
         self.dparams["fuse_we"], self.dparams["fuse_wh"] = w_e, w_h
@@ -185,7 +210,10 @@ class SpecModel:
         kernel at decode shapes), ``int4_head``, ``mixed`` or ``auto``.
         Verification is untouched, so greedy output still equals the
         target's own; only the proposals (tau) can change.  A draft
-        quantized after the target ranks with the target's int8 head."""
+        quantized after the target ranks with the target's int8 head.  A
+        draft without a layer (Medusa, target-only) is left as it is."""
+        if not self.dparams.get("layer"):
+            return
         base = {k: v for k, v in self.dparams.items()
                 if k not in ("fuse_we", "fuse_wh")}
         self.dparams = quantize_draft_params(base, self.tparams["lm_head"], mode=mode)
@@ -208,6 +236,19 @@ class SpecModel:
         accepted-append block."""
         draft_scratch = self.spec.depth * self.spec.top_k + self.spec.depth + 2
         return max(self.spec.total_tokens, draft_scratch) + 10
+
+    def _seen_mask(self, sampling, input_ids) -> Optional[torch.Tensor]:
+        """The ``[vocab+1]`` prompt-token mask when the repetition penalty is
+        live (T > 0 and a penalty other than 1.0); None otherwise, so the
+        round carries nothing."""
+        if sampling.greedy or sampling.repetition_penalty == 1.0:
+            return None
+        return torch.as_tensor(seen_mask(self.tcfg.vocab_size, input_ids),
+                               device=self.device)
+
+    def _key(self, sampling, seed: int) -> Optional[torch.Tensor]:
+        """The request's random key, or None when greedy (nothing is drawn)."""
+        return None if sampling.greedy else rng.key(seed, self.device)
 
     # ------------------------------------------------------------------
     def count_image_tokens(self, image_size: Tuple[int, int]) -> int:
@@ -281,14 +322,18 @@ class SpecModel:
         image_size=None,
         pixel_values_videos=None,
         stop_token_id: Optional[int] = None,
+        seed: int = 0,
+        repetition_penalty: float = 1.0,  # active at T > 0 only
     ) -> GenerationResult:
-        """Greedy speculative decoding of a prompt.  ``pixel_values`` is one
-        image [H, W, 3] in [0, 1] or a list of them, ``image_size`` its
-        (height, width) or their list; the prompt holds each image's
+        """Speculative decoding of a prompt, greedy at ``temperature`` 0,
+        else sampled from the request's key of ``seed``.  ``pixel_values``
+        is one image [H, W, 3] in [0, 1] or a list of them, ``image_size``
+        its (height, width) or their list; the prompt holds each image's
         ``count_image_tokens`` placeholders.  Generation stops at EOS or at
         ``stop_token_id`` (an extra stop id, such as Llama 3's
         ``<|eot_id|>``); the output keeps the tokens up to and including the
-        first of either."""
+        first of either.  A Medusa model (``mparams``) refuses a repetition
+        penalty, as the JAX package does."""
         input_ids = np.asarray(input_ids, np.int64)
         l = int(input_ids.shape[0])
         if l == 0:
@@ -299,16 +344,28 @@ class SpecModel:
                 f"prompt length {l} (bucketed {pad_len}) too long for "
                 f"max_len={self.max_len} (need {self._cache_slack()} rows of "
                 f"tree/scratch headroom)")
-        sampling = spec_loop.SamplingParams(temperature, top_p, int(top_k))
+        sampling = spec_loop.SamplingParams(temperature, top_p, int(top_k),
+                                            float(repetition_penalty))
+        seen = self._seen_mask(sampling, input_ids)
+        if seen is not None and self.mparams is not None:
+            raise NotImplementedError(
+                "repetition_penalty is not supported with the medusa drafter")
         max_out = min(self.max_len, output_rows(self.spec, max_new_tokens))
+        key = self._key(sampling, seed)
 
         embeds, _, shifted, n_spans = self._padded_prompt(
             input_ids, pad_len, pixel_values, image_size, pixel_values_videos)
-        plan, max_span = plan_prompt(self.dcfg, shifted, n_spans, l, pad_len, self.device)
-        state = spec_loop.spec_prefill(
-            self.tparams, self.dparams, self.tcfg, self.dcfg, self.spec, plan,
-            sampling, embeds, kv.reset(self.target_cache),
-            kv.reset(self.draft_cache), max_out, max_span)
+        if self.mparams is not None:
+            state = spec_loop.medusa_prefill(
+                self.tparams, self.mparams, self.tcfg, self.spec, sampling, embeds, l,
+                kv.reset(self.target_cache), max_out, key=key)
+        else:
+            plan, max_span = plan_prompt(self.dcfg, shifted, n_spans, l, pad_len,
+                                         self.device)
+            state = spec_loop.spec_prefill(
+                self.tparams, self.dparams, self.tcfg, self.dcfg, self.spec, plan,
+                sampling, embeds, kv.reset(self.target_cache),
+                kv.reset(self.draft_cache), max_out, max_span, key=key, seen=seen)
 
         # cap rounds so the cache cannot overflow
         budget = min(max_new_tokens, self.max_len - l - self._cache_slack())
@@ -356,9 +413,7 @@ class SpecModel:
                 continue
             counters = []
             for _ in range(n):
-                state = spec_loop.decode_round(
-                    self.tparams, self.dparams, self.tcfg, self.dcfg, self.spec,
-                    sampling, state, eos, cap)
+                state = self._round(sampling, state, eos, cap)
                 counters.append(state.new_token)
             dispatched += n
             batch = _Readback(torch.stack(counters))
@@ -383,7 +438,8 @@ class SpecModel:
         if eos_pos.size:
             out = out[: eos_pos[0] + 1]
         self.target_cache = kv.reset(state.target_cache)
-        self.draft_cache = kv.reset(state.draft_cache)
+        if self.mparams is None:
+            self.draft_cache = kv.reset(state.draft_cache)
         return GenerationResult(
             sequences=np.concatenate([input_ids, out]),
             new_tokens=int(out.shape[0]),
@@ -392,6 +448,14 @@ class SpecModel:
             decode_time=decode_time,
             dispatched=dispatched,
         )
+
+    def _round(self, sampling, state, eos, cap):
+        """One decode round of this model's drafter."""
+        if self.mparams is not None:
+            return spec_loop.medusa_decode_round(self.tparams, self.mparams, self.tcfg,
+                                                 self.spec, sampling, state, eos, cap)
+        return spec_loop.decode_round(self.tparams, self.dparams, self.tcfg, self.dcfg,
+                                      self.spec, sampling, state, eos, cap)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -405,9 +469,12 @@ class SpecModel:
         pixel_values=None,
         image_size=None,
         pixel_values_videos=None,
+        seed: int = 0,
+        repetition_penalty: float = 1.0,
     ) -> GenerationResult:
-        """Plain greedy AR baseline over the same runtime (image prompts as
-        in ``specgenerate``)."""
+        """Plain AR baseline over the same runtime (image prompts and
+        sampling knobs as in ``specgenerate``; the penalty's mask updates per
+        token)."""
         input_ids = np.asarray(input_ids, np.int64)
         l = int(input_ids.shape[0])
         if l == 0:
@@ -416,11 +483,14 @@ class SpecModel:
         if pad_len > self.max_len or l + 2 > self.max_len:
             raise ValueError(f"prompt length {l} (bucketed {pad_len}) too long for "
                              f"max_len={self.max_len}")
-        sampling = spec_loop.SamplingParams(temperature, top_p, int(top_k))
+        sampling = spec_loop.SamplingParams(temperature, top_p, int(top_k),
+                                            float(repetition_penalty))
+        seen = self._seen_mask(sampling, input_ids)
         embeds = self._padded_prompt(input_ids, pad_len, pixel_values, image_size,
                                      pixel_values_videos)[0]
-        tok, cache = spec_loop.ar_prefill(self.tparams, self.tcfg, sampling, embeds,
-                                          l, kv.reset(self.target_cache))
+        tok, cache, key, seen = spec_loop.ar_prefill(
+            self.tparams, self.tcfg, sampling, embeds, l, kv.reset(self.target_cache),
+            key=self._key(sampling, seed), seen=seen)
         t0 = time.perf_counter()
         out = [int(tok)]
         chunk = self.chunk_rounds
@@ -452,8 +522,8 @@ class SpecModel:
                 continue
             toks = []
             for _ in range(n):
-                tok, cache = spec_loop.ar_step(self.tparams, self.tcfg, sampling, tok,
-                                               cache)
+                tok, cache, key, seen = spec_loop.ar_step(
+                    self.tparams, self.tcfg, sampling, tok, cache, key=key, seen=seen)
                 toks.append(tok)
             dispatched += n
             batch = _Readback(torch.stack(toks))
@@ -485,6 +555,7 @@ class SpecModel:
         max_new_tokens: int = 256,
         top_p: float = 0.0,
         top_k: int = 0,
+        seed: int = 0,
     ) -> List[GenerationResult]:
         """Batched multi-request decoding of request dicts (``input_ids``
         and, for an image prompt, ``pixel_values`` / ``image_size`` as in
@@ -492,11 +563,13 @@ class SpecModel:
         planned at its own span buckets and prefilled on its own into its
         slot of the pooled stacked caches, then all decode together in
         batched rounds; finished requests are frozen in place until the
-        batch drains.  Greedy outputs equal ``specgenerate``'s."""
+        batch drains.  Request i samples from the key of ``seed + i``, so
+        its output equals ``specgenerate(..., seed=seed + i)``'s, greedy or
+        sampled.  As in the JAX package, there is no repetition penalty
+        here (the engine's per-request mode has one)."""
         from . import batch as batch_mod
 
         sampling = spec_loop.SamplingParams(temperature, top_p, int(top_k))
-        spec_loop._require_greedy(sampling)
         slack = self._cache_slack()
         prompts = [np.asarray(r["input_ids"], np.int64) for r in requests]
         reqs = batch_mod.prepare_requests(self.dcfg, requests, self.max_len, slack,
@@ -505,13 +578,14 @@ class SpecModel:
         states = batch_mod.batched_prefill(
             self.tparams, self.dparams, self.tcfg, self.dcfg, self.spec, sampling, reqs,
             self.max_len, max_out, self.dtype, cache_pool=self._batch_pool,
-            quantize_kv=self.quantize_kv, device=self.device)
+            quantize_kv=self.quantize_kv, device=self.device, seed=seed,
+            mparams=self.mparams)
         # decode_time excludes prefill, as in specgenerate
         t0 = time.perf_counter()
         budget = min(max_new_tokens, self.max_len - max(len(p) for p in prompts) - slack)
         states, accepts, dispatched = batch_mod.drain_batch(
             self.tparams, self.dparams, self.tcfg, self.dcfg, self.spec, sampling, states,
-            budget, self.eos_token_id, self.chunk_rounds)
+            budget, self.eos_token_id, self.chunk_rounds, mparams=self.mparams)
         outs = batch_mod.finished_outputs(states, self.eos_token_id)
         decode_time = time.perf_counter() - t0
         return [GenerationResult(
