@@ -20,7 +20,14 @@ ViT-L tower on the card against the CPU, LLaVA-1.6 and 1.5 at 2 layers in
 float32 (spec == AR, batch == per request, CLIP-L at all 24 layers), at 32
 layers in bfloat16 with 576, 2,340 and 2,928 image tokens (vision-encode
 and prefill ms, the kernel's launches per round as on the text path), and
-the engine over image and text requests.  Prints one JSON line per phase, a
+the engine over image and text requests.  Then Qwen2.5-VL image and video
+prompts: the windowed ViT on the card against the CPU, Qwen2.5-VL-7B widths
+at 2 layers in float32 (spec == AR with one image, two images and a video;
+batch and engine == per request; the quantized mode), at 28 layers in
+bfloat16 with a 448x448, an 896x1120, two 448x448 images and an 8-frame
+video (encode and prefill ms, the kernel's launches per round), and the
+engine over image and text requests; the kernel rows include Qwen's GQA
+geometry (groups of 7).  Prints one JSON line per phase, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failed phase raises and
 the script exits non-zero without that line; so does a machine without a
@@ -63,7 +70,14 @@ SOURCES = ("verify_attention", "q4_matmul")
 Q4_TOL, Q4_EXACT_TOL = 2e-2, 1e-5
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase line carries the seconds since the script
+    started (``t_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -227,9 +241,11 @@ def phase_kernel(dev):
     the LLaVA-1.6 prompts' geometry at max_len 4096 (64 chunks): the verify
     after the 2,956-row prompt of a 672x672 image, the draft expansion
     after the 2,368-row prompt of a 480x640 image, and a region that ends
-    at max_len.  Starts are not 64-row aligned and every region crosses a
-    64-row tile edge.  The bf16 cases run the tensor-core partial kernel,
-    float32 the CUDA-core one."""
+    at max_len; and Qwen2.5-VL-7B's at max_len 4096 (groups of 7: the
+    verify, the AR step; the draft's expansion at 28 heads).  Starts are
+    not 64-row aligned and every region crosses a 64-row tile edge.  The
+    bf16 cases run the tensor-core partial kernel, float32 the CUDA-core
+    one."""
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(0)
     tree = torch.tril(torch.rand((30, 30), generator=g) < 0.3)
@@ -258,14 +274,27 @@ def phase_kernel(dev):
                     expand, flush, max_len=4096),
         kernel_case("region_ends_at_max_len_4096", 9, dev, bf16, 32, 32, 30, 30, 4096 - 30,
                     32, tree, flush, max_len=4096),
+        # Qwen2.5-VL-7B at max_len 4096 after the 1,344-row prompt of an
+        # 896x1120 image: 28 heads over 4 KV heads (groups of 7: 210 query
+        # rows a KV head at the verify, 7 at the AR step) over the 28-layer
+        # cache, and the draft's 28 heads over 28 KV heads
+        kernel_case("qwen_target_verify", 40, dev, bf16, 28, 4, 30, 30, 1381, 28, tree,
+                    flush, max_len=4096),
+        kernel_case("qwen_ar_step", 41, dev, bf16, 28, 4, 1, 1, 1400, 28, ones, flush,
+                    max_len=4096),
+        kernel_case("qwen_draft_expand", 42, dev, bf16, 28, 28, 8, 24, 1380, None, expand,
+                    flush, max_len=4096),
+        # the float32 Qwen model of qwen_exact: the CUDA-core kernel at groups of 7
+        kernel_case("qwen_target_verify_f32", 44, dev, f32, 28, 4, 30, 30, 1381, 28, tree,
+                    flush, max_len=4096),
     ]
     return rows
 
 
 def kernel_case_int8(name, seed, dev, h, hkv, s, t_reg, start, layers, mask, flush,
-                     max_len=2048, d=128):
-    """Kernel 1b at one main-path geometry: bf16 q over a stacked int8 cache
-    with per-row scales, read at layer ``layers - 1``.  No single PyTorch
+                     max_len=2048, d=128, dtype=torch.bfloat16):
+    """Kernel 1b at one main-path geometry: bf16 (or float32) q over a
+    stacked int8 cache with per-row scales, read at layer ``layers - 1``.  No single PyTorch
     call attends over int8 rows with per-row scales, so ``library_ms`` is
     null; dequantize + SDPA over the live rows is printed as an extra."""
     import torch.nn.functional as F
@@ -274,7 +303,6 @@ def kernel_case_int8(name, seed, dev, h, hkv, s, t_reg, start, layers, mask, flu
     from vispec_tpu_torch.ops import verify_attention as va
     from vispec_tpu_torch.ops.attention import tree_verify_mask
 
-    dtype = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(seed)
     shape = (layers, hkv, max_len, d)
     q = torch.randn((h, s, d), generator=g, device=dev, dtype=dtype)
@@ -304,11 +332,12 @@ def kernel_case_int8(name, seed, dev, h, hkv, s, t_reg, start, layers, mask, flu
     plain_ms = timed_ms(lambda: va.verify_attention_ref(*args), flush)
     extra_ms = timed_ms(dequant_sdpa, flush)
     split = kernel_split_ms(lambda: va.verify_attention(*args), flush)
-    moved = (2 * total * hkv * d + 2 * total * hkv * 4 + 2 * q.numel() * 2
+    moved = (2 * total * hkv * d + 2 * total * hkv * 4 + 2 * q.numel() * q.element_size()
              + mask.numel())
     ops = 4 * h * s * total * d
     bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[dtype] * 1e3
-    row = {"case": name, "kernel": "1b", "dtype": "bfloat16", "cache": "int8", "H": h,
+    row = {"case": name, "kernel": "1b", "dtype": str(dtype).replace("torch.", ""),
+           "cache": "int8", "H": h,
            "Hkv": hkv, "S": s, "T_reg": t_reg, "tree_start": start, "max_len": max_len,
            "D": d, "max_abs_err": err, "tol": TOL[dtype], "ms": ms, "plain_ms": plain_ms,
            "library_ms": None,
@@ -325,7 +354,10 @@ def phase_kernel_int8(dev):
     """Table row 1b's main-path geometries at 7B width: the target verify and
     the AR step over the 32-layer int8 cache, GQA with 4 groups, a region
     that ends one column into a 64-row chunk, and the verify after a
-    2,956-row LLaVA-1.6 prompt at max_len 4096."""
+    2,956-row LLaVA-1.6 prompt at max_len 4096; then Qwen2.5-VL-7B's over
+    its 28-layer int8 cache at max_len 4096 (groups of 7): the verify and
+    the AR step with bf16 q, and the verify with float32 q (qwen_exact's
+    quantized model)."""
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(1)
     tree = torch.tril(torch.rand((30, 30), generator=g) < 0.3)
@@ -341,6 +373,12 @@ def phase_kernel_int8(dev):
                          5 * 64 + 1 - 30, 32, tree, flush),
         kernel_case_int8("llava_target_verify_int8_4096", 14, dev, 32, 32, 30, 30, 2956, 32,
                          tree, flush, max_len=4096),
+        kernel_case_int8("qwen_target_verify_int8", 45, dev, 28, 4, 30, 30, 1381, 28, tree,
+                         flush, max_len=4096),
+        kernel_case_int8("qwen_ar_step_int8", 46, dev, 28, 4, 1, 1, 1400, 28, ones, flush,
+                         max_len=4096),
+        kernel_case_int8("qwen_target_verify_int8_f32", 47, dev, 28, 4, 30, 30, 1381, 28,
+                         tree, flush, max_len=4096, dtype=torch.float32),
     ]
 
 
@@ -438,7 +476,8 @@ def phase_kernel_batched(dev):
     at the ragged starts.  Then the LLaVA engine's geometry at max_len 4096
     (64 chunks): starts 604 / 391 / 604 / 66 (two 604-row LLaVA-1.5 image
     prompts, two text prompts) at the verify, the draft expansion and the
-    int8 verify."""
+    int8 verify; and the Qwen2.5-VL-7B engine's verify (groups of 7) over
+    bf16 and int8 caches."""
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(2)
     b, starts, layers = 4, (301, 129, 777, 1500), (0, 5, 17, 31)
@@ -472,6 +511,11 @@ def phase_kernel_batched(dev):
                             llava_starts, layers, tree, flush, max_len=4096),
         kernel_case_batched("batched_llava_draft_expand_4096", 30, dev, bf16, 32, 32, 8, 24,
                             llava_starts, None, expand, flush, max_len=4096),
+        # the Qwen2.5-VL-7B engine: groups of 7 over the 28-layer cache, two
+        # image slots (1,381 and 339 rows), a long and a short text slot
+        kernel_case_batched("qwen_batched_verify", 43, dev, bf16, 28, 4, 30, 30,
+                            (1381, 339, 1100, 104), (0, 9, 17, 27), tree, flush,
+                            n_layers=28, max_len=4096),
     ]
     rows_int8 = [
         kernel_case_batched("batched_target_verify_int8", 25, dev, bf16, 32, 32, 30, 30,
@@ -483,11 +527,14 @@ def phase_kernel_batched(dev):
                             int8=True),
         kernel_case_batched("batched_llava_verify_int8_4096", 31, dev, bf16, 32, 32, 30, 30,
                             llava_starts, layers, tree, flush, int8=True, max_len=4096),
+        kernel_case_batched("qwen_batched_verify_int8", 48, dev, bf16, 28, 4, 30, 30,
+                            (1381, 339, 1100, 104), (0, 9, 17, 27), tree, flush, int8=True,
+                            n_layers=28, max_len=4096),
     ]
     return rows, rows_int8
 
 
-def q4_case(dev, k, n, m, flush):
+def q4_case(dev, k, n, m, flush, prefix="q4"):
     """Kernel 2 at one draft shape: against its plain version (dequantize to
     bf16, then an f32-output GEMM) and against the same quantized math in
     float32; times of the kernel, the plain version and the bf16 library
@@ -515,7 +562,7 @@ def q4_case(dev, k, n, m, flush):
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_OPS[torch.bfloat16] * 1e3
     bf16_bound_ms = (2 * k * n + 2 * x.numel() + 2 * m * n) / HBM_BYTES_PER_S * 1e3
-    row = {"case": f"q4_{k}x{n}_m{m}", "kernel": "2", "K": k, "N": n, "M": m,
+    row = {"case": f"{prefix}_{k}x{n}_m{m}", "kernel": "2", "K": k, "N": n, "M": m,
            "group_size": k // w4.s.shape[0], "max_abs_err": err, "max_rel_err": rel,
            "tol": Q4_TOL, "exact_rel_err": exact_rel, "exact_tol": Q4_EXACT_TOL,
            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -1354,11 +1401,11 @@ def phase_llava_full_depth(dev, models):
         pad = _bucket(n)
 
         def prefill():
-            embeds, _, shifted, spans = model._padded_prompt(ids, pad, pixels, size)
-            plan, span = plan_prompt(model.dcfg, shifted, spans, n, pad, dev)
+            prompt = model._padded_prompt(ids, pad, pixels, size)
+            plan, span = plan_prompt(model.dcfg, prompt.shifted, prompt.n_spans, n, pad, dev)
             return loop.spec_prefill(
                 model.tparams, model.dparams, model.tcfg, model.dcfg, model.spec, plan,
-                loop.SamplingParams(), embeds, kv.reset(model.target_cache),
+                loop.SamplingParams(), prompt.embeds, kv.reset(model.target_cache),
                 kv.reset(model.draft_cache), output_rows(model.spec, 128), span)
 
         def encode():
@@ -1444,6 +1491,395 @@ def phase_serving_vision_full_depth(dev, model):
            "layers": model.tcfg.num_hidden_layers,
            "dtype": "bfloat16", "max_len": model.max_len, "batch_size": 4,
            "max_span": 576, "requests": len(reqs),
+           "image_requests": sum(isinstance(r, dict) for r, _ in reqs),
+           "prompt_lens": [len(r["input_ids"] if isinstance(r, dict) else r)
+                           for r, _ in reqs],
+           "caps": [c for _, c in reqs], "tokens": tokens, "wall_s": wall,
+           "tok_per_s": tokens / wall, "latency_p50_s": float(np.median(latency)),
+           "latency_max_s": max(latency), "rounds_dispatched": rounds,
+           "prefills": prefills, "admissions": eng.stats["admissions"],
+           "admit_dispatch_s": eng.stats["admit_dispatch_s"],
+           "launches": counts, "expected": want,
+           "launches_1c_per_round": counts["1c"] / rounds, "errors": dict(eng.errors),
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30}
+    row["ok"] = (counts == want and not eng.errors
+                 and all(_complete(o, c, model) for o, (_, c) in zip(outs, reqs)))
+    emit(row)
+    assert row["ok"], row
+    del eng
+    torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Qwen2.5-VL image and video prompts
+# ---------------------------------------------------------------------------
+
+# Qwen/Qwen2.5-VL-7B-Instruct's config.json: text vocab, token ids
+QWEN_VOCAB = 152064
+QWEN_IMAGE, QWEN_VIDEO, QWEN_VSTART, QWEN_EOS = 151655, 151656, 151652, 151645
+
+
+def _qwen_model(dev, layers, dtype, seed, **quant):
+    """A Qwen2.5-VL-7B-Instruct SpecModel at ``layers`` target layers with
+    random weights from ``seed``: the published text widths (hidden 3,584,
+    intermediate 18,944, 28 heads over 4 KV heads, head_dim 128, vocab
+    152,064, untied lm_head, rope_theta 1e6, RMS eps 1e-6, qkv bias,
+    ``mrope_section`` (16, 24, 24)), 4,096 positions as the JAX package
+    forces for Qwen (max_len 4096); the published vision tower
+    (``QwenVisionConfig()``: 32 blocks, hidden 1,280, 16 heads, window 112,
+    full attention at 7, 15, 23, 31, merger to 3,584); the ViSpec draft of
+    vispec_tpu/train/configs/qwen2.5_vl_7B_config.json (28 heads over 28 KV
+    heads, qkv and fc bias, 8,192 positions); ``SpecConfig()``."""
+    from vispec_tpu_torch.configs import DraftConfig, LlamaConfig, SpecConfig
+    from vispec_tpu_torch.models import draft, llama
+    from vispec_tpu_torch.models import qwen2_5_vl as qwen_vl
+    from vispec_tpu_torch.spec.spec_model import SpecModel
+
+    tcfg = LlamaConfig(vocab_size=QWEN_VOCAB, hidden_size=3584, intermediate_size=18944,
+                       num_hidden_layers=layers, num_attention_heads=28,
+                       num_key_value_heads=4, max_position_embeddings=4096,
+                       rms_norm_eps=1e-6, rope_theta=1e6, qkv_bias=True,
+                       mrope_section=(16, 24, 24))
+    dcfg = DraftConfig(vocab_size=QWEN_VOCAB, hidden_size=3584, intermediate_size=18944,
+                       num_attention_heads=28, num_key_value_heads=28,
+                       max_position_embeddings=8192, rope_theta=1e6, qkv_bias=True,
+                       fc_bias=True)
+    vcfg = qwen_vl.QwenVisionConfig()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tparams = llama.init_params(tcfg, g, dev, dtype)
+    dparams = draft.init_params(dcfg, g, dev, dtype)
+    dparams["embed"] = tparams["embed"]
+    vparams = qwen_vl.init_params(g, vcfg, dev, dtype)
+    return SpecModel(tcfg, dcfg, SpecConfig(), tparams, dparams, max_len=4096, dtype=dtype,
+                     device=dev, eos_token_id=QWEN_EOS, qwen_cfg=vcfg, vparams=vparams,
+                     image_token_index=QWEN_IMAGE, video_token_index=QWEN_VIDEO,
+                     vision_start_token_id=QWEN_VSTART, **quant)
+
+
+def _qwen_request(model, seed, images=(), video=None):
+    """32 text ids, each image (a (height, width)) or the video (frames,
+    height, width) as <vision_start> and its placeholders with 8 text ids
+    between two images, then 31 text ids; pixels in [0, 1] from ``seed``."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(3, 150000, 32).tolist()
+    req = {}
+    if video is not None:
+        t, h, w = video
+        ids += [QWEN_VSTART] + [QWEN_VIDEO] * model.count_video_tokens(t, (h, w))
+        req["pixel_values_videos"] = rng.uniform(0, 1, (t, h, w, 3)).astype(np.float32)
+    for i, size in enumerate(images):
+        if i:
+            ids += rng.integers(3, 150000, 8).tolist()
+        ids += [QWEN_VSTART] + [QWEN_IMAGE] * model.count_image_tokens(size)
+    if images:
+        pixels = [rng.uniform(0, 1, (*s, 3)).astype(np.float32) for s in images]
+        req.update(pixel_values=pixels if len(images) > 1 else pixels[0],
+                   image_size=list(images) if len(images) > 1 else images[0])
+    return {"input_ids": ids + rng.integers(3, 150000, 31).tolist(), **req}
+
+
+def _vision_kw(req):
+    return {k: v for k, v in req.items() if k != "input_ids"}
+
+
+def phase_qwen_vision_tower_device(dev):
+    """The Qwen2.5-VL tower on the card against the CPU: the published
+    widths (1,280, 16 heads, window 112, merger to 3,584) at 2 blocks, the
+    first windowed and the second full (``fullatt_block_indexes=(1,)``); a
+    500x420 image resized to 504x420 (bicubic), patchified (36 x 30 patches,
+    ragged 4x4-unit windows), planned and encoded, float32 with TF32 off.
+    Limit 1e-4 of the output's largest magnitude."""
+    from vispec_tpu_torch.models import llava
+    from vispec_tpu_torch.models import qwen2_5_vl as qwen_vl
+
+    vcfg = qwen_vl.QwenVisionConfig(depth=2, fullatt_block_indexes=(1,))
+    cpu_params = qwen_vl.init_params(torch.Generator().manual_seed(12), vcfg, "cpu",
+                                     torch.float32)
+
+    def to_dev(tree):
+        return {k: to_dev(v) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    gpu_params = to_dev(cpu_params)
+    img = np.random.default_rng(12).uniform(0, 1, (500, 420, 3)).astype(np.float32)
+    rh, rw = qwen_vl.smart_resize(500, 420, min_pixels=256 * 28 * 28,
+                                  max_pixels=1280 * 28 * 28)
+    grid = [(1, rh // vcfg.patch_size, rw // vcfg.patch_size)]
+    n = grid[0][1] * grid[0][2]
+    pad = -(-n // 64) * 64
+    plan = qwen_vl.plan_vision(grid, vcfg, pad)
+
+    def encode(params, device):
+        pixels = llava.resize_image(torch.as_tensor(img, device=device), rh, rw)
+        patches = qwen_vl.patchify_image(pixels, vcfg)
+        patches = torch.cat([patches, patches.new_zeros((pad - n, patches.shape[1]))])
+        return qwen_vl.forward(params, vcfg, patches, plan)[:plan.n_merged]
+
+    t0 = time.perf_counter()
+    want = encode(cpu_params, "cpu")
+    cpu_s = time.perf_counter() - t0
+    got, ms, ms_range = _median_cuda_ms(lambda: encode(gpu_params, dev))
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    row = {"phase": "qwen_vision_tower_device", "tower_blocks": 2, "full_attention": [1],
+           "dtype": "float32", "image": [500, 420], "resized": [rh, rw], "patches": n,
+           "windows": int(plan.win_seg.max()) + 1, "merged_tokens": plan.n_merged,
+           "shape": list(got.shape), "rel_max_abs_err": err, "limit": 1e-4,
+           "device_ms": ms, "device_ms_range": ms_range, "cpu_s": cpu_s,
+           "ok": err <= 1e-4 and tuple(got.shape) == (plan.n_merged, vcfg.out_hidden_size)}
+    emit(row)
+    assert row["ok"], row
+
+
+def _recording_q4_dispatch():
+    """Record the (K, N, M) of every product that the int4 dispatch rule
+    sends to kernel 2, without touching the wrapper or its count.  Returns
+    (the set, a function that restores the rule)."""
+    from vispec_tpu_torch.ops import quant
+
+    rule, shapes = quant._q4_supports_kernel, set()
+
+    def recording(m, w):
+        takes = rule(m, w)
+        if takes:
+            shapes.add((2 * w.packed.shape[0], w.packed.shape[1], int(m)))
+        return takes
+
+    quant._q4_supports_kernel = recording
+    return shapes, lambda: setattr(quant, "_q4_supports_kernel", rule)
+
+
+def phase_qwen_exact(dev):
+    """Qwen2.5-VL-7B widths in float32 with TF32 off, 2 target layers, the
+    full 32-block tower, max_len 4096.  Greedy spec == AR for 64 new tokens
+    with one 448x448 image (256 image tokens), two images (448x448 and
+    364x532, resized to 392x560: 256 + 280) and an 8-frame 336x448 video
+    at 0.5 s per frame pair (4 x 192 = 768 video tokens, M-RoPE time step
+    1); then
+    ``specgenerate_batch`` over [the one-image request, a text request, the
+    video request] == per request, the engine (B = 2) over [two image and
+    two text requests] == per request; last the quantized mode (int8 KV,
+    int4 draft, int8 target: 1b, and kernel 2 at K = 3,584) spec == AR with
+    the one image, and kernel 2 held against its plain version at every
+    (K, N, M) that run gave it (returned as rows)."""
+    model = _qwen_model(dev, 2, torch.float32, seed=6)
+    cases = {"one_image": _qwen_request(model, 60, images=[(448, 448)]),
+             "two_images": _qwen_request(model, 61, images=[(448, 448), (364, 532)]),
+             "video": {**_qwen_request(model, 62, video=(8, 336, 448)),
+                       "second_per_grid_ts": 0.5}}
+    for name, req in cases.items():
+        ids, n = req["input_ids"], len(req["input_ids"])
+        spec = model.specgenerate(ids, max_new_tokens=64, **_vision_kw(req))
+        ar = model.ar_generate(ids, max_new_tokens=64, **_vision_kw(req))
+        same = spec.sequences[:n + 64].tolist() == ar.sequences[:n + 64].tolist()
+        row = {"phase": "qwen_exact", "case": name, "layers": 2,
+               "tower_blocks": model.qwen_cfg.depth,
+               "dtype": "float32", "max_len": model.max_len, "prompt": n,
+               "vision_tokens": sum(t in (QWEN_IMAGE, QWEN_VIDEO) for t in ids),
+               "rope_delta": model._padded_prompt(ids, 128 * -(-n // 128),
+                                                  **_vision_kw(req)).rope.delta,
+               "new_tokens": [spec.new_tokens, ar.new_tokens], "rounds": spec.rounds,
+               "ok": same and spec.new_tokens >= 64}
+        emit(row)
+        assert row["ok"], f"qwen_exact ({name}): spec != AR"
+    text = {"input_ids": np.random.default_rng(63).integers(3, 150000, 90).tolist()}
+    for label, reqs in (("specgenerate_batch", [cases["one_image"], text, cases["video"]]),
+                        ("engine_b2", [cases["one_image"], text, cases["two_images"],
+                                       {"input_ids": text["input_ids"][:50]}])):
+        refs = [model.specgenerate(r["input_ids"], max_new_tokens=48, **_vision_kw(r))
+                .sequences[len(r["input_ids"]):len(r["input_ids"]) + 48].tolist()
+                for r in reqs]
+        if label == "specgenerate_batch":
+            got = model.specgenerate_batch(reqs, max_new_tokens=48)
+            outs = [o.sequences[len(r["input_ids"]):].tolist() for r, o in zip(reqs, got)]
+            errors = {}
+        else:
+            eng = model.serving_engine(batch_size=2, max_new_tokens=48, chunk_rounds=4,
+                                       pad_bucket=(128, 640), max_span=640)
+            outs = [o.tolist() for o in eng.run_all(reqs)]
+            errors = dict(eng.errors)
+            del eng
+        same = [o == r and len(o) == 48 for o, r in zip(outs, refs)]
+        row = {"phase": "qwen_exact", "case": label, "layers": 2,
+               "prompts": [len(r["input_ids"]) for r in reqs], "new_tokens": 48,
+               "per_request_equal": same, "errors": errors, "ok": all(same) and not errors}
+        emit(row)
+        assert row["ok"], f"qwen_exact: {label} != per-request"
+    model.target_cache = model.draft_cache = None
+    model._batch_pool.clear()
+    torch.cuda.empty_cache()
+    qmodel = _qwen_model(dev, 2, torch.float32, seed=6, quantize_kv=True,
+                         quantize_draft="int4")
+    qmodel.quantize_target_inplace()
+    req = cases["one_image"]
+    ids, n = req["input_ids"], len(req["input_ids"])
+    q4_shapes, undo = _recording_q4_dispatch()
+    _zero_launch_counts()
+    try:
+        spec = qmodel.specgenerate(ids, max_new_tokens=64, **_vision_kw(req))
+        ar = qmodel.ar_generate(ids, max_new_tokens=64, **_vision_kw(req))
+    finally:
+        undo()
+    counts = _launch_counts()
+    same = spec.sequences[:n + 64].tolist() == ar.sequences[:n + 64].tolist()
+    row = {"phase": "qwen_exact", "case": "quantized_one_image", "layers": 2,
+           "kv": "int8", "draft": "int4", "target": "int8", "prompt": n,
+           "new_tokens": [spec.new_tokens, ar.new_tokens], "launches": counts,
+           "q4_shapes_kmn": sorted(q4_shapes),
+           "ok": same and spec.new_tokens >= 64 and counts["1b"] > 0 and counts["2"] > 0}
+    emit(row)
+    assert row["ok"], "qwen_exact: quantized spec != AR"
+    del model, qmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    # spec == AR cannot see a wrong draft product (verification is lossless):
+    # hold kernel 2 against its plain version at every (K, N, M) it just ran
+    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
+    rows = [q4_case(dev, k, n_, m, flush, prefix="qwen_q4") for k, n_, m in sorted(q4_shapes)]
+    torch.cuda.empty_cache()
+    return rows
+
+
+QWEN_PROMPTS = (("448x448", dict(images=[(448, 448)])),
+                ("896x1120", dict(images=[(896, 1120)])),
+                ("two_448x448", dict(images=[(448, 448), (448, 448)])),
+                ("video_8x448x448", dict(video=(8, 448, 448))))
+
+
+def phase_qwen_full_depth(dev, model):
+    """Qwen2.5-VL-7B at all 28 target layers and the 32-block tower in
+    bfloat16, max_len 4096, 128 new tokens by spec and by AR after each of
+    four prompts (~63 text tokens each): a 448x448 image (256 image
+    tokens, 1,024 patches in 16 windows), an 896x1120 image (1,280 tokens,
+    the pixel budget's ceiling), two 448x448 images, an 8-frame 448x448
+    video (4 temporal groups, 1,024 tokens).  Per prompt: the vision encode
+    and the prefill (encode, merge, M-RoPE ids, plan, target and draft
+    prefill, first tree), each the median (and range) of 10 calls timed by
+    CUDA events after a warm-up; decode tok/s; kernel 1a's launches (3 +
+    32 per dispatched spec round: 28 target verifies, the draft append, 3
+    expansion levels; 28 per AR step); peak memory; then the encode and
+    the prefill under torch.profiler.  spec/AR agreement is reported, not
+    required (bf16)."""
+    from vispec_tpu_torch.ops import kv_cache as kv
+    from vispec_tpu_torch.ops import verify_attention as va
+    from vispec_tpu_torch.spec import loop
+    from vispec_tpu_torch.spec.spec_model import _as_image_list, _bucket, output_rows, \
+        plan_prompt
+
+    rows = []
+    for seed, (name, shape) in enumerate(QWEN_PROMPTS):
+        req = _qwen_request(model, 70 + seed, **shape)
+        ids, n = req["input_ids"], len(req["input_ids"])
+        vis = _vision_kw(req)
+        for key in ("pixel_values", "pixel_values_videos"):  # on the card already
+            if key in vis:
+                pv = vis[key]
+                vis[key] = ([torch.as_tensor(x, device=dev) for x in pv]
+                            if isinstance(pv, list) else torch.as_tensor(pv, device=dev))
+        pad = _bucket(n)
+        images, sizes = _as_image_list(vis.get("pixel_values"), vis.get("image_size"))
+
+        def prefill():
+            prompt = model._padded_prompt(ids, pad, **vis)
+            plan, span = plan_prompt(model.dcfg, prompt.shifted, prompt.n_spans, n, pad, dev)
+            return loop.spec_prefill(
+                model.tparams, model.dparams, model.tcfg, model.dcfg, model.spec, plan,
+                loop.SamplingParams(), prompt.embeds, kv.reset(model.target_cache),
+                kv.reset(model.draft_cache), output_rows(model.spec, 128), span,
+                rope=prompt.rope)
+
+        def encode():
+            return model._qwen_vision(images, sizes, vis.get("pixel_values_videos"), 1.0)[0]
+
+        with torch.no_grad():
+            feats, encode_ms, encode_range = _median_cuda_ms(encode)
+            state, prefill_ms, prefill_range = _median_cuda_ms(prefill)
+        rope_delta = int(state.rope_delta)
+        del state
+        model.specgenerate(ids, max_new_tokens=8, **vis)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_launch_counts()
+        spec = model.specgenerate(ids, max_new_tokens=128, **vis)
+        spec_launches = va.verify_attention.launches
+        _zero_launch_counts()
+        ar = model.ar_generate(ids, max_new_tokens=128, **vis)
+        ar_launches = va.verify_attention.launches
+        layers, depth = model.tcfg.num_hidden_layers, model.spec.depth
+        want_spec = depth + spec.dispatched * (layers + 1 + depth)
+        want_ar = ar.dispatched * layers
+        a, b = spec.sequences[n:], ar.sequences[n:]
+        m = min(len(a), len(b))
+        row = {"phase": "qwen_full_depth", "prompt_kind": name, "layers": layers,
+               "tower_blocks": model.qwen_cfg.depth, "dtype": "bfloat16",
+               "max_len": model.max_len,
+               "vision_tokens": int(feats.shape[0]), "prompt": n, "pad_len": pad,
+               "rope_delta": rope_delta,
+               "vision_encode_ms": encode_ms, "vision_encode_ms_range": encode_range,
+               "prefill_ms": prefill_ms, "prefill_ms_range": prefill_range,
+               "spec_tokens": spec.new_tokens, "spec_s": spec.decode_time,
+               "spec_tok_per_s": spec.new_tokens / spec.decode_time,
+               "rounds": spec.rounds, "dispatched_rounds": spec.dispatched,
+               "ar_tokens": ar.new_tokens, "ar_s": ar.decode_time,
+               "ar_tok_per_s": ar.new_tokens / ar.decode_time,
+               "agreeing_prefix": int(np.argmin(np.append(a[:m] == b[:m], False))),
+               "launches_1a_spec": spec_launches, "expected_spec": want_spec,
+               "launches_1a_per_round": (spec_launches - depth) / spec.dispatched,
+               "launches_ar": ar_launches, "expected_ar": want_ar,
+               "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30}
+        row["ok"] = (spec_launches == want_spec and ar_launches == want_ar
+                     and spec.new_tokens >= 128 and ar.new_tokens >= 128)
+        emit(row)
+        assert row["ok"], row
+        rows.append(row)
+        with torch.no_grad():
+            emit({"phase": "profile_qwen_encode", "prompt_kind": name,
+                  "vision_tokens": row["vision_tokens"], **_profile(encode)})
+            pre = _profile(prefill)
+            emit({"phase": "profile_qwen_prefill", "prompt_kind": name, "pad_len": pad,
+                  **pre})
+        if not seed:  # the first prompt's decode: launches a round past the prefill's
+            for label, gen in (("spec", model.specgenerate), ("ar", model.ar_generate)):
+                res = []
+                prof = _profile(lambda: res.append(gen(ids, max_new_tokens=16, **vis)))
+                n_rounds = res[0].dispatched
+                emit({"phase": f"profile_qwen_{label}_16_tokens", "prompt_kind": name,
+                      "dispatched": n_rounds, "decode_launches_per_round":
+                      (prof["kernel_launches"] - pre["kernel_launches"]) / n_rounds,
+                      **prof})
+        model.target_cache = model.draft_cache = None
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_serving_qwen_full_depth(dev, model):
+    """The engine over the 28-layer bfloat16 Qwen2.5-VL model: B = 4,
+    ``max_span=256`` (one 448x448 image's span), pad buckets (128, 256, 512),
+    8 requests of which 4 carry a 448x448 image (cap 64) and 4 are text
+    (seed 0: prompts of 64-448, caps of 64-128).  All complete with no
+    failed request; requires 32 launches of 1c per dispatched round (28
+    target verifies, the draft append, 3 expansion levels) and 3 of 1a per
+    prefill."""
+    reqs = []
+    for i, (p, c) in enumerate(_serving_requests(4)):
+        reqs.append((_qwen_request(model, 80 + i, images=[(448, 448)]), 64))
+        reqs.append((p, c))
+    kw = dict(pad_bucket=(128, 256, 512), chunk_rounds=8, max_span=256)
+    warm = model.serving_engine(batch_size=4, **kw)
+    warm.run_all([{**reqs[0][0], "max_new_tokens": 4}])  # warm-up: an image admission
+    del warm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launch_counts()
+    eng, outs, latency, wall = _serve(model, reqs, **kw)
+    counts = _launch_counts()
+    rounds, prefills = eng.stats["rounds"], eng._n_prefills
+    depth = model.spec.depth
+    want = {"1a": depth * prefills, "1b": 0,
+            "1c": (model.tcfg.num_hidden_layers + 1 + depth) * rounds, "1c_int8": 0, "2": 0}
+    tokens = sum(len(o) for o in outs)
+    row = {"phase": "serving_qwen_full_depth", "layers": model.tcfg.num_hidden_layers,
+           "dtype": "bfloat16", "max_len": model.max_len, "batch_size": 4, "max_span": 256,
+           "requests": len(reqs),
            "image_requests": sum(isinstance(r, dict) for r, _ in reqs),
            "prompt_lens": [len(r["input_ids"] if isinstance(r, dict) else r)
                            for r, _ in reqs],
@@ -1960,6 +2396,8 @@ def main():
     phase_tau_fixture_sampling(dev)
     phase_vision_tower_device(dev)
     phase_llava_exact(dev)
+    phase_qwen_vision_tower_device(dev)
+    rows_q4 += phase_qwen_exact(dev)
     model, prompt, bf16_row = phase_full_width_depth(dev)
     serving_row = phase_serving_full_depth(dev, model)
     med = phase_sampling_full_depth(dev, model, prompt)
@@ -1976,6 +2414,12 @@ def main():
     phase_llava_full_depth(dev, llava_models)
     phase_serving_vision_full_depth(dev, llava_models["llava-1.5"])
     del llava_models
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen = _qwen_model(dev, 28, torch.bfloat16, seed=0)
+    phase_qwen_full_depth(dev, qwen)
+    phase_serving_qwen_full_depth(dev, qwen)
+    del qwen
 
     def entry(name, source, replaces, launches, case_rows, main_row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

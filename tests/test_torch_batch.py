@@ -350,7 +350,7 @@ def test_specgenerate_batch_reuses_its_cache_pool(batch_refs):
     for i, (p, res) in enumerate(zip(PROMPTS, sampled)):
         ref = model.specgenerate(p, temperature=0.7, max_new_tokens=8, seed=4 + i)
         assert res.sequences.tolist() == ref.sequences[:len(p) + 8].tolist()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="without a Qwen2.5-VL vision tower"):
         model.specgenerate_batch([{"input_ids": PROMPTS[0],
                                    "pixel_values_videos": np.zeros((2, 4, 4, 3))}])
 

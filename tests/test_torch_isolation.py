@@ -47,6 +47,7 @@ def test_importing_the_port_loads_no_jax():
 def test_entry_points_default_to_the_gpu():
     from vispec_tpu_torch.convert.params import from_numpy
     from vispec_tpu_torch.models import clip_vit, draft, llama, llava, medusa
+    from vispec_tpu_torch.models import qwen2_5_vl
     from vispec_tpu_torch.ops import rng, static_tree
     from vispec_tpu_torch.ops.kv_cache import init_cache
     from vispec_tpu_torch.spec import batch
@@ -54,7 +55,7 @@ def test_entry_points_default_to_the_gpu():
 
     for fn in (SpecModel.__init__, init_cache, from_numpy, llama.init_params,
                draft.init_params, draft.init_draft_cache, draft.make_prefill_plan,
-               clip_vit.init_params, llava.init_projector_params,
+               clip_vit.init_params, llava.init_projector_params, qwen2_5_vl.init_params,
                batch.batched_prefill, batch.prepare_requests, batch.generate_batch,
                medusa.init_params, medusa.convert_medusa, static_tree.from_choices,
                rng.key, rng.keys):

@@ -42,6 +42,9 @@ def _case(dev, dtype, h, hkv, s, t_reg, start, layers, d, max_len=1024):
     (torch.bfloat16, 32, 32, 8, 24, 300, None, 128, 2e-2),  # draft expansion
     (torch.bfloat16, 32, 8, 30, 30, 301, None, 128, 2e-2),  # GQA, 4 groups
     (torch.float32, 4, 2, 16, 16, 45, 2, 16, 1e-4),  # the tau fixture's widths
+    # Qwen2.5-VL-7B: 28 heads over 4 KV heads (groups of 7, 210 rows a KV
+    # head at the verify), the float32 exact model's CUDA-core kernel
+    (torch.float32, 28, 4, 30, 30, 301, 3, 128, 1e-4),
 ])
 def test_verify_attention_kernel_matches_plain(cuda_device, dtype, h, hkv, s, t_reg,
                                                start, layers, d, tol):
@@ -77,6 +80,12 @@ def _edge_mask(dev, s, t_reg, seed):
     ("ends_at_max_len", 32, 32, 30, 30, 512 - 30, 2, 512),
     ("one_column_into_a_chunk", 32, 32, 30, 30, 5 * 64 + 1 - 30, 2, 512),
     ("region_fills_a_chunk_edge", 32, 32, 30, 30, 4 * 64 - 30, 2, 512),  # ends on the edge
+    # Qwen2.5-VL-7B at max_len 4096: groups of 7 make 210 rows a KV head at
+    # the verify (four passes, the last 18 rows: a tile of 2), 7 at the AR
+    # step; the draft's 28 heads over 28 KV heads at the expansion
+    ("qwen_verify_gs210", 28, 4, 30, 30, 1381, 3, 4096),
+    ("qwen_ar_step_gs7", 28, 4, 1, 1, 1400, 3, 4096),
+    ("qwen_draft_expand_h28", 28, 28, 8, 24, 1380, None, 4096),
 ])
 def test_verify_attention_mma_kernel_edges(cuda_device, name, h, hkv, s, t_reg, start, layers,
                                            max_len):
@@ -115,7 +124,8 @@ def test_verify_attention_mma_kernel_row_with_no_visible_column_in_a_middle_chun
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("h,hkv,s,t_reg", [(32, 32, 30, 30), (32, 8, 30, 30), (32, 32, 5, 5)])
+@pytest.mark.parametrize("h,hkv,s,t_reg", [(32, 32, 30, 30), (32, 8, 30, 30), (32, 32, 5, 5),
+                                           (28, 4, 30, 30)])  # Qwen2.5-VL-7B, B = 4
 def test_verify_attention_batched_mma_kernel_ragged_slots(cuda_device, h, hkv, s, t_reg):
     """B = 4 at the serving round's starts, each slot at another layer."""
     dev, b, layers, max_len = cuda_device, 4, 4, 2048
@@ -193,6 +203,7 @@ def _int8_poisoned(k, v, live):
     ("start0", 32, 32, 30, 30, 0, 2, 512),
     ("ends_at_max_len", 32, 32, 30, 30, 512 - 30, 2, 512),
     ("one_column_into_a_chunk", 32, 32, 30, 30, 5 * 64 + 1 - 30, 2, 512),
+    ("qwen_verify_gs210", 28, 4, 30, 30, 1381, 3, 4096),  # Qwen2.5-VL-7B, quantized
 ])
 def test_verify_attention_int8_mma_kernel_edges(cuda_device, name, h, hkv, s, t_reg, start,
                                                 layers, max_len):
@@ -232,7 +243,8 @@ def test_verify_attention_int8_mma_kernel_row_with_no_visible_column_in_a_middle
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("h,hkv,s,t_reg", [(32, 32, 30, 30), (32, 8, 30, 30), (32, 32, 1, 1)])
+@pytest.mark.parametrize("h,hkv,s,t_reg", [(32, 32, 30, 30), (32, 8, 30, 30), (32, 32, 1, 1),
+                                           (28, 4, 30, 30)])  # Qwen2.5-VL-7B, B = 4
 def test_verify_attention_batched_int8_mma_kernel_ragged_slots(cuda_device, h, hkv, s, t_reg):
     """B = 4 over an int8 cache: a slot whose region ends at max_len, one with
     no committed prefix, one whose region ends one column into a chunk, each

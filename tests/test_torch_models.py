@@ -167,7 +167,9 @@ def test_forward_hidden_plain_ids_on_mrope_config_match_jax(batched):
     """A config with ``mrope_section`` (a Qwen2.5-VL target) takes plain
     rotary embeddings for ordinary position ids, as the JAX package does for
     1-D ids: one request, and three slots whose ``[3, S]`` ids have the shape
-    of one request's M-RoPE ids.  True M-RoPE ids are still refused."""
+    of one request's M-RoPE ids.  True M-RoPE ids (``mrope_ids=True``:
+    ``[3, S]`` for one request, ``[B, 3, S]`` for three slots) match JAX's
+    3-row forward."""
     b, t, max_len = 3, 12, 256
     cfg = dict(GEOMETRY["target"], num_hidden_layers=2, mrope_section=(2, 3, 3))
     jcfg, tcfg = JLlamaConfig(**cfg), tconfigs.LlamaConfig(**cfg)
@@ -209,6 +211,22 @@ def test_forward_hidden_plain_ids_on_mrope_config_match_jax(batched):
     th, _ = tllama.forward_hidden(*args, region=(st, torch.from_numpy(pick(tm))),
                                   seq_len=st + t)
     _close(th, jh)
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        tllama.forward_hidden(*args, region=(st, torch.from_numpy(pick(tm))),
-                              seq_len=st + t, mrope_ids=True)
+
+    # three streams apart: t at the tree position, h and w elsewhere
+    mpos = np.stack([starts[:, None] + depth, rng.integers(0, 200, (b, t)),
+                     rng.integers(0, 200, (b, t))], 1).astype(np.int32)
+    jmpos = jnp.asarray(mpos)
+
+    def one_m(tok, cache, st, m, p3):
+        return jllama.forward_hidden(jp, jcfg, jllama.embed(jp, tok), p3, cache,
+                                     j_tree_verify_mask(m, st, max_len), region=(st, m),
+                                     seq_len=st + t)
+
+    if batched:
+        jh, _ = jax.vmap(one_m)(*jargs[:4], jmpos)
+    else:
+        jh, _ = one_m(*(jax.tree.map(lambda x: x[0], a) for a in jargs[:4]), jmpos[0])
+    th, _ = tllama.forward_hidden(*args[:3], torch.from_numpy(pick(mpos)), tcache, None,
+                                  region=(st, torch.from_numpy(pick(tm))), seq_len=st + t,
+                                  mrope_ids=True)
+    _close(th, jh)

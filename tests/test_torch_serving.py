@@ -309,7 +309,8 @@ def test_chunk_ladder_trims_dead_rounds(params):
 def test_unported_options_raise_not_implemented(params):
     model = _model(params)
     eng = ServingEngine(model, batch_size=2)
-    with pytest.raises(NotImplementedError):
+    # a video request needs a Qwen2.5-VL model
+    with pytest.raises(ValueError, match="video requests need a Qwen2.5-VL model"):
         eng.submit({"input_ids": [1, 2, 3], "pixel_values_videos": np.zeros((2, 4, 4, 3))})
     # JAX's error for sampling keys on an engine without per-request sampling
     with pytest.raises(ValueError, match=r"need ServingEngine\(per_request_sampling=True\)"):

@@ -134,11 +134,12 @@ def test_prompt_embeds_and_counts_match_jax(weights):
     pad = 128
     jemb, jmask, jshift, jspans, _, _ = jmodel._padded_prompt(
         ids, pad, [jnp.asarray(i) for i in imgs], sizes)
-    temb, tmask, tshift, tspans = tmodel._padded_prompt(ids, pad, imgs, sizes)
+    temb, tmask, tshift, tspans, trope = tmodel._padded_prompt(ids, pad, imgs, sizes)
     np.testing.assert_allclose(t2n(temb), np.asarray(jemb), rtol=0, atol=1e-5)
     np.testing.assert_array_equal(tmask, jmask)
     np.testing.assert_array_equal(tshift, jshift)
     assert tspans == jspans == 2
+    assert trope is None  # LLaVA positions are plain rotary
     with pytest.raises(ValueError, match="image token count"):
         jmodel._prompt_embeds(ids[:-45], [jnp.asarray(i) for i in imgs], sizes)
     with pytest.raises(ValueError, match="image token count"):
@@ -221,11 +222,12 @@ def test_engine_refuses_a_span_past_max_span_like_jax(weights):
 def test_video_requests_and_images_without_a_tower_are_refused(weights):
     _, tmodel = _models(weights)
     video = np.zeros((2, 28, 28, 3), np.float32)
-    with pytest.raises(NotImplementedError):
+    # videos are Qwen2.5-VL prompts: a LLaVA model refuses them
+    with pytest.raises(ValueError, match="without a Qwen2.5-VL vision tower"):
         tmodel.specgenerate([1, 2, 3], max_new_tokens=4, pixel_values_videos=video)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="without a Qwen2.5-VL vision tower"):
         tmodel.specgenerate_batch([{"input_ids": [1, 2, 3], "pixel_values_videos": video}])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="video requests need a Qwen2.5-VL model"):
         ServingEngine(tmodel, batch_size=2).submit(
             {"input_ids": [1, 2, 3], "pixel_values_videos": video})
     (_, _, tt, td), _ = weights

@@ -2,7 +2,8 @@
 parameter pytrees, to the port's tensors.
 
 Accepts the output of the JAX ``llama.init_params`` / ``draft.init_params``
-/ ``clip_vit.init_params`` / ``llava.init_projector_params`` (converted
+/ ``clip_vit.init_params`` / ``llava.init_projector_params``, a Qwen2.5-VL
+vision tree (``patch_w``, ``blocks``, ``merger``) (converted
 leaf by leaf with ``numpy.asarray``) or the ``t/...`` and
 ``d/...`` keys of an ``.npz`` file such as ``tests/data/tau_fixture.npz``.
 Layouts are unchanged: ``[in, out]`` matrices, layer-stacked ``[L, ...]``.
@@ -26,9 +27,10 @@ _QUANT_LEAVES = {("q", "s"): QTensor, ("packed", "s"): Q4Tensor}
 def _keeps_float32(key: str) -> bool:
     """Leaves the JAX pytrees hold in float32 whatever the model dtype: the
     norm weights (``input_norm``, ``final_norm``, CLIP's ``pre_norm_w`` /
-    ``_b``, ...) and CLIP's LayerNorm weights and biases (``ln1_w``,
-    ``ln1_b``, ``ln2_w``, ``ln2_b``)."""
-    return "norm" in key or key.startswith(("ln1_", "ln2_"))
+    ``_b``, the Qwen2.5-VL tower's ``norm1`` / ``norm2``, ...), CLIP's
+    LayerNorm weights and biases (``ln1_w``, ``ln1_b``, ``ln2_w``,
+    ``ln2_b``) and the Qwen2.5-VL merger's RMSNorm weight (``ln_q``)."""
+    return "norm" in key or key == "ln_q" or key.startswith(("ln1_", "ln2_"))
 
 
 def _tensor(key: str, leaf) -> torch.Tensor:
@@ -46,8 +48,9 @@ def from_numpy(tree: Mapping, device="cuda", dtype: Optional[torch.dtype] = None
     """Nested dict of arrays -> nested dict of tensors on ``device``.
 
     ``dtype`` casts floating leaves, except those the JAX pytrees keep in
-    float32: the norm weights (keys containing ``norm``) and the CLIP
-    tower's LayerNorm weights and biases (``ln1_*``, ``ln2_*``); None keeps
+    float32: the norm weights (keys containing ``norm``), the CLIP
+    tower's LayerNorm weights and biases (``ln1_*``, ``ln2_*``) and the Qwen
+    merger's ``ln_q``; None keeps
     each array's own dtype.  Quantized leaves keep their stored dtypes (int8 or
     uint8 values, float32 scales).  A leaf that is neither raises TypeError."""
     out = {}

@@ -98,7 +98,7 @@ def forward_hidden(
     params: dict,
     cfg: LlamaConfig,
     inputs_embeds: torch.Tensor,  # [B?, S, hidden]
-    position_ids: torch.Tensor,  # [B?, S] int32
+    position_ids: torch.Tensor,  # [B?, S] int32, or [B?, 3, S] with mrope_ids
     cache: KVCache,  # slot-stacked when the inputs carry a slot dim
     attn_mask: torch.Tensor,  # [S, max_len] bool (used when region is None)
     region=None,  # optional (start [B?], mask [B?, S, T_reg]) => verify_attention
@@ -112,21 +112,28 @@ def forward_hidden(
     the appended K/V blocks, each [B?, L, H_kv, S, D].
 
     Ordinary per-request ids take plain rotary embeddings, also on a config
-    with ``mrope_section`` (a Qwen2.5-VL target's text positions, as in the
-    JAX package).  The caller says which kind it passes: the shape cannot
-    tell, since batched ids ``[B, S]`` at B = 3 look like one request's
-    ``[3, S]`` M-RoPE ids."""
+    with ``mrope_section`` (a Qwen2.5-VL target's text and decode positions,
+    as in the JAX package: three equal streams give the same cos/sin).
+    ``mrope_ids`` says that the ids are 3-row M-RoPE ids, ``[3, S]`` per
+    request (``[B, 3, S]`` for slot-stacked inputs), folded by
+    ``mrope_section``.  The caller says which kind it passes: the shape
+    cannot tell, since batched ids ``[B, S]`` at B = 3 look like one
+    request's ``[3, S]`` M-RoPE ids."""
     if mrope_ids:
-        raise NotImplementedError("M-RoPE position ids (Qwen2.5-VL) are not ported yet")
-    cos, sin = rope_ops.cos_sin(
-        position_ids,
-        cfg.head_dim,
-        cfg.rope_theta,
-        cfg.rope_scaling_factor if cfg.rope_scaling_type == "linear" else 1.0,
-        dynamic_ntk=((cfg.rope_scaling_factor, cfg.max_position_embeddings)
-                     if cfg.rope_scaling_type == "dynamic" else None),
-        seq_len=seq_len,
-    )
+        if cfg.mrope_section is None:
+            raise ValueError("mrope_ids given to a config without mrope_section")
+        cos, sin = rope_ops.mrope_cos_sin(position_ids, cfg.head_dim, cfg.mrope_section,
+                                          cfg.rope_theta)
+    else:
+        cos, sin = rope_ops.cos_sin(
+            position_ids,
+            cfg.head_dim,
+            cfg.rope_theta,
+            cfg.rope_scaling_factor if cfg.rope_scaling_type == "linear" else 1.0,
+            dynamic_ntk=((cfg.rope_scaling_factor, cfg.max_position_embeddings)
+                         if cfg.rope_scaling_type == "dynamic" else None),
+            seq_len=seq_len,
+        )
     cos, sin = cos.unsqueeze(-3), sin.unsqueeze(-3)  # broadcast over heads
     write_at = cache.length
     lead, s = inputs_embeds.shape[:-2], inputs_embeds.shape[-2]

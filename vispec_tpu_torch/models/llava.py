@@ -149,17 +149,18 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
 
 
 def resize_image(pixels01: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """Bicubic resize of [H, W, 3] float32 pixels to [h, w, 3], as the JAX
-    package's ``jax.image.resize(..., "bicubic")``: an axis whose size is
-    unchanged is left as it is."""
+    """Bicubic resize of [..., H, W, 3] float32 pixels (an image, or video
+    frames) to [..., h, w, 3], as the JAX package's ``jax.image.resize(...,
+    "bicubic")`` resizes them: an axis whose size is unchanged is left as
+    it is."""
     x = pixels01
     dev = x.device
-    if x.shape[0] != h:
-        wh = torch.as_tensor(resize_weights(x.shape[0], h), device=dev)
-        x = torch.einsum("hwc,hH->Hwc", x, wh)
-    if x.shape[1] != w:
-        ww = torch.as_tensor(resize_weights(x.shape[1], w), device=dev)
-        x = torch.einsum("hwc,wW->hWc", x, ww)
+    if x.shape[-3] != h:
+        wh = torch.as_tensor(resize_weights(x.shape[-3], h), device=dev)
+        x = torch.einsum("...hwc,hH->...Hwc", x, wh)
+    if x.shape[-2] != w:
+        ww = torch.as_tensor(resize_weights(x.shape[-2], w), device=dev)
+        x = torch.einsum("...hwc,wW->...hWc", x, ww)
     return x
 
 

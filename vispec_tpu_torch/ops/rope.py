@@ -70,3 +70,29 @@ def apply_rope(
     cos = cos.to(q.dtype)
     sin = sin.to(q.dtype)
     return q * cos + rotate_half(q) * sin, k * cos + rotate_half(k) * sin
+
+
+def mrope_cos_sin(
+    position_ids_3d: torch.Tensor,
+    head_dim: int,
+    mrope_section: Tuple[int, int, int],
+    theta: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2.5-VL multimodal rotary: (t, h, w) positions ``[..., 3, S]`` ->
+    cos, sin ``[..., S, head_dim]``.
+
+    Frequency slot ``d`` follows the position stream that ``mrope_section``
+    (in half-dim units, the pattern repeating over the duplicated half)
+    assigns it: ``searchsorted(cumsum((0,) + section), d % (head_dim // 2),
+    side="right") - 1``, clipped to [0, 2], as the JAX package selects it.
+    A leading dim carries one request per slot (the batched prefill)."""
+    cos3, sin3 = cos_sin(position_ids_3d, head_dim, theta)  # [..., 3, S, head_dim]
+    device = position_ids_3d.device
+    half = head_dim // 2
+    sec = torch.cumsum(torch.tensor((0,) + tuple(mrope_section), dtype=torch.int32,
+                                    device=device), 0).to(torch.int32)
+    slot = (torch.arange(head_dim, dtype=torch.int32, device=device) % half).contiguous()
+    stream = torch.clamp(torch.searchsorted(sec, slot, right=True) - 1, 0, 2)
+    idx = stream.to(torch.int64).expand(*cos3.shape[:-3], 1, cos3.shape[-2], head_dim)
+    return (torch.gather(cos3, -3, idx).squeeze(-3),
+            torch.gather(sin3, -3, idx).squeeze(-3))

@@ -14,8 +14,10 @@ Prefill runs per request (``spec_prefill``, or ``medusa_prefill`` for a
 Medusa model) straight into its slot of the stacked caches, which
 ``cache_pool`` keeps across calls; an image request (``prepare_requests``)
 is prefilled with its own draft plan and span bucket, as ``specgenerate``
-would prefill it.  At T > 0 request i draws from the key of ``seed + i``,
-as in the JAX package; a slot's key rides the stacked state.
+would prefill it, and a Qwen2.5-VL vision request with its own M-RoPE
+position ids; its slot of the stacked state carries its ``rope_delta``.
+At T > 0 request i draws from the key of ``seed + i``, as in the JAX
+package; a slot's key rides the stacked state.
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ from ..configs import DraftConfig, LlamaConfig, SpecConfig
 from ..ops import kv_cache as kv
 from ..ops import rng
 from . import loop as spec_loop
-from .spec_model import (_bucket, _Readback, output_rows, padded_text_embeds,
-                         plan_prompt)
+from .spec_model import (PaddedPrompt, _bucket, _Readback, output_rows,
+                         padded_text_embeds, plan_prompt)
 
 
 def _slot_cache(cache: kv.KVCache, i: int) -> kv.KVCache:
@@ -60,7 +62,8 @@ def batched_prefill(
 
     Each request dict (``prepare_requests``) carries ``embeds`` [pad, D],
     ``real_len``, ``plan`` and ``max_span`` (a Medusa prefill takes neither
-    plan nor draft cache).  ``cache_pool`` is a list holding one (target,
+    plan nor draft cache), and optionally ``rope`` (a Qwen2.5-VL vision
+    prompt's ``PromptRope``).  ``cache_pool`` is a list holding one (target,
     draft) pair of slot-stacked caches, reused across calls and replaced by
     a larger pair when a batch outgrows it (a Medusa batch leaves the draft
     entry None); None allocates fresh buffers.  At T > 0 request i draws
@@ -90,7 +93,7 @@ def batched_prefill(
         return spec_loop.spec_prefill(
             tparams, dparams, tcfg, dcfg, spec, req["plan"], sampling, req["embeds"],
             _slot_cache(tc_all, i), _slot_cache(dc_all, i), max_out, req["max_span"],
-            key=keys[i])
+            key=keys[i], rope=req.get("rope"))
 
     states = [prefill(i, req) for i, req in enumerate(requests)]
     # the rows already sit in the stacked buffers: stack only the rest (a
@@ -116,20 +119,23 @@ def batched_prefill(
 def text_prompt(tparams, device="cuda"):
     """The ``padded_prompt`` of ``prepare_requests`` for token lists:
     ``padded_text_embeds`` in ``SpecModel._padded_prompt``'s signature."""
-    def padded(ids, pad, *images):
-        if any(x is not None for x in images):
-            raise ValueError("image requests need a model with a vision tower "
+    def padded(ids, pad, pixel_values=None, image_size=None, pixel_values_videos=None,
+               second_per_grid_ts=1.0):
+        if pixel_values is not None or pixel_values_videos is not None:
+            raise ValueError("image and video requests need a model with a vision tower "
                              "(SpecModel.specgenerate_batch)")
-        return padded_text_embeds(tparams, ids, pad, device), None, None, 0
+        return PaddedPrompt(padded_text_embeds(tparams, ids, pad, device), None, None, 0,
+                            None)
     return padded
 
 
 def prepare_requests(dcfg: DraftConfig, requests: Sequence, max_len: int, slack: int,
                      padded_prompt, device="cuda") -> List[dict]:
     """Prefill inputs of each request (a token list, or a dict with
-    ``input_ids`` and, for an image prompt, ``pixel_values`` /
-    ``image_size``), each padded to its own 128-row bucket and planned at
-    its own span buckets, as ``specgenerate`` pads and plans it.
+    ``input_ids`` and, for a vision prompt, ``pixel_values`` /
+    ``image_size`` or ``pixel_values_videos`` / ``second_per_grid_ts``),
+    each padded to its own 128-row bucket and planned at its own span
+    buckets, as ``specgenerate`` pads and plans it.
     ``padded_prompt`` is ``SpecModel._padded_prompt``, which merges the
     image features, or ``text_prompt`` for token lists.  (The JAX package
     shares the longest prompt's bucket and span bucket so that one compiled
@@ -146,11 +152,12 @@ def prepare_requests(dcfg: DraftConfig, requests: Sequence, max_len: int, slack:
     out = []
     for r, ids in zip(requests, prompts):
         l, pad = len(ids), _bucket(len(ids))
-        embeds, _, shifted, n_spans = padded_prompt(
-            ids, pad, r.get("pixel_values"), r.get("image_size"),
-            r.get("pixel_values_videos"))
-        plan, max_span = plan_prompt(dcfg, shifted, n_spans, l, pad, device)
-        out.append(dict(embeds=embeds, real_len=l, plan=plan, max_span=max_span))
+        prompt = padded_prompt(ids, pad, r.get("pixel_values"), r.get("image_size"),
+                               r.get("pixel_values_videos"),
+                               r.get("second_per_grid_ts", 1.0))
+        plan, max_span = plan_prompt(dcfg, prompt.shifted, prompt.n_spans, l, pad, device)
+        out.append(dict(embeds=prompt.embeds, real_len=l, plan=plan, max_span=max_span,
+                        rope=prompt.rope))
     return out
 
 

@@ -45,12 +45,13 @@ from ..ops.tree import Tree, greedy_accept, path_to_root, sampling_accept
 
 
 def target_forward(tparams, tcfg, embeds, pos, cache, mask, region=None,
-                   return_new_kv=False, seq_len=None):
-    """The target backbone's forward (dense Llama; Mixtral waits for its slice)."""
+                   return_new_kv=False, seq_len=None, mrope_ids=False):
+    """The target backbone's forward (dense Llama or a Qwen2.5-VL text
+    backbone; Mixtral waits for its slice)."""
     if "router" in tparams["layers"]:
         raise NotImplementedError("MoE targets are not ported yet")
     return llama.forward_hidden(tparams, tcfg, embeds, pos, cache, mask, region,
-                                return_new_kv, seq_len=seq_len)
+                                return_new_kv, seq_len=seq_len, mrope_ids=mrope_ids)
 
 
 class SpecState(NamedTuple):
@@ -72,6 +73,9 @@ class SpecState(NamedTuple):
     # of the repetition penalty; None when the penalty is off
     samp: Optional[torch.Tensor] = None  # [4] f32 per-request knobs
     # (temperature, top_p, repetition_penalty, top_k) in the per-request mode
+    rope_delta: Optional[torch.Tensor] = None  # [] int32 M-RoPE offset of a
+    # Qwen2.5-VL target (negative after an image): decode positions are the
+    # cache row + rope_delta; None on a target without mrope_section
 
 
 def _map_leaf(fn, *xs):
@@ -147,6 +151,41 @@ def _draw_token(logits, sampling: SamplingParams, samp, seen, key):
     return token, key, seen
 
 
+class PromptRope(NamedTuple):
+    """A Qwen2.5-VL vision prompt's rotary positions: the M-RoPE ids
+    ``[3, pad_len]``, continued over the padding, and ``delta``, the offset
+    that every later position adds to its cache row (negative after an
+    image)."""
+
+    position_ids: torch.Tensor
+    delta: int
+
+
+def rope_offset(tcfg: LlamaConfig, rope_delta, device) -> Optional[torch.Tensor]:
+    """The state's M-RoPE offset: an int32 scalar on a config with
+    ``mrope_section`` (0 for a prompt without vision), None otherwise."""
+    if tcfg.mrope_section is None:
+        return None
+    return torch.as_tensor(0 if rope_delta is None else rope_delta,
+                           device=device).to(torch.int32).reshape(())
+
+
+def _prefill_rope(tcfg: LlamaConfig, rope: Optional[PromptRope], pad_len: int, device):
+    """(position ids, whether they are 3-row M-RoPE ids, the state's
+    ``rope_delta``) of a prefill: the prompt's M-RoPE ids and offset, or
+    ``arange(pad_len)`` and 0 (None on a target without ``mrope_section``)."""
+    if rope is None:
+        return (torch.arange(pad_len, dtype=torch.int32, device=device), False,
+                rope_offset(tcfg, 0, device))
+    position_ids = torch.as_tensor(rope.position_ids, device=device).to(torch.int32)
+    if tuple(position_ids.shape) != (3, pad_len):
+        raise ValueError(f"position_ids must be [3, {pad_len}] M-RoPE ids, got "
+                         f"{tuple(position_ids.shape)}")
+    if tcfg.mrope_section is None:
+        raise ValueError("M-RoPE position ids given to a target without mrope_section")
+    return position_ids, True, rope_offset(tcfg, rope.delta, device)
+
+
 def _need_key(key, sampling: SamplingParams):
     if key is None and not sampling.greedy:
         raise ValueError("a sampled prefill needs a random key (ops.rng.key)")
@@ -184,18 +223,23 @@ def spec_prefill(
     key: Optional[torch.Tensor] = None,  # [] int64; required unless greedy
     seen: Optional[torch.Tensor] = None,  # [vocab+1] bool prompt-token mask
     samp: Optional[torch.Tensor] = None,  # [4] f32 per-request knobs
+    rope: Optional[PromptRope] = None,  # a Qwen2.5-VL vision prompt's positions
 ) -> SpecState:
     """Target prompt prefill, first token (the greedy argmax or a draw from
-    a key split off ``key``), draft prefill + first tree."""
+    a key split off ``key``), draft prefill + first tree.  A Qwen2.5-VL
+    target's state carries ``rope_delta``, which shifts every later
+    position (never the cache rows); the draft keeps its row positions, as
+    in the JAX package."""
     _need_key(key, sampling)
     pad_len = inputs_embeds.shape[0]
     device = inputs_embeds.device
     real_len = plan.real_len
 
-    position_ids = torch.arange(pad_len, dtype=torch.int32, device=device)
+    position_ids, mrope, rope_delta = _prefill_rope(tcfg, rope, pad_len, device)
     mask = causal_mask(pad_len, target_cache.max_len, 0, device)
     hidden, target_cache = target_forward(tparams, tcfg, inputs_embeds, position_ids,
-                                          target_cache, mask, seq_len=real_len)
+                                          target_cache, mask, seq_len=real_len,
+                                          mrope_ids=mrope)
     target_cache = kv.advance(target_cache, real_len)
     last_logits = llama.lm_head(tparams, _take(hidden, real_len - 1))
     first_token, key, seen = _draw_token(last_logits, sampling, samp, seen, key)
@@ -227,7 +271,7 @@ def spec_prefill(
         new_token=zero(torch.int32),
         done=zero(torch.bool),
         fuse_b=b_eff,
-        key=key, seen=seen, samp=samp,
+        key=key, seen=seen, samp=samp, rope_delta=rope_delta,
     )
 
 
@@ -376,7 +420,8 @@ def spec_prefill_continue(
         last_img=last_img,
         output=torch.zeros((max_out,), dtype=torch.int32, device=device),
         out_len=zero(torch.int32), new_token=zero(torch.int32),
-        done=zero(torch.bool), fuse_b=b_eff, key=key, seen=seen, samp=samp)
+        done=zero(torch.bool), fuse_b=b_eff, key=key, seen=seen, samp=samp,
+        rope_delta=rope_offset(tcfg, None, device))
 
 
 # ---------------------------------------------------------------------------
@@ -397,6 +442,11 @@ def _verify_accept_commit(tparams, tcfg, sampling: SamplingParams, state: SpecSt
 
     embeds = llama.embed(tparams, tree.tokens)
     pos = tree_start.unsqueeze(-1) + tree.depth
+    if state.rope_delta is not None:
+        # M-RoPE: decode positions are 1-D, the cache row + rope_delta, on
+        # all three streams alike (where M-RoPE is plain rotary); the
+        # kernel's region still starts at the cache row, tree_start
+        pos = pos + state.rope_delta.unsqueeze(-1)
     hidden, target_cache, new_kv = target_forward(
         tparams, tcfg, embeds, pos, state.target_cache, None,
         region=(tree_start, tree.mask), return_new_kv=True, seq_len=tree_start + t)
@@ -533,15 +583,18 @@ def medusa_prefill(
 ) -> SpecState:
     """Target prompt prefill, first token, and the first tree from the heads
     on the last prompt hidden.  The state carries a dummy draft cache of
-    8 rows (the JAX package's), which no Medusa round reads."""
+    8 rows (the JAX package's), which no Medusa round reads.  As in the JAX
+    package, every prompt takes plain positions and a zero M-RoPE offset,
+    a Qwen2.5-VL vision prompt too."""
     _need_key(key, sampling)
     pad_len = inputs_embeds.shape[0]
     device = inputs_embeds.device
     real_len = torch.as_tensor(real_len, device=device)
-    position_ids = torch.arange(pad_len, dtype=torch.int32, device=device)
+    position_ids, mrope, rope_delta = _prefill_rope(tcfg, None, pad_len, device)
     mask = causal_mask(pad_len, target_cache.max_len, 0, device)
     hidden, target_cache = target_forward(tparams, tcfg, inputs_embeds, position_ids,
-                                          target_cache, mask, seq_len=real_len)
+                                          target_cache, mask, seq_len=real_len,
+                                          mrope_ids=mrope)
     target_cache = kv.advance(target_cache, real_len)
     last_hidden = _take(hidden, real_len - 1)
     last_logits = llama.lm_head(tparams, last_hidden)
@@ -559,7 +612,7 @@ def medusa_prefill(
         output=torch.zeros((max_out,), dtype=torch.int32, device=device),
         out_len=zero(torch.int32), new_token=zero(torch.int32), done=zero(torch.bool),
         fuse_b=torch.zeros((1,), dtype=torch.float32, device=device),
-        key=key, samp=samp)
+        key=key, samp=samp, rope_delta=rope_delta)
 
 
 def medusa_decode_round(
@@ -602,12 +655,16 @@ def ar_step(
     cache: kv.KVCache,
     key: Optional[torch.Tensor] = None,  # required unless greedy
     seen: Optional[torch.Tensor] = None,  # [vocab+1] bool (repetition penalty)
+    rope_delta: Optional[torch.Tensor] = None,  # [] int32 M-RoPE offset (Qwen2.5-VL)
 ):
     """One AR decode step over the same KV runtime; returns (next token []
-    int32, cache, key, seen).  The penalty's mask updates per token."""
+    int32, cache, key, seen).  The penalty's mask updates per token.  The
+    token's position is the cache row + ``rope_delta``."""
     _need_key(key, sampling)
     embeds = llama.embed(tparams, token.reshape(1))
     pos = cache.length.reshape(1)
+    if rope_delta is not None:
+        pos = pos + rope_delta
     ones = torch.ones((1, 1), dtype=torch.bool, device=token.device)
     hidden, cache = target_forward(tparams, tcfg, embeds, pos, cache, None,
                                    region=(cache.length, ones),
@@ -627,18 +684,19 @@ def ar_prefill(
     cache: kv.KVCache,
     key: Optional[torch.Tensor] = None,
     seen: Optional[torch.Tensor] = None,
+    rope: Optional[PromptRope] = None,  # a Qwen2.5-VL vision prompt's positions
 ):
     """Prompt prefill for the AR baseline; returns (first token, cache, key,
-    seen)."""
+    seen, the ``rope_delta`` that ``ar_step`` takes)."""
     _need_key(key, sampling)
     pad_len = inputs_embeds.shape[0]
     device = inputs_embeds.device
     real_len = torch.as_tensor(real_len, device=device)
-    pos = torch.arange(pad_len, dtype=torch.int32, device=device)
+    pos, mrope, rope_delta = _prefill_rope(tcfg, rope, pad_len, device)
     mask = causal_mask(pad_len, cache.max_len, 0, device)
     hidden, cache = target_forward(tparams, tcfg, inputs_embeds, pos, cache, mask,
-                                   seq_len=real_len)
+                                   seq_len=real_len, mrope_ids=mrope)
     cache = kv.advance(cache, real_len)
     nxt, key, seen = _draw_token(llama.lm_head(tparams, _take(hidden, real_len - 1)),
                                   sampling, None, seen, key)
-    return nxt, cache, key, seen
+    return nxt, cache, key, seen, rope_delta

@@ -1,5 +1,6 @@
-"""Continuous-batching serving engine: text or LLaVA image prompts,
-greedy or sampled, over the ViSpec, EAGLE-2 or Medusa drafter.
+"""Continuous-batching serving engine: text, LLaVA image or Qwen2.5-VL
+image and video prompts, greedy or sampled, over the ViSpec, EAGLE-2 or
+Medusa drafter.
 
 ``spec/batch.py`` decodes a fixed batch to completion.  This engine keeps a
 pool of ``batch_size`` slots decoding indefinitely: when a slot finishes,
@@ -16,10 +17,12 @@ The engine is online: ``submit()`` enqueues a request at any time,
 that finished, ``results[rid]`` holds outputs; ``run_all`` submits
 everything and steps until dry.
 
-An image request (a dict with ``pixel_values`` / ``image_size``, as
+An image request (a dict with ``pixel_values`` / ``image_size``, or on a
+Qwen2.5-VL model ``pixel_values_videos`` / ``second_per_grid_ts``, as
 ``specgenerate`` takes them) is planned at the engine's fixed span buckets,
 ``max_images`` and ``max_span``; a longer image span fails that request
-with a ValueError (recorded in ``errors``).  Image requests never take the
+with a ValueError (recorded in ``errors``).  A Qwen2.5-VL request's slot
+carries its M-RoPE ``rope_delta``.  Vision requests never take the
 prefix-snapshot path.
 
 Sampling: the engine's ``temperature`` / ``top_p`` / ``top_k`` apply to
@@ -31,8 +34,7 @@ round mixes greedy and sampled slots.  A Medusa model's admissions run
 ``medusa_prefill`` with a tiny dummy draft cache; Medusa refuses a prefix
 cache and a repetition penalty, with the JAX package's messages.
 
-Not ported yet: video requests (refused at ``submit``), tensor-parallel
-models and conversation snapshots.
+Not ported yet: tensor-parallel models and conversation snapshots.
 """
 
 from __future__ import annotations
@@ -238,7 +240,8 @@ class ServingEngine:
 
     def _prefill_one(self, request, rid=None) -> spec_loop.SpecState:
         """Prefill one request (a token list, or a dict with ``input_ids``
-        and optional ``pixel_values`` / ``image_size``) into a fresh
+        and optional ``pixel_values`` / ``image_size`` or
+        ``pixel_values_videos`` / ``second_per_grid_ts``) into a fresh
         admission cache pair."""
         m = self.m
         req = request if isinstance(request, dict) else {"input_ids": request}
@@ -246,7 +249,8 @@ class ServingEngine:
         if ids.ndim != 1 or ids.shape[0] == 0:
             raise ValueError(f"input_ids must be a non-empty 1-D id list, got shape "
                              f"{ids.shape}")
-        if self._snap is not None and req.get("pixel_values") is None:
+        if (self._snap is not None and req.get("pixel_values") is None
+                and req.get("pixel_values_videos") is None):
             plen = len(self._prefix)
             sl = len(ids) - plen
             if 0 < sl < self.suffix_bucket and np.array_equal(ids[:plen], self._prefix):
@@ -262,17 +266,18 @@ class ServingEngine:
                     self.max_out, key=key, seen=seen, samp=samp)
         l = len(ids)
         bucket = self._bucket_for(l)
-        embeds, _, shifted, _ = m._padded_prompt(ids, bucket, req.get("pixel_values"),
-                                                 req.get("image_size"))
+        prompt = m._padded_prompt(ids, bucket, req.get("pixel_values"),
+                                  req.get("image_size"), req.get("pixel_values_videos"),
+                                  req.get("second_per_grid_ts", 1.0))
         if m.mparams is not None:
             # Medusa: heads on the target hidden; no plan, no draft cache
             tc, _ = self._fresh_caches(bucket)
             key, _, samp = self._draws(rid, ids)
             return spec_loop.medusa_prefill(m.tparams, m.mparams, m.tcfg, m.spec,
-                                            self.sampling, embeds, l, tc, self.max_out,
-                                            key=key, samp=samp)
+                                            self.sampling, prompt.embeds, l, tc,
+                                            self.max_out, key=key, samp=samp)
         plan, ms = draft_mod.make_prefill_plan(
-            shifted, l, m.dcfg.num_q, bucket, max_images=self.max_images,
+            prompt.shifted, l, m.dcfg.num_q, bucket, max_images=self.max_images,
             max_span=self.max_span, device=m.device)
         if ms > self.max_span:
             raise ValueError(
@@ -281,8 +286,9 @@ class ServingEngine:
         tc, dc = self._fresh_caches(bucket)
         key, seen, samp = self._draws(rid, ids)
         return spec_loop.spec_prefill(
-            m.tparams, m.dparams, m.tcfg, m.dcfg, m.spec, plan, self.sampling, embeds,
-            tc, dc, self.max_out, self.max_span, key=key, seen=seen, samp=samp)
+            m.tparams, m.dparams, m.tcfg, m.dcfg, m.spec, plan, self.sampling,
+            prompt.embeds, tc, dc, self.max_out, self.max_span, key=key, seen=seen,
+            samp=samp, rope=prompt.rope)
 
     # ------------------------------------------------------------------
     # Online serving API: submit() requests at any time, step() one decode
@@ -318,7 +324,9 @@ class ServingEngine:
 
     def submit(self, request, max_new_tokens: Optional[int] = None) -> int:
         """Enqueue a request (token list, or dict with ``input_ids`` and
-        optional ``pixel_values`` / ``image_size``); returns a request id.
+        optional ``pixel_values`` / ``image_size``, or on a Qwen2.5-VL model
+        ``pixel_values_videos`` / ``second_per_grid_ts``); returns a request
+        id.
         Admission into a decode slot happens inside step().
 
         ``max_new_tokens`` (kwarg or request-dict key) caps this request's
@@ -333,8 +341,10 @@ class ServingEngine:
         if not hasattr(self, "_queue"):
             self.start_session()
         if isinstance(request, dict):
-            if request.get("pixel_values_videos") is not None:
-                raise NotImplementedError("video requests (Qwen2.5-VL) are not ported yet")
+            if (request.get("pixel_values_videos") is not None
+                    and self.m.qwen_cfg is None):
+                raise ValueError("video requests need a Qwen2.5-VL model "
+                                 "(SpecModel with qwen_cfg and vparams)")
             if max_new_tokens is None:
                 max_new_tokens = request.get("max_new_tokens")
         cap = self.max_new if max_new_tokens is None else int(max_new_tokens)

@@ -3,10 +3,16 @@
 (the autoregressive baseline it must equal token for token when greedy, and
 in distribution when sampled), and the serving half: ``specgenerate_batch`` (a fixed batch decoded together,
 ``spec/batch.py``) and ``serving_engine`` (continuous batching,
-``spec/serving.py``).  Prompts are text or LLaVA-1.5/1.6 image prompts: a
-model built with ``llava_cfg`` and ``vparams`` encodes each image
-(``models/llava.py``) and writes its features over the prompt's
-``image_token_index`` rows; the draft compresses each image span.
+``spec/serving.py``).  Prompts are text, LLaVA-1.5/1.6 image prompts or
+Qwen2.5-VL image and video prompts: a model built with ``llava_cfg`` (or
+``qwen_cfg``) and ``vparams`` encodes each image (``models/llava.py``,
+``models/qwen2_5_vl.py``) and writes its features over the prompt's
+``image_token_index`` rows (a video's over its ``video_token_index``
+rows); the draft compresses each image or video span.  A Qwen2.5-VL
+vision prompt also carries its 3-row M-RoPE position ids and the offset
+``rope_delta`` that every later position takes (except under Medusa,
+whose prefill gives every prompt plain positions, as the JAX package's
+does).
 
 Three drafters: ViSpec's draft (a ``DraftConfig`` with ``vision=True``),
 EAGLE-2's (the same draft without the image adaptor, ``vision=False``),
@@ -24,7 +30,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +39,7 @@ from ..configs import DraftConfig, LlamaConfig, SpecConfig
 from ..models import draft as draft_mod
 from ..models import llama, llava
 from ..models import medusa
+from ..models import qwen2_5_vl as qwen_vl
 from ..ops import kv_cache as kv
 from ..ops import rng
 from ..ops.quant import quantize_draft_params, quantize_target_params
@@ -48,6 +55,16 @@ def padded_text_embeds(tparams: dict, input_ids, pad_len: int, device) -> torch.
     """Token embeddings of a text prompt, zero rows to ``pad_len``."""
     x = llama.embed(tparams, torch.as_tensor(np.asarray(input_ids, np.int64), device=device))
     return torch.cat([x, x.new_zeros((pad_len - x.shape[0], x.shape[1]))])
+
+
+class PaddedPrompt(NamedTuple):
+    """A prompt ready for prefill (``SpecModel._padded_prompt``)."""
+
+    embeds: torch.Tensor  # [pad_len, hidden] token embeds, vision rows merged
+    image_mask: Optional[np.ndarray]  # [L] the vision-token rows; None for text
+    shifted: Optional[np.ndarray]  # image_mask[1:]: what the draft's plan takes
+    n_spans: int  # runs of True in ``shifted``
+    rope: Optional[spec_loop.PromptRope]  # a Qwen2.5-VL vision prompt's M-RoPE
 
 
 def plan_prompt(dcfg: DraftConfig, shifted, n_spans: int, real_len: int, pad_len: int,
@@ -119,7 +136,9 @@ class _Readback:
 class SpecModel:
     """Target + draft pair with a preallocated KV runtime; with ``llava_cfg``
     and ``vparams`` (``{"vision": clip_vit params, **projector params}``) it
-    takes LLaVA image prompts."""
+    takes LLaVA image prompts, with ``qwen_cfg`` and ``vparams`` (the
+    Qwen2.5-VL tower's tree) Qwen2.5-VL image and video prompts over a
+    target whose config has ``mrope_section``."""
 
     def __init__(
         self,
@@ -138,6 +157,12 @@ class SpecModel:
         vparams: Optional[dict] = None,
         image_token_index: Optional[int] = None,
         mparams: Optional[dict] = None,  # Medusa heads => the Medusa decode path
+        qwen_cfg: Optional[qwen_vl.QwenVisionConfig] = None,
+        vision_start_token_id: int = 151652,
+        video_token_index: Optional[int] = None,
+        min_pixels: int = 256 * 28 * 28,  # the Qwen image budget (HF processor's)
+        max_pixels: int = 1280 * 28 * 28,
+        video_max_pixels: int = 768 * 28 * 28,  # per-frame budget of a video
     ):
         if max_len % 128 != 0:
             raise ValueError(
@@ -151,6 +176,13 @@ class SpecModel:
         self.mparams = mparams
         self.llava_cfg, self.vparams = llava_cfg, vparams
         self.image_token_index = image_token_index
+        if qwen_cfg is not None and tcfg.mrope_section is None:
+            raise ValueError("a Qwen2.5-VL tower needs a target config with mrope_section")
+        self.qwen_cfg = qwen_cfg
+        self.vision_start_token_id = vision_start_token_id
+        self.video_token_index = video_token_index
+        self.min_pixels, self.max_pixels = min_pixels, max_pixels
+        self.video_max_pixels = video_max_pixels
         if quantize_draft:
             self.quantize_draft_inplace(
                 "int8" if quantize_draft is True else quantize_draft)
@@ -254,12 +286,28 @@ class SpecModel:
     def count_image_tokens(self, image_size: Tuple[int, int]) -> int:
         """Number of image-token placeholders one image of this size
         expands to; it must agree with the vision path's feature count."""
-        if self.llava_cfg is None:
-            raise ValueError("not a vision model")
         oh, ow = image_size
-        if self.llava_cfg.anyres:
-            return llava.plan_anyres(oh, ow, self.llava_cfg).n_tokens
-        return self.llava_cfg.patches_per_side ** 2
+        if self.llava_cfg is not None:
+            if self.llava_cfg.anyres:
+                return llava.plan_anyres(oh, ow, self.llava_cfg).n_tokens
+            return self.llava_cfg.patches_per_side ** 2
+        if self.qwen_cfg is not None:
+            rh, rw = qwen_vl.smart_resize(oh, ow, min_pixels=self.min_pixels,
+                                          max_pixels=self.max_pixels)
+            q = self.qwen_cfg
+            return (rh // q.patch_size) * (rw // q.patch_size) // q.merge_unit
+        raise ValueError("not a vision model")
+
+    def count_video_tokens(self, num_frames: int, frame_size: Tuple[int, int]) -> int:
+        """Number of video-token placeholders a Qwen2.5-VL video of
+        ``num_frames`` frames of ``frame_size`` expands to (frames taken in
+        pairs, an odd count padded by its last frame)."""
+        if self.qwen_cfg is None:
+            raise ValueError("not a Qwen2.5-VL model")
+        q = self.qwen_cfg
+        rh, rw = qwen_vl.smart_resize(*frame_size, max_pixels=int(self.video_max_pixels))
+        groups = -(-num_frames // q.temporal_patch_size)
+        return groups * (rh // q.patch_size) * (rw // q.patch_size) // q.merge_unit
 
     def _encode_image(self, image, image_size) -> torch.Tensor:
         """One image [H, W, 3] in [0, 1] -> its packed features [n_tokens,
@@ -276,30 +324,78 @@ class SpecModel:
             tiles = llava.normalize(llava.resize_image(img, size, size))[None]
         return llava.encode_image(self.vparams, cfg, tiles, plan)
 
+    def _qwen_vision(self, images, sizes, video, second_per_grid_ts: float):
+        """A Qwen2.5-VL prompt's vision input: the images (each resized to
+        the pixel budget by ``smart_resize``) or the video (frames resized
+        alike to the per-frame budget, taken in pairs), patchified, padded
+        to a multiple of 64 rows and encoded in one tower call over all
+        their grids.  Returns (features [n_merged, hidden], the token id
+        they replace, the grids, the seconds per temporal grid step)."""
+        q, dev = self.qwen_cfg, self.device
+        if video is not None:
+            frames = torch.as_tensor(video, dtype=torch.float32, device=dev)
+            t, oh, ow = frames.shape[:3]
+            rh, rw = qwen_vl.smart_resize(oh, ow, max_pixels=int(self.video_max_pixels))
+            patches = qwen_vl.patchify_video(llava.resize_image(frames, rh, rw), q)
+            grids = [(-(-t // q.temporal_patch_size), rh // q.patch_size,
+                      rw // q.patch_size)]
+            token, spgs = self.video_token_index, [second_per_grid_ts]
+        else:
+            parts, grids = [], []
+            for img, isz in zip(images, sizes):
+                img = torch.as_tensor(img, dtype=torch.float32, device=dev)
+                oh, ow = isz if isz is not None else img.shape[:2]
+                rh, rw = qwen_vl.smart_resize(oh, ow, min_pixels=self.min_pixels,
+                                              max_pixels=self.max_pixels)
+                parts.append(qwen_vl.patchify_image(llava.resize_image(img, rh, rw), q))
+                grids.append((1, rh // q.patch_size, rw // q.patch_size))
+            patches = torch.cat(parts)
+            token, spgs = self.image_token_index, []
+        n = patches.shape[0]
+        pad = _bucket(n, 64)
+        patches = torch.cat([patches, patches.new_zeros((pad - n, patches.shape[1]))])
+        plan = qwen_vl.plan_vision(grids, q, pad)
+        feats = qwen_vl.forward(self.vparams, q, patches, plan)[:plan.n_merged]
+        return feats, token, grids, spgs
+
     def _padded_prompt(self, input_ids, pad_len: int, pixel_values=None,
-                       image_size=None, pixel_values_videos=None):
-        """The prompt's token embeds padded to ``pad_len`` with the image
-        features written over the image-token rows, features of several
-        images concatenated in prompt order (the JAX package's
-        ``_prompt_embeds`` and ``_padded_prompt``).  Returns (embeds, the
-        image mask [L], the SHIFTED image mask (what the draft's prefill plan
-        takes), its span count); a text prompt has (embeds, None, None, 0)."""
-        if pixel_values_videos is not None:
-            raise NotImplementedError("video prompts (Qwen2.5-VL) are not ported yet")
+                       image_size=None, pixel_values_videos=None,
+                       second_per_grid_ts: float = 1.0) -> PaddedPrompt:
+        """The prompt's token embeds padded to ``pad_len`` with the vision
+        features written over the image-token (or video-token) rows,
+        features of several images concatenated in prompt order (the JAX
+        package's ``_prompt_embeds`` and ``_padded_prompt``).  A Qwen2.5-VL
+        vision prompt also gets its M-RoPE ids, continued over the padding,
+        and rope_delta; a text prompt, a LLaVA prompt and a Qwen2.5-VL text
+        prompt take plain positions (``rope`` None).  A video takes
+        precedence over images given with it, which are not used (as in
+        the JAX package)."""
         ids = np.asarray(input_ids, np.int64)
         images, sizes = _as_image_list(pixel_values, image_size)
-        if not images:
-            return padded_text_embeds(self.tparams, ids, pad_len, self.device), None, None, 0
-        if self.llava_cfg is None or self.vparams is None:
+        video = pixel_values_videos
+        if not images and video is None:
+            return PaddedPrompt(padded_text_embeds(self.tparams, ids, pad_len, self.device),
+                                None, None, 0, None)
+        if video is not None and (self.qwen_cfg is None or self.vparams is None):
+            raise ValueError("pixel_values_videos given to a model without a Qwen2.5-VL "
+                             "vision tower (construct it with qwen_cfg and vparams)")
+        if (self.llava_cfg is None and self.qwen_cfg is None) or self.vparams is None:
             raise ValueError("pixel_values given to a model without a vision tower "
-                             "(construct it with llava_cfg and vparams)")
-        feats = torch.cat([self._encode_image(img, isz) for img, isz in zip(images, sizes)])
-        image_mask = ids == self.image_token_index
+                             "(construct it with llava_cfg or qwen_cfg, and vparams)")
+        if self.qwen_cfg is not None:
+            feats, token, grids, spgs = self._qwen_vision(images, sizes, video,
+                                                          second_per_grid_ts)
+        else:
+            feats = torch.cat([self._encode_image(img, isz)
+                               for img, isz in zip(images, sizes)])
+            token = self.image_token_index
+        image_mask = ids == token
         positions = np.nonzero(image_mask)[0]
         if positions.size != feats.shape[0]:
-            raise ValueError(
-                f"image token count {positions.size} != features {feats.shape[0]}")
-        # the image rows are overwritten: look them up as id 0, so that an
+            kind = "video" if video is not None else "image"
+            raise ValueError(f"{kind} token count {positions.size} != "
+                             f"{'merged ' if self.qwen_cfg else ''}features {feats.shape[0]}")
+        # the vision rows are overwritten: look them up as id 0, so that an
         # image_token_index past the vocab cannot fault (JAX's take fills them)
         embeds = padded_text_embeds(self.tparams, np.where(image_mask, 0, ids), pad_len,
                                     self.device)
@@ -307,7 +403,17 @@ class SpecModel:
                                           torch.as_tensor(positions, device=self.device))
         shifted = image_mask[1:]
         n_spans = int((shifted & ~np.concatenate([[False], shifted[:-1]])).sum())
-        return embeds, image_mask, shifted, n_spans
+        rope = None
+        if self.qwen_cfg is not None:
+            pos, rope_delta = qwen_vl.get_rope_index_host(
+                ids, grids, self.qwen_cfg, self.image_token_index or -1,
+                self.video_token_index or -2, self.vision_start_token_id,
+                second_per_grid_ts=spgs)
+            cont = pos[:, -1:] + 1 + np.arange(pad_len - ids.shape[0])[None, :]
+            rope = spec_loop.PromptRope(
+                torch.as_tensor(np.concatenate([pos, cont], axis=1), dtype=torch.int32,
+                                device=self.device), int(rope_delta))
+        return PaddedPrompt(embeds, image_mask, shifted, n_spans, rope)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -324,12 +430,17 @@ class SpecModel:
         stop_token_id: Optional[int] = None,
         seed: int = 0,
         repetition_penalty: float = 1.0,  # active at T > 0 only
+        second_per_grid_ts: float = 1.0,
     ) -> GenerationResult:
         """Speculative decoding of a prompt, greedy at ``temperature`` 0,
         else sampled from the request's key of ``seed``.  ``pixel_values``
         is one image [H, W, 3] in [0, 1] or a list of them, ``image_size``
         its (height, width) or their list; the prompt holds each image's
-        ``count_image_tokens`` placeholders.  Generation stops at EOS or at
+        ``count_image_tokens`` placeholders.  A Qwen2.5-VL model also takes
+        ``pixel_values_videos``, one video [T, H, W, 3] in [0, 1] whose
+        ``count_video_tokens`` placeholders the prompt holds, with
+        ``second_per_grid_ts`` seconds per pair of frames (its M-RoPE time
+        step).  Generation stops at EOS or at
         ``stop_token_id`` (an extra stop id, such as Llama 3's
         ``<|eot_id|>``); the output keeps the tokens up to and including the
         first of either.  A Medusa model (``mparams``) refuses a repetition
@@ -353,19 +464,20 @@ class SpecModel:
         max_out = min(self.max_len, output_rows(self.spec, max_new_tokens))
         key = self._key(sampling, seed)
 
-        embeds, _, shifted, n_spans = self._padded_prompt(
-            input_ids, pad_len, pixel_values, image_size, pixel_values_videos)
+        prompt = self._padded_prompt(input_ids, pad_len, pixel_values, image_size,
+                                     pixel_values_videos, second_per_grid_ts)
         if self.mparams is not None:
             state = spec_loop.medusa_prefill(
-                self.tparams, self.mparams, self.tcfg, self.spec, sampling, embeds, l,
-                kv.reset(self.target_cache), max_out, key=key)
+                self.tparams, self.mparams, self.tcfg, self.spec, sampling, prompt.embeds,
+                l, kv.reset(self.target_cache), max_out, key=key)
         else:
-            plan, max_span = plan_prompt(self.dcfg, shifted, n_spans, l, pad_len,
-                                         self.device)
+            plan, max_span = plan_prompt(self.dcfg, prompt.shifted, prompt.n_spans, l,
+                                         pad_len, self.device)
             state = spec_loop.spec_prefill(
                 self.tparams, self.dparams, self.tcfg, self.dcfg, self.spec, plan,
-                sampling, embeds, kv.reset(self.target_cache),
-                kv.reset(self.draft_cache), max_out, max_span, key=key, seen=seen)
+                sampling, prompt.embeds, kv.reset(self.target_cache),
+                kv.reset(self.draft_cache), max_out, max_span, key=key, seen=seen,
+                rope=prompt.rope)
 
         # cap rounds so the cache cannot overflow
         budget = min(max_new_tokens, self.max_len - l - self._cache_slack())
@@ -471,10 +583,11 @@ class SpecModel:
         pixel_values_videos=None,
         seed: int = 0,
         repetition_penalty: float = 1.0,
+        second_per_grid_ts: float = 1.0,
     ) -> GenerationResult:
-        """Plain AR baseline over the same runtime (image prompts and
-        sampling knobs as in ``specgenerate``; the penalty's mask updates per
-        token)."""
+        """Plain AR baseline over the same runtime (image and video prompts
+        and sampling knobs as in ``specgenerate``; the penalty's mask updates
+        per token)."""
         input_ids = np.asarray(input_ids, np.int64)
         l = int(input_ids.shape[0])
         if l == 0:
@@ -486,11 +599,12 @@ class SpecModel:
         sampling = spec_loop.SamplingParams(temperature, top_p, int(top_k),
                                             float(repetition_penalty))
         seen = self._seen_mask(sampling, input_ids)
-        embeds = self._padded_prompt(input_ids, pad_len, pixel_values, image_size,
-                                     pixel_values_videos)[0]
-        tok, cache, key, seen = spec_loop.ar_prefill(
-            self.tparams, self.tcfg, sampling, embeds, l, kv.reset(self.target_cache),
-            key=self._key(sampling, seed), seen=seen)
+        prompt = self._padded_prompt(input_ids, pad_len, pixel_values, image_size,
+                                     pixel_values_videos, second_per_grid_ts)
+        tok, cache, key, seen, delta = spec_loop.ar_prefill(
+            self.tparams, self.tcfg, sampling, prompt.embeds, l,
+            kv.reset(self.target_cache), key=self._key(sampling, seed), seen=seen,
+            rope=prompt.rope)
         t0 = time.perf_counter()
         out = [int(tok)]
         chunk = self.chunk_rounds
@@ -523,7 +637,8 @@ class SpecModel:
             toks = []
             for _ in range(n):
                 tok, cache, key, seen = spec_loop.ar_step(
-                    self.tparams, self.tcfg, sampling, tok, cache, key=key, seen=seen)
+                    self.tparams, self.tcfg, sampling, tok, cache, key=key, seen=seen,
+                    rope_delta=delta)
                 toks.append(tok)
             dispatched += n
             batch = _Readback(torch.stack(toks))
@@ -558,7 +673,8 @@ class SpecModel:
         seed: int = 0,
     ) -> List[GenerationResult]:
         """Batched multi-request decoding of request dicts (``input_ids``
-        and, for an image prompt, ``pixel_values`` / ``image_size`` as in
+        and, for a vision prompt, ``pixel_values`` / ``image_size`` or
+        ``pixel_values_videos`` / ``second_per_grid_ts`` as in
         ``specgenerate``): each request is padded to its own 128-row bucket,
         planned at its own span buckets and prefilled on its own into its
         slot of the pooled stacked caches, then all decode together in
