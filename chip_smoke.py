@@ -27,7 +27,15 @@ batch and engine == per request; the quantized mode), at 28 layers in
 bfloat16 with a 448x448, an 896x1120, two 448x448 images and an 8-frame
 video (encode and prefill ms, the kernel's launches per round), and the
 engine over image and text requests; the kernel rows include Qwen's GQA
-geometry (groups of 7).  Prints one JSON line per phase, a
+geometry (groups of 7).  Then Mixtral-8x7B widths (8 experts, top-2, 32
+heads over 8 KV heads) at 2 layers in float32 (spec == AR, batch and engine
+== per request, int8 KV with an int4 draft), multi-turn conversation
+snapshots at 2 layers in float32 (continuation == full prefill), HF
+checkpoints written under build/ and loaded by ``from_pretrained`` onto the
+card (bit-equal, load rate), the snapshot continuation and the tree-width
+autotune on the 32-layer 7B, and Mixtral at 24 of its 32 layers in bfloat16
+(tok/s, launches, idle share, the engine, the autotune); the kernel rows
+include Mixtral's groups of 4.  Prints one JSON line per phase, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failed phase raises and
 the script exits non-zero without that line; so does a machine without a
@@ -287,6 +295,17 @@ def phase_kernel(dev):
         # the float32 Qwen model of qwen_exact: the CUDA-core kernel at groups of 7
         kernel_case("qwen_target_verify_f32", 44, dev, f32, 28, 4, 30, 30, 1381, 28, tree,
                     flush, max_len=4096),
+        # Mixtral-8x7B (32 heads over 8 KV heads; gqa_groups4 holds its
+        # verify): the AR step over the 24-layer cache, the draft's append
+        # and expansion at 32 over 8, and mixtral_exact's float32 verify over
+        # its 2-layer cache (the CUDA-core kernel at groups of 4)
+        kernel_case("mixtral_ar_step", 60, dev, bf16, 32, 8, 1, 1, 319, 24, ones, flush),
+        kernel_case("mixtral_draft_append", 61, dev, bf16, 32, 8, 5, 5, 317, None, tri,
+                    flush),
+        kernel_case("mixtral_draft_expand", 62, dev, bf16, 32, 8, 8, 24, 300, None, expand,
+                    flush),
+        kernel_case("mixtral_target_verify_f32", 63, dev, f32, 32, 8, 30, 30, 301, 2, tree,
+                    flush),
     ]
     return rows
 
@@ -379,6 +398,11 @@ def phase_kernel_int8(dev):
                          max_len=4096),
         kernel_case_int8("qwen_target_verify_int8_f32", 47, dev, 28, 4, 30, 30, 1381, 28,
                          tree, flush, max_len=4096, dtype=torch.float32),
+        # Mixtral-8x7B over int8 caches (gqa_groups4_int8 holds the verify):
+        # the AR step over 24 layers, mixtral_exact's float32-q verify
+        kernel_case_int8("mixtral_ar_step_int8", 64, dev, 32, 8, 1, 1, 319, 24, ones, flush),
+        kernel_case_int8("mixtral_target_verify_int8_f32", 65, dev, 32, 8, 30, 30, 301, 2,
+                         tree, flush, dtype=torch.float32),
     ]
 
 
@@ -516,6 +540,15 @@ def phase_kernel_batched(dev):
         kernel_case_batched("qwen_batched_verify", 43, dev, bf16, 28, 4, 30, 30,
                             (1381, 339, 1100, 104), (0, 9, 17, 27), tree, flush,
                             n_layers=28, max_len=4096),
+        # the Mixtral-8x7B engine (batched_gqa_groups4 holds its verify): the
+        # draft's append and expansion at 32 over 8; mixtral_exact's float32
+        # B = 2 engine over its 2-layer cache
+        kernel_case_batched("mixtral_batched_draft_append", 66, dev, bf16, 32, 8, 5, 5,
+                            starts, None, tri, flush),
+        kernel_case_batched("mixtral_batched_draft_expand", 67, dev, bf16, 32, 8, 8, 24,
+                            starts, None, expand, flush),
+        kernel_case_batched("mixtral_batched_verify_f32", 68, dev, f32, 32, 8, 30, 30,
+                            starts, (0, 1, 1, 0), tree, flush, n_layers=2),
     ]
     rows_int8 = [
         kernel_case_batched("batched_target_verify_int8", 25, dev, bf16, 32, 32, 30, 30,
@@ -530,6 +563,8 @@ def phase_kernel_batched(dev):
         kernel_case_batched("qwen_batched_verify_int8", 48, dev, bf16, 28, 4, 30, 30,
                             (1381, 339, 1100, 104), (0, 9, 17, 27), tree, flush, int8=True,
                             n_layers=28, max_len=4096),
+        kernel_case_batched("mixtral_batched_verify_int8", 69, dev, bf16, 32, 8, 30, 30,
+                            starts, (0, 5, 17, 23), tree, flush, int8=True, n_layers=24),
     ]
     return rows, rows_int8
 
@@ -2366,6 +2401,502 @@ def phase_serving_sampling_full_depth(dev, model, med):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Mixtral-8x7B targets, HF checkpoints and conversation snapshots
+# ---------------------------------------------------------------------------
+
+# mistralai/Mixtral-8x7B-v0.1's config.json (32 layers: each phase sets its
+# depth); the draft at the same widths (32 heads over 8 KV heads, MLP 14,336)
+MIXTRAL = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+               num_attention_heads=32, num_key_value_heads=8,
+               max_position_embeddings=32768, rms_norm_eps=1e-5, rope_theta=1e6,
+               num_local_experts=8, num_experts_per_tok=2)
+MIXTRAL_DRAFT = {k: MIXTRAL[k] for k in ("vocab_size", "hidden_size", "intermediate_size",
+                                         "num_attention_heads", "num_key_value_heads",
+                                         "max_position_embeddings", "rms_norm_eps",
+                                         "rope_theta")}
+# 24 of 32 layers in bfloat16: ~70 GB of weights, the most one 80 GB card
+# holds beside the caches and the draft
+MIXTRAL_LAYERS = 24
+# lmsys/vicuna-7b-v1.5's config.json at 2 layers (from_pretrained_device)
+VICUNA_HF = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+             "vocab_size": 32000, "hidden_size": 4096, "intermediate_size": 11008,
+             "num_hidden_layers": 2, "num_attention_heads": 32, "num_key_value_heads": 32,
+             "max_position_embeddings": 4096, "rms_norm_eps": 1e-5, "eos_token_id": 2}
+
+
+def _mixtral_model(dev, layers, dtype, seed, **quant):
+    from vispec_tpu_torch.configs import DraftConfig, SpecConfig
+    from vispec_tpu_torch.models import draft, mixtral
+    from vispec_tpu_torch.spec.spec_model import SpecModel
+
+    tcfg = mixtral.MixtralConfig(num_hidden_layers=layers, **MIXTRAL)
+    dcfg = DraftConfig(**MIXTRAL_DRAFT)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tparams = mixtral.init_params(tcfg, g, dev, dtype)
+    dparams = draft.init_params(dcfg, g, dev, dtype)
+    dparams["embed"] = tparams["embed"]
+    return SpecModel(tcfg, dcfg, SpecConfig(), tparams, dparams, max_len=2048, dtype=dtype,
+                     device=dev, **quant)
+
+
+def phase_mixtral_exact(dev):
+    """Mixtral-8x7B widths (8 experts, top-2, 32 heads over 8 KV heads, the
+    draft's MLP 14,336 wide) at 2 target layers in float32 with TF32 off:
+    greedy spec == AR for 64 new tokens; ``specgenerate_batch`` over three
+    prompts and the engine (B = 2) over four == per request; the int8 KV
+    cache with an int4 draft, spec == AR, with kernels 1b and 2 launched.
+    Then kernel 2 against its plain version at every (K, N, M) that run gave
+    it (returned as rows)."""
+    model = _mixtral_model(dev, 2, torch.float32, seed=9)
+    rng = np.random.default_rng(9)
+    prompt = rng.integers(3, 32000, 100).tolist()
+    spec = model.specgenerate(prompt, max_new_tokens=64)
+    ar = model.ar_generate(prompt, max_new_tokens=64)
+    same = spec.sequences[:164].tolist() == ar.sequences[:164].tolist()
+    row = {"phase": "mixtral_exact", "case": "spec_vs_ar", "layers": 2, "dtype": "float32",
+           "experts": model.tcfg.num_local_experts, "new_tokens": [spec.new_tokens,
+                                                                   ar.new_tokens],
+           "rounds": spec.rounds, "ok": same and spec.new_tokens >= 64}
+    emit(row)
+    assert row["ok"], "mixtral_exact: spec != AR"
+    prompts = [rng.integers(3, 32000, n).tolist() for n in (40, 90, 130, 60)]
+    refs = [model.specgenerate(p, max_new_tokens=48).sequences[len(p):len(p) + 48].tolist()
+            for p in prompts]
+    got = model.specgenerate_batch([{"input_ids": p} for p in prompts[:3]],
+                                   max_new_tokens=48)
+    outs = {"specgenerate_batch": [o.sequences[len(p):].tolist()
+                                   for p, o in zip(prompts, got)],
+            "engine_b2": [o.tolist() for o in model.serving_engine(
+                batch_size=2, max_new_tokens=48, chunk_rounds=4,
+                pad_bucket=(128, 256)).run_all(prompts)]}
+    for label, out in outs.items():
+        same = [o == r and len(o) == 48 for o, r in zip(out, refs)]
+        row = {"phase": "mixtral_exact", "case": label, "layers": 2,
+               "prompts": [len(p) for p in prompts[:len(out)]],
+               "per_request_equal": same, "ok": all(same)}
+        emit(row)
+        assert row["ok"], f"mixtral_exact: {label} != per request"
+    model.target_cache = model.draft_cache = None
+    model._batch_pool.clear()
+    torch.cuda.empty_cache()
+
+    from vispec_tpu_torch.spec.spec_model import SpecModel
+
+    qmodel = SpecModel(model.tcfg, model.dcfg, model.spec, model.tparams, model.dparams,
+                       max_len=2048, dtype=torch.float32, quantize_draft="int4",
+                       quantize_kv=True, device=dev)
+    q4_shapes, undo = _recording_q4_dispatch()
+    _zero_launch_counts()
+    try:
+        spec = qmodel.specgenerate(prompt, max_new_tokens=64)
+        ar = qmodel.ar_generate(prompt, max_new_tokens=64)
+    finally:
+        undo()
+    counts = _launch_counts()
+    same = spec.sequences[:164].tolist() == ar.sequences[:164].tolist()
+    row = {"phase": "mixtral_exact", "case": "int8_kv_int4_draft", "layers": 2,
+           "kv": "int8", "draft": "int4", "new_tokens": [spec.new_tokens, ar.new_tokens],
+           "spec_equals_ar": same, "launches": counts, "q4_shapes_kmn": sorted(q4_shapes),
+           "ok": same and spec.new_tokens >= 64 and counts["1b"] > 0 and counts["2"] > 0}
+    emit(row)
+    assert row["ok"], "mixtral_exact: quantized spec != AR"
+    del model, qmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
+    rows = [q4_case(dev, k, n, m, flush, prefix="mixtral_q4") for k, n, m in sorted(q4_shapes)]
+    torch.cuda.empty_cache()
+    return rows
+
+
+class _CountContinuations:
+    """Counts ``SpecModel``'s continuation prefills
+    (``loop.spec_prefill_continue``) while in use."""
+
+    def __enter__(self):
+        from vispec_tpu_torch.spec import spec_model
+
+        self.loop, self.calls = spec_model.spec_loop, 0
+        self.real = self.loop.spec_prefill_continue
+
+        def counted(*args, **kw):
+            self.calls += 1
+            return self.real(*args, **kw)
+
+        self.loop.spec_prefill_continue = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.spec_prefill_continue = self.real
+
+
+def phase_snapshot_exact(dev):
+    """Multi-turn snapshots at Vicuna-7B widths, 2 target layers, float32
+    with TF32 off, over a float32 and an int8 target cache: a 100-token
+    turn and 48 new tokens kept (``keep_hiddens``), then a second turn of 40
+    tokens continued from its snapshot and a third of 30 from the second's,
+    each equal to a full prefill of the whole conversation; then a 1,680-token
+    suffix whose bucket overflows max_len takes the full prefill (no
+    continuation), with the same tokens."""
+    for quantized in (False, True):
+        model = _full_width_model(dev, 2, torch.float32, seed=1, quantize_kv=quantized)
+        rng = np.random.default_rng(12)
+        r = model.specgenerate(rng.integers(3, 32000, 100).tolist(), max_new_tokens=48,
+                               keep_hiddens=True)
+        turns = []
+        for new in (40, 30, 1680):
+            ids = r.sequences.tolist() + rng.integers(3, 32000, new).tolist()
+            snap = model.last_snapshot
+            full = model.specgenerate(ids, max_new_tokens=48)
+            with _CountContinuations() as c:
+                r = model.specgenerate(ids, max_new_tokens=48, continue_from=snap,
+                                       keep_hiddens=True)
+            budget = min(48, model.max_len - len(ids) - model._cache_slack())
+            turns.append({"prompt": len(ids), "cut": snap.cut_for(ids),
+                          "continued": c.calls == 1, "equal": r.sequences.tolist()
+                          == full.sequences.tolist(), "new_tokens": r.new_tokens,
+                          "budget": budget})
+        row = {"phase": "snapshot_exact", "layers": 2, "dtype": "float32",
+               "cache": "int8" if quantized else "float32", "turns": turns,
+               "ok": (all(t["equal"] and t["new_tokens"] >= t["budget"] for t in turns)
+                      and [t["continued"] for t in turns] == [True, True, False])}
+        emit(row)
+        assert row["ok"], row
+        del model
+        torch.cuda.empty_cache()
+
+
+def _hf_text_state_dict(g, cfg, experts: int, dev):
+    """An HF-layout Llama (or, with ``experts``, Mixtral) state dict of
+    random bf16 tensors on the card (norms ones)."""
+    bf16 = torch.bfloat16
+    d, i, v = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
+    hkv = d // cfg["num_attention_heads"] * cfg["num_key_value_heads"]
+
+    def w(*shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=bf16).mul_(0.02)
+
+    sd = {"model.embed_tokens.weight": w(v, d), "lm_head.weight": w(v, d),
+          "model.norm.weight": torch.ones(d, dtype=bf16, device=dev)}
+    for li in range(cfg["num_hidden_layers"]):
+        p = f"model.layers.{li}."
+        sd.update({p + "input_layernorm.weight": torch.ones(d, dtype=bf16, device=dev),
+                   p + "post_attention_layernorm.weight": torch.ones(d, dtype=bf16,
+                                                                     device=dev),
+                   p + "self_attn.q_proj.weight": w(d, d), p + "self_attn.k_proj.weight":
+                   w(hkv, d), p + "self_attn.v_proj.weight": w(hkv, d),
+                   p + "self_attn.o_proj.weight": w(d, d)})
+        if not experts:
+            sd.update({p + "mlp.gate_proj.weight": w(i, d), p + "mlp.up_proj.weight": w(i, d),
+                       p + "mlp.down_proj.weight": w(d, i)})
+            continue
+        sd[p + "block_sparse_moe.gate.weight"] = w(experts, d)
+        for j in range(experts):
+            q = p + f"block_sparse_moe.experts.{j}."
+            sd.update({q + "w1.weight": w(i, d), q + "w2.weight": w(d, i),
+                       q + "w3.weight": w(i, d)})
+    return sd
+
+
+def _write_hf_checkpoint(path, sd, cfg, shards=1, fmt="safetensors"):
+    """``sd`` as an HF checkpoint directory: ``config.json`` and the
+    weights in ``shards`` files (with an index when more than one), as
+    safetensors (the port's writer) or ``pytorch_model.bin``.  Returns the
+    bytes written."""
+    from vispec_tpu_torch.convert.export import write_safetensors
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    keys = list(sd)
+    parts = [keys[i::shards] for i in range(shards)]
+    stem, ext = ("model", "safetensors") if fmt == "safetensors" else ("pytorch_model", "bin")
+    names = ([f"{stem}.{ext}"] if shards == 1 else
+             [f"{stem}-{i + 1:05d}-of-{shards:05d}.{ext}" for i in range(shards)])
+    for name, part in zip(names, parts):
+        if fmt == "safetensors":
+            write_safetensors({k: sd[k] for k in part}, os.path.join(path, name))
+        else:
+            torch.save({k: sd[k].cpu() for k in part}, os.path.join(path, name))
+    if shards > 1:
+        with open(os.path.join(path, f"{stem}.{ext}.index.json"), "w") as f:
+            json.dump({"weight_map": {k: n for n, part in zip(names, parts) for k in part}}, f)
+    return sum(os.path.getsize(os.path.join(path, n)) for n in names)
+
+
+def _same_tree(got: dict, want: dict, prefix=""):
+    """Names of the leaves of ``got`` that are not bit-equal to ``want``'s."""
+    bad = []
+    for k, v in want.items():
+        if isinstance(v, dict):
+            bad += _same_tree(got[k], v, prefix + k + "/")
+        elif not (got[k].dtype == v.dtype and torch.equal(got[k], v)):
+            bad.append(prefix + k)
+    return bad
+
+
+def phase_from_pretrained_device(dev):
+    """``SpecModel.from_pretrained(device="cuda")`` from checkpoints written
+    under build/ in the HF layout: a Llama at Vicuna-7B widths (2 layers,
+    bf16, two safetensors shards and an index; then the same as
+    ``pytorch_model.bin``), a Mixtral at 8x7B widths (2 layers, three
+    shards) and a ViSpec draft written by ``convert.export.save_draft``.
+    Every loaded tensor must be bit-equal to its source converted on the
+    card (``convert.hf`` / ``models.mixtral`` on the in-memory state dict),
+    a few are checked against the source directly, and the loaded model
+    decodes.  Reports the load seconds and GB/s (bytes on disk over the
+    load's wall time)."""
+    import shutil
+
+    from vispec_tpu_torch.configs import DraftConfig
+    from vispec_tpu_torch.convert import export, hf
+    from vispec_tpu_torch.models import draft, mixtral
+    from vispec_tpu_torch.spec.spec_model import SpecModel
+
+    root = os.path.join(ROOT, "build", "checkpoints")
+    shutil.rmtree(root, ignore_errors=True)
+    g = torch.Generator(device=dev).manual_seed(11)
+    bf16 = torch.bfloat16
+    llama_cfg = VICUNA_HF
+    mixtral_cfg = {"architectures": ["MixtralForCausalLM"], "model_type": "mixtral",
+                   "num_hidden_layers": 2, "eos_token_id": 2, **MIXTRAL}
+    dcfg = DraftConfig(**MIXTRAL_DRAFT)
+    dparams = draft.init_params(dcfg, g, dev, bf16)
+    ddir = os.path.join(root, "draft")
+    draft_json = {"vocab_size": dcfg.vocab_size, "hidden_size": dcfg.hidden_size,
+                  "intermediate_size": dcfg.intermediate_size, "num_hidden_layers": 1,
+                  "num_attention_heads": dcfg.num_attention_heads,
+                  "num_key_value_heads": dcfg.num_key_value_heads,
+                  "max_position_embeddings": dcfg.max_position_embeddings,
+                  "rms_norm_eps": dcfg.rms_norm_eps, "rope_theta": dcfg.rope_theta,
+                  "bias": True}
+    export.save_draft(dparams, ddir, draft_json)
+    draft_bytes = os.path.getsize(os.path.join(ddir, "model.safetensors"))
+    prompt = np.random.default_rng(13).integers(3, 32000, 60).tolist()
+    cases = (("llama_safetensors_2_shards", llama_cfg, 2, "safetensors"),
+             ("llama_pytorch_model_bin", llama_cfg, 1, "bin"),
+             ("mixtral_safetensors_3_shards", mixtral_cfg, 3, "safetensors"))
+    for name, cfg, shards, fmt in cases:
+        experts = cfg.get("num_local_experts", 0)
+        sd = _hf_text_state_dict(g, cfg, experts, dev)
+        tdir = os.path.join(root, name)
+        nbytes = _write_hf_checkpoint(tdir, sd, cfg, shards, fmt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = SpecModel.from_pretrained(tdir, ddir if experts else None, max_len=2048,
+                                          dtype=bf16, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        on_card = next(iter(model.tparams["layers"].values())).device.type == "cuda"
+        if experts:
+            tcfg = hf.mixtral_config_from_hf(cfg)
+            want = mixtral.convert_mixtral(sd, tcfg, bf16, device=dev)
+        else:
+            want = hf.convert_llama(sd, hf.llama_config_from_hf(cfg), bf16, device=dev)
+        bad = _same_tree(model.tparams, want)
+        lay = "model.layers.1."
+        direct = [torch.equal(model.tparams["embed"], sd["model.embed_tokens.weight"]),
+                  torch.equal(model.tparams["layers"]["wq"][1],
+                              sd[lay + "self_attn.q_proj.weight"].T),
+                  torch.equal(model.tparams["lm_head"], sd["lm_head.weight"].T)]
+        if experts:
+            i, last = tcfg.intermediate_size, experts - 1
+            e = lay + f"block_sparse_moe.experts.{last}."
+            direct += [torch.equal(model.tparams["layers"]["we_down"][1, last],
+                                   sd[e + "w2.weight"].T),
+                       torch.equal(model.tparams["layers"]["we_gate"][1][:, last * i:],
+                                   sd[e + "w1.weight"].T)]
+            bad += _same_tree(model.dparams, dparams, "draft/")
+            nbytes += draft_bytes
+        res = (model.specgenerate if experts else model.ar_generate)(prompt,
+                                                                     max_new_tokens=16)
+        row = {"phase": "from_pretrained_device", "case": name,
+               "architecture": cfg["architectures"][0],
+               "draft": "save_draft" if experts else None, "format": fmt, "shards": shards,
+               "gb_on_disk": nbytes / 1e9, "load_s": load_s, "load_gb_per_s":
+               nbytes / 1e9 / load_s, "on_card": on_card, "not_bit_equal": bad,
+               "direct_checks": direct, "new_tokens": res.new_tokens,
+               "ok": on_card and not bad and all(direct) and res.new_tokens >= 16}
+        emit(row)
+        assert row["ok"], row
+        del model, want, sd
+        shutil.rmtree(tdir)
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(root)
+
+
+def phase_mixtral_full_depth(dev):
+    """Mixtral-8x7B at 24 of its 32 layers in bfloat16 (8 experts, dense
+    over experts as in the JAX package), its draft at the same widths,
+    max_len 2048: a 128-token prompt, 128 new tokens by spec and by AR,
+    three runs each (median and range of tok/s); kernel 1a's launches
+    (3 + 28 per dispatched spec round: 24 target verifies, the draft
+    append, 3 expansion levels; 24 per AR step); peak memory; then one
+    16-token spec run under torch.profiler (device busy ms, idle share)."""
+    model = _mixtral_model(dev, MIXTRAL_LAYERS, torch.bfloat16, seed=0)
+    prompt = np.random.default_rng(0).integers(3, 32000, 128).tolist()
+    model.specgenerate(prompt, max_new_tokens=8)  # warm-up
+    model.ar_generate(prompt, max_new_tokens=8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    layers, depth = model.tcfg.num_hidden_layers, model.spec.depth
+    runs = {"spec": [], "ar": []}
+    launches_ok = True
+    for _ in range(3):
+        for label, gen in (("spec", model.specgenerate), ("ar", model.ar_generate)):
+            _zero_launch_counts()
+            res = gen(prompt, max_new_tokens=128)
+            got = _launch_counts()["1a"]
+            want = (depth + res.dispatched * (layers + 1 + depth) if label == "spec"
+                    else res.dispatched * layers)
+            launches_ok &= got == want and res.new_tokens >= 128
+            runs[label].append((res.new_tokens / res.decode_time, got, want, res))
+    spec, ar = runs["spec"][-1][3], runs["ar"][-1][3]
+    a, b = spec.sequences[128:], ar.sequences[128:]
+    n = min(len(a), len(b))
+    weights_gb = sum(t.numel() * t.element_size() for t in model.tparams["layers"].values()
+                     ) / 1e9
+    row = {"phase": "mixtral_full_depth", "layers": layers, "of_layers": 32,
+           "dtype": "bfloat16", "experts": model.tcfg.num_local_experts,
+           "max_len": model.max_len, "prompt": 128, "layer_weights_gb": weights_gb,
+           "spec_tok_per_s": float(np.median([r[0] for r in runs["spec"]])),
+           "spec_tok_per_s_range": [min(r[0] for r in runs["spec"]),
+                                    max(r[0] for r in runs["spec"])],
+           "ar_tok_per_s": float(np.median([r[0] for r in runs["ar"]])),
+           "ar_tok_per_s_range": [min(r[0] for r in runs["ar"]),
+                                  max(r[0] for r in runs["ar"])],
+           "rounds": spec.rounds, "dispatched_rounds": spec.dispatched,
+           "tau": float(np.mean([x + 1 for x in spec.acceptance_lengths])),
+           "launches_1a_spec": [r[1] for r in runs["spec"]],
+           "expected_spec": [r[2] for r in runs["spec"]],
+           "launches_1a_per_round": (runs["spec"][-1][1] - depth) / spec.dispatched,
+           "launches_ar": [r[1] for r in runs["ar"]], "expected_ar": [r[2] for r in runs["ar"]],
+           "agreeing_prefix": int(np.argmin(np.append(a[:n] == b[:n], False))),
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30, "ok": launches_ok}
+    emit(row)
+    assert row["ok"], row
+    emit({"phase": "profile_mixtral_spec_16_tokens",
+          **_profile(lambda: model.specgenerate(prompt, max_new_tokens=16))})
+    return model
+
+
+def phase_serving_mixtral_full_depth(dev, model):
+    """The engine over the 24-layer bfloat16 Mixtral: B = 4, pad buckets
+    (128, 256, 512), 8 requests from seed 0 (prompts of 64-448, caps of
+    64-128).  All complete with no failed request; requires 28 launches of
+    1c per dispatched round (24 target verifies, the draft append, 3
+    expansion levels) and 3 of 1a per prefill."""
+    reqs = _serving_requests(8)
+    model.serving_engine(batch_size=4, pad_bucket=(128, 256, 512)).run_all(
+        [{"input_ids": reqs[0][0], "max_new_tokens": 4}])  # warm-up
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launch_counts()
+    eng, outs, latency, wall = _serve(model, reqs, chunk_rounds=8)
+    counts = _launch_counts()
+    rounds, prefills = eng.stats["rounds"], eng._n_prefills
+    depth = model.spec.depth
+    want = {"1a": depth * prefills, "1b": 0,
+            "1c": (model.tcfg.num_hidden_layers + 1 + depth) * rounds, "1c_int8": 0, "2": 0}
+    tokens = sum(len(o) for o in outs)
+    row = {"phase": "serving_mixtral_full_depth", "layers": model.tcfg.num_hidden_layers,
+           "dtype": "bfloat16", "max_len": model.max_len, "batch_size": 4,
+           "requests": len(reqs), "prompt_lens": [len(p) for p, _ in reqs],
+           "caps": [c for _, c in reqs], "tokens": tokens, "wall_s": wall,
+           "tok_per_s": tokens / wall, "latency_p50_s": float(np.median(latency)),
+           "latency_max_s": max(latency), "rounds_dispatched": rounds, "prefills": prefills,
+           "launches": counts, "expected": want,
+           "launches_1c_per_round": counts["1c"] / rounds, "errors": dict(eng.errors),
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30}
+    row["ok"] = (counts == want and not eng.errors
+                 and all(_complete(o, c, model) for o, (_, c) in zip(outs, reqs)))
+    emit(row)
+    assert row["ok"], row
+    del eng
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_snapshot_full_depth(dev, model):
+    """Vicuna-7B at 32 layers in bfloat16: a 1,024-token turn and 128 new
+    tokens kept as a snapshot, then a 64-token turn.  The continuation
+    prefill (the snapshot's rows copied in, the suffix through the target,
+    the draft's boundary row) against the full prefill of the whole
+    conversation: medians (and ranges) of 10 calls each, CUDA events; then
+    both decode 32 tokens and their agreeing prefix is reported (bf16
+    argmax near-ties: not required)."""
+    from vispec_tpu_torch.ops import kv_cache as kv
+    from vispec_tpu_torch.spec import loop
+    from vispec_tpu_torch.spec.spec_model import _bucket, output_rows, plan_prompt
+
+    rng = np.random.default_rng(14)
+    r1 = model.specgenerate(rng.integers(3, 32000, 1024).tolist(), max_new_tokens=128,
+                            keep_hiddens=True)
+    snap = model.last_snapshot
+    ids = r1.sequences.tolist() + rng.integers(3, 32000, 64).tolist()
+    plen, pad, max_out = snap.cut_for(ids), _bucket(len(ids)), output_rows(model.spec, 128)
+    sampling = loop.SamplingParams()
+
+    def continuation():
+        return model._prefill_from_snapshot(snap, ids, plen, sampling, None, max_out)
+
+    def full():
+        prompt = model._padded_prompt(ids, pad)
+        plan, span = plan_prompt(model.dcfg, prompt.shifted, prompt.n_spans, len(ids), pad,
+                                 dev)
+        return loop.spec_prefill(model.tparams, model.dparams, model.tcfg, model.dcfg,
+                                 model.spec, plan, sampling, prompt.embeds,
+                                 kv.reset(model.target_cache), kv.reset(model.draft_cache),
+                                 max_out, span)
+
+    with torch.no_grad():
+        _, cont_ms, cont_range = _median_cuda_ms(continuation)
+        _, full_ms, full_range = _median_cuda_ms(full)
+    with _CountContinuations() as c:
+        cont = model.specgenerate(ids, max_new_tokens=32, continue_from=snap)
+    whole = model.specgenerate(ids, max_new_tokens=32)
+    a, b = cont.sequences[len(ids):], whole.sequences[len(ids):]
+    n = min(len(a), len(b))
+    snap_gb = sum(t.numel() * t.element_size() for t in (snap.t_k, snap.t_v, snap.d_k,
+                                                          snap.d_v)) / 1e9
+    row = {"phase": "snapshot_full_depth", "layers": model.tcfg.num_hidden_layers,
+           "dtype": "bfloat16", "conversation": len(ids), "cut": plen,
+           "suffix": len(ids) - plen, "pad_len": pad, "snapshot_gb": snap_gb,
+           "continuation_prefill_ms": cont_ms, "continuation_prefill_ms_range": cont_range,
+           "full_prefill_ms": full_ms, "full_prefill_ms_range": full_range,
+           "full_over_continuation": full_ms / cont_ms, "continued": c.calls == 1,
+           "new_tokens": [cont.new_tokens, whole.new_tokens],
+           "agreeing_prefix": int(np.argmin(np.append(a[:n] == b[:n], False)))}
+    row["ok"] = row["continued"] and cont.new_tokens >= 32
+    emit(row)
+    assert row["ok"], row
+    model.last_snapshot = None
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_autotune_full_depth(dev, model, name):
+    """``autotune_total_token`` on a full-depth model: 20 target forwards
+    at each candidate width (40, 48, 50, 56, 60) from a reset cache, timed
+    by CUDA events; ms per forward and the weighted score of each, and the
+    pick.  The model's ``spec`` is restored after."""
+    spec, iters = model.spec, 20
+    weights = dict(zip((40, 48, 50, 56, 60), (1.0, 1.05, 1.07, 1.1, 1.13)))
+    pick = model.autotune_total_token(iters=iters)
+    scores = model.last_autotune_s
+    model.spec = spec
+    row = {"phase": "autotune_full_depth", "model": name,
+           "layers": model.tcfg.num_hidden_layers, "dtype": "bfloat16",
+           "ms_per_forward": {c: t * weights[c] / iters * 1e3 for c, t in scores.items()},
+           "weighted_ms": {c: t / iters * 1e3 for c, t in scores.items()}, "pick": pick,
+           "ok": pick in weights}
+    emit(row)
+    assert row["ok"], row
+    return row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU port only",
@@ -2398,6 +2929,9 @@ def main():
     phase_llava_exact(dev)
     phase_qwen_vision_tower_device(dev)
     rows_q4 += phase_qwen_exact(dev)
+    rows_q4 += phase_mixtral_exact(dev)
+    phase_snapshot_exact(dev)
+    phase_from_pretrained_device(dev)
     model, prompt, bf16_row = phase_full_width_depth(dev)
     serving_row = phase_serving_full_depth(dev, model)
     med = phase_sampling_full_depth(dev, model, prompt)
@@ -2405,6 +2939,8 @@ def main():
     del med
     gc.collect()
     torch.cuda.empty_cache()
+    phase_snapshot_full_depth(dev, model)
+    phase_autotune_full_depth(dev, model, "vicuna-7b")
     quant_counts, qmodel = phase_quant_full_depth(dev, model, prompt, bf16_row)
     serving_quant_counts = phase_serving_quant_full_depth(dev, qmodel)
     del model, qmodel  # the 7B text weights, quantized in place, make room
@@ -2420,6 +2956,12 @@ def main():
     phase_qwen_full_depth(dev, qwen)
     phase_serving_qwen_full_depth(dev, qwen)
     del qwen
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixtral = phase_mixtral_full_depth(dev)
+    phase_serving_mixtral_full_depth(dev, mixtral)
+    phase_autotune_full_depth(dev, mixtral, f"mixtral-8x7b-{MIXTRAL_LAYERS}-layers")
+    del mixtral
 
     def entry(name, source, replaces, launches, case_rows, main_row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -1,6 +1,6 @@
 """The port stands alone: no file of vispec_tpu_torch/, and not chip_smoke.py,
-imports jax or vispec_tpu; importing the package loads neither; its entry
-points default to the GPU."""
+imports jax, vispec_tpu or safetensors; importing the package loads none of
+them; its entry points default to the GPU."""
 
 import ast
 import inspect
@@ -13,7 +13,9 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "vispec_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "vispec_tpu")
+# the card's machine has no safetensors package: the port reads and writes
+# the format itself (convert/hf.py, convert/export.py)
+FORBIDDEN = ("jax", "jaxlib", "vispec_tpu", "safetensors")
 
 
 def _imported_modules(path):
@@ -45,8 +47,9 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_entry_points_default_to_the_gpu():
+    from vispec_tpu_torch.convert import hf
     from vispec_tpu_torch.convert.params import from_numpy
-    from vispec_tpu_torch.models import clip_vit, draft, llama, llava, medusa
+    from vispec_tpu_torch.models import clip_vit, draft, llama, llava, medusa, mixtral
     from vispec_tpu_torch.models import qwen2_5_vl
     from vispec_tpu_torch.ops import rng, static_tree
     from vispec_tpu_torch.ops.kv_cache import init_cache
@@ -58,6 +61,8 @@ def test_entry_points_default_to_the_gpu():
                clip_vit.init_params, llava.init_projector_params, qwen2_5_vl.init_params,
                batch.batched_prefill, batch.prepare_requests, batch.generate_batch,
                medusa.init_params, medusa.convert_medusa, static_tree.from_choices,
-               rng.key, rng.keys):
+               rng.key, rng.keys, SpecModel.from_pretrained, mixtral.init_params,
+               mixtral.convert_mixtral, hf.convert_llama, hf.convert_draft,
+               hf.convert_clip_and_projector, hf.convert_qwen_vision):
         default = inspect.signature(fn).parameters["device"].default
         assert torch.device(default).type == "cuda", fn.__qualname__

@@ -5,9 +5,18 @@ Qwen2.5-VL variant of that target (M-RoPE, qkv bias) with a toy windowed
 ViT, and the CPU device.  Both sides run in float32 on the CPU unless a test says
 otherwise."""
 
+import functools
+import inspect
+import os
+import subprocess
+import sys
+import tempfile
+import xml.etree.ElementTree as ET
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from vispec_tpu.configs import DraftConfig as JDraftConfig
@@ -178,3 +187,91 @@ def qwen_models(seed=0):
     return (jtc, jdc, jvc, tconfigs.LlamaConfig(**QWEN_TARGET),
             tconfigs.DraftConfig(**QWEN_DRAFT), tqwen.QwenVisionConfig(**QWEN_VISION),
             jt, jd, jv, tt, td, from_numpy(to_numpy_tree(jv), CPU))
+
+
+# Mixtral: tests/test_mixtral.py's MoE geometry (4 experts, top-2) over the
+# vocabulary and draft above.  The router is 20x the initializer's and the
+# experts and wq / wk 5x, so that routing differs from token to token and
+# the tokens do not settle into one repeated id.
+MIXTRAL_TARGET = dict(GEOMETRY["target"], num_hidden_layers=2, intermediate_size=96,
+                      num_local_experts=4, num_experts_per_tok=2)
+
+
+def mixtral_models(seed=0):
+    """(JAX config, port config, JAX tparams, JAX dparams, port tparams, port
+    dparams), float32; the draft shares the target's embedding."""
+    from vispec_tpu.models import mixtral as jmixtral
+    from vispec_tpu_torch.models import mixtral as tmixtral
+
+    jcfg = jmixtral.MixtralConfig(**MIXTRAL_TARGET)
+    k1, k2 = jax.random.split(jax.random.PRNGKey(seed))
+    jt = jmixtral.init_params(jcfg, k1, jnp.float32)
+    for name, scale in (("router", 20), ("we_gate", 5), ("we_up", 5), ("we_down", 5),
+                        ("wq", 5), ("wk", 5)):
+        jt["layers"][name] = jt["layers"][name] * scale
+    jd = jdraft.init_params(J_DCFG, k2, jnp.float32)
+    jd["embed"] = jt["embed"]
+    tt = from_numpy(to_numpy_tree(jt), CPU)
+    td = from_numpy(to_numpy_tree(jd), CPU)
+    td["embed"] = tt["embed"]
+    return jcfg, tmixtral.MixtralConfig(**MIXTRAL_TARGET), jt, jd, tt, td
+
+
+# Running a test module in a fresh interpreter.  This jax build's XLA:CPU
+# compiler segfaults after enough fresh compiles in one process (pytest.ini,
+# tests/test_vlm_ingestion.subprocess_isolated), so a module whose tests
+# compile many JAX graphs keeps them out of the worker that runs the suite:
+# the worker runs the whole module once in a child pytest process, and each
+# test reports its own outcome from that run.
+_CHILD = "VISPEC_TORCH_PARITY_CHILD"
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@functools.lru_cache(maxsize=None)
+def _child_run(path: str):
+    """({test name: None if passed, else the failure text}, the run's log
+    tail) of the test module at ``path`` run by a child pytest process."""
+    with tempfile.TemporaryDirectory() as tmp:
+        report = os.path.join(tmp, "report.xml")
+        proc = subprocess.run(
+            [sys.executable, "-m", "pytest", path, "-q", "-n", "0", "-p", "no:cacheprovider",
+             "-p", "no:randomly", f"--junitxml={report}"],
+            env={**os.environ, _CHILD: "1"}, cwd=_ROOT, capture_output=True, text=True,
+            timeout=1200)
+        results = {}
+        if os.path.exists(report):
+            for case in ET.parse(report).iter("testcase"):
+                bad = [e for e in case if e.tag in ("failure", "error", "skipped")]
+                results[case.get("name")] = (None if not bad else
+                                             f"{bad[0].tag}: {bad[0].get('message')}\n"
+                                             f"{bad[0].text or ''}")
+    return results, (proc.stdout[-3000:] + proc.stderr[-2000:])
+
+
+def in_fresh_interpreter(test):
+    """Run ``test`` in the child pytest process of its module (see above);
+    the decorator goes above ``pytest.mark.parametrize``.  In the child
+    process the test runs as it is."""
+    if os.environ.get(_CHILD) == "1":
+        return test
+    marks = getattr(test, "pytestmark", [])
+    names = []
+    for mark in marks:
+        if mark.name == "parametrize":
+            arg = mark.args[0]
+            names += [a.strip() for a in (arg.split(",") if isinstance(arg, str) else arg)]
+    path = inspect.getfile(test)
+
+    def reported(**_params):
+        name = os.environ["PYTEST_CURRENT_TEST"].split("::", 1)[1].rsplit(" (", 1)[0]
+        results, log = _child_run(path)
+        if name not in results:
+            pytest.fail(f"{name}: no result from the child run of {path}\n{log}")
+        if results[name] is not None:
+            pytest.fail(results[name], pytrace=False)
+
+    reported.__name__, reported.__doc__ = test.__name__, test.__doc__
+    reported.__signature__ = inspect.Signature(
+        [inspect.Parameter(n, inspect.Parameter.KEYWORD_ONLY) for n in names])
+    reported.pytestmark = marks
+    return reported

@@ -8,7 +8,10 @@ leaf by leaf with ``numpy.asarray``) or the ``t/...`` and
 ``d/...`` keys of an ``.npz`` file such as ``tests/data/tau_fixture.npz``.
 Layouts are unchanged: ``[in, out]`` matrices, layer-stacked ``[L, ...]``.
 Quantized leaves (the JAX ``QTensor`` / ``Q4Tensor`` NamedTuples of arrays)
-cross field by field into the port's ``ops.quant`` containers.
+cross field by field into the port's ``ops.quant`` containers.  A JAX
+Mixtral tree (``router``, ``we_gate``, ``we_up``, ``we_down``) carries
+across with its expert gate and up weights laid out as ``models/mixtral.py``
+holds them.
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ from ..ops.quant import Q4Tensor, QTensor
 
 # NamedTuple field names -> the port's container for them
 _QUANT_LEAVES = {("q", "s"): QTensor, ("packed", "s"): Q4Tensor}
+# Mixtral's expert gate and up weights (models/mixtral.py lays them out as
+# one [hidden, E * inter] matrix a layer)
+_EXPERT_IN = ("we_gate", "we_up")
 
 
 def _keeps_float32(key: str) -> bool:
@@ -70,6 +76,9 @@ def from_numpy(tree: Mapping, device="cuda", dtype: Optional[torch.dtype] = None
         t = _tensor(key, leaf)
         if dtype is not None and t.is_floating_point():
             t = t.to(torch.float32 if _keeps_float32(key) else dtype)
+        if key in _EXPERT_IN and t.dim() == 4:
+            # Mixtral's [L, E, hidden, inter] -> the port's [L, hidden, E * inter]
+            t = t.permute(0, 2, 1, 3).reshape(t.shape[0], t.shape[2], -1)
         out[key] = t.to(device)
     return out
 

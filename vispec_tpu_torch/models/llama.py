@@ -105,6 +105,7 @@ def forward_hidden(
     return_new_kv: bool = False,
     seq_len=None,  # real kv length [B?] (dynamic-NTK stretch; None => from positions)
     mrope_ids: bool = False,  # position_ids are 3-row M-RoPE ids (Qwen2.5-VL)
+    mlp=None,  # (normed, layer params) -> the MLP's output; None: the SwiGLU MLP
 ):
     """Run the decoder stack; returns (final-normed hidden [B?, S, hidden],
     cache with the new block written at cache.length — call
@@ -118,7 +119,10 @@ def forward_hidden(
     request (``[B, 3, S]`` for slot-stacked inputs), folded by
     ``mrope_section``.  The caller says which kind it passes: the shape
     cannot tell, since batched ids ``[B, S]`` at B = 3 look like one
-    request's ``[3, S]`` M-RoPE ids."""
+    request's ``[3, S]`` M-RoPE ids.
+
+    ``mlp`` replaces the dense SwiGLU MLP of each layer (Mixtral's expert
+    block, ``models/mixtral.py``); the attention half is shared."""
     if mrope_ids:
         if cfg.mrope_section is None:
             raise ValueError("mrope_ids given to a config without mrope_section")
@@ -170,7 +174,10 @@ def forward_hidden(
         out = out.transpose(-3, -2).reshape(*lead, s, h * d)
         hidden = residual + qdot(out, lp["wo"]).to(normed.dtype)
         normed = rms_norm(hidden, lp["post_norm"], cfg.rms_norm_eps)
-        hidden = hidden + swiglu_mlp(normed, lp["w_gate"], lp["w_up"], lp["w_down"])
+        if mlp is None:
+            hidden = hidden + swiglu_mlp(normed, lp["w_gate"], lp["w_up"], lp["w_down"])
+        else:
+            hidden = hidden + mlp(normed, lp)
         if return_new_kv:
             new_k.append(k_new)
             new_v.append(v_new)

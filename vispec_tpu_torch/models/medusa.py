@@ -11,7 +11,6 @@ dim (the batched round).
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -86,13 +85,12 @@ def init_params(hidden_size: int, device="cuda", dtype=torch.bfloat16) -> dict:
 
 
 def convert_medusa(sd, dtype=torch.bfloat16, device="cuda") -> dict:
-    """An HF Medusa state dict of numpy arrays (``medusa_head.{i}.0.linear.*``,
-    torch's ``[out, in]`` layout) -> the heads in the ``[in, out]`` layout."""
-    w = np.stack([np.asarray(sd[f"medusa_head.{i}.0.linear.weight"]).T
-                  for i in range(NUM_HEADS)])
-    b = np.stack([np.asarray(sd[f"medusa_head.{i}.0.linear.bias"])
-                  for i in range(NUM_HEADS)])
-    return {"heads_w": torch.as_tensor(np.ascontiguousarray(w), dtype=torch.float32
-                                       ).to(device=device, dtype=dtype),
-            "heads_b": torch.as_tensor(b, dtype=torch.float32).to(device=device,
-                                                                  dtype=dtype)}
+    """An HF Medusa state dict (``medusa_head.{i}.0.linear.*``, torch's
+    ``[out, in]`` layout; numpy arrays or tensors) -> the heads in the
+    ``[in, out]`` layout."""
+    def stacked(name, transpose):
+        ts = [torch.as_tensor(sd[f"medusa_head.{i}.0.linear.{name}"]).to(device)
+              for i in range(NUM_HEADS)]
+        return torch.stack([t.T if transpose else t for t in ts]).to(dtype).contiguous()
+
+    return {"heads_w": stacked("weight", True), "heads_b": stacked("bias", False)}

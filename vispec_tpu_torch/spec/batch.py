@@ -52,11 +52,11 @@ def batched_prefill(
     max_len: int,
     max_out: int,
     dtype=torch.bfloat16,
+    seed: int = 0,
     cache_pool: Optional[List] = None,
+    mparams: Optional[dict] = None,  # Medusa heads: medusa_prefill, no draft cache
     quantize_kv: bool = False,  # int8 target caches (kv_cache.init_cache)
     device="cuda",
-    seed: int = 0,
-    mparams: Optional[dict] = None,  # Medusa heads: medusa_prefill, no draft cache
 ) -> spec_loop.SpecState:
     """Prefill each request into its slot and return the slot-stacked state.
 
@@ -314,11 +314,11 @@ def generate_batch(
     top_p: float = 0.0,
     top_k: int = 0,
     dtype=torch.bfloat16,
+    seed: int = 0,
     chunk_rounds: int = 8,
     cache_pool: Optional[List] = None,
     quantize_kv: bool = False,
     device="cuda",
-    seed: int = 0,
 ) -> List[np.ndarray]:
     """Decode a batch of text prompts to completion; returns generated ids per
     request (request i sampled from the key of ``seed + i`` at T > 0)."""
@@ -334,8 +334,8 @@ def generate_batch(
                          f"prompt {longest}, slack {slack}")
     with torch.no_grad():
         states = batched_prefill(tparams, dparams, tcfg, dcfg, spec, sampling, requests,
-                                 max_len, max_out, dtype, cache_pool=cache_pool,
-                                 quantize_kv=quantize_kv, device=device, seed=seed)
+                                 max_len, max_out, dtype, seed, cache_pool=cache_pool,
+                                 quantize_kv=quantize_kv, device=device)
         states, _, _ = drain_batch(tparams, dparams, tcfg, dcfg, spec, sampling, states,
                                    budget, eos_id, chunk_rounds)
     return finished_outputs(states, eos_id)

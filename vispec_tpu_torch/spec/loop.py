@@ -35,6 +35,7 @@ from ..configs import DraftConfig, LlamaConfig, SpecConfig
 from ..models import draft as draft_mod
 from ..models import llama
 from ..models import medusa as medusa_mod
+from ..models import mixtral
 from ..ops import kv_cache as kv
 from ..ops import rng
 from ..ops.attention import causal_mask
@@ -46,12 +47,12 @@ from ..ops.tree import Tree, greedy_accept, path_to_root, sampling_accept
 
 def target_forward(tparams, tcfg, embeds, pos, cache, mask, region=None,
                    return_new_kv=False, seq_len=None, mrope_ids=False):
-    """The target backbone's forward (dense Llama or a Qwen2.5-VL text
-    backbone; Mixtral waits for its slice)."""
-    if "router" in tparams["layers"]:
-        raise NotImplementedError("MoE targets are not ported yet")
-    return llama.forward_hidden(tparams, tcfg, embeds, pos, cache, mask, region,
-                                return_new_kv, seq_len=seq_len, mrope_ids=mrope_ids)
+    """The target backbone's forward: a Mixtral MoE stack when the layers
+    hold a ``router``, else the dense Llama (or Qwen2.5-VL text) stack."""
+    forward = (mixtral.forward_hidden if "router" in tparams["layers"]
+               else llama.forward_hidden)
+    return forward(tparams, tcfg, embeds, pos, cache, mask, region, return_new_kv,
+                   seq_len=seq_len, mrope_ids=mrope_ids)
 
 
 class SpecState(NamedTuple):
@@ -76,6 +77,10 @@ class SpecState(NamedTuple):
     rope_delta: Optional[torch.Tensor] = None  # [] int32 M-RoPE offset of a
     # Qwen2.5-VL target (negative after an image): decode positions are the
     # cache row + rope_delta; None on a target without mrope_section
+    hiddens: Optional[torch.Tensor] = None  # [max_out, hidden] the target's
+    # verify hidden of each committed token, indexed like ``output``
+    # (keep_hiddens: a finished generation becomes a ConversationSnapshot);
+    # None otherwise, and always in the batched layout
 
 
 def _map_leaf(fn, *xs):
@@ -224,12 +229,14 @@ def spec_prefill(
     seen: Optional[torch.Tensor] = None,  # [vocab+1] bool prompt-token mask
     samp: Optional[torch.Tensor] = None,  # [4] f32 per-request knobs
     rope: Optional[PromptRope] = None,  # a Qwen2.5-VL vision prompt's positions
+    keep_hiddens: bool = False,  # record the committed tokens' verify hiddens
 ) -> SpecState:
     """Target prompt prefill, first token (the greedy argmax or a draw from
     a key split off ``key``), draft prefill + first tree.  A Qwen2.5-VL
     target's state carries ``rope_delta``, which shifts every later
     position (never the cache rows); the draft keeps its row positions, as
-    in the JAX package."""
+    in the JAX package.  ``keep_hiddens`` gives the state a ``hiddens``
+    buffer that each round fills."""
     _need_key(key, sampling)
     pad_len = inputs_embeds.shape[0]
     device = inputs_embeds.device
@@ -272,7 +279,15 @@ def spec_prefill(
         done=zero(torch.bool),
         fuse_b=b_eff,
         key=key, seen=seen, samp=samp, rope_delta=rope_delta,
+        hiddens=_hiddens_buffer(keep_hiddens, max_out, hidden),
     )
+
+
+def _hiddens_buffer(keep: bool, max_out: int, hidden: torch.Tensor):
+    """The state's ``hiddens`` buffer, in the target hidden's dtype, or None."""
+    if not keep:
+        return None
+    return hidden.new_zeros((max_out, hidden.shape[-1]))
 
 
 # ---------------------------------------------------------------------------
@@ -355,6 +370,7 @@ def spec_prefill_continue(
     key: Optional[torch.Tensor] = None,
     seen: Optional[torch.Tensor] = None,
     samp: Optional[torch.Tensor] = None,
+    keep_hiddens: bool = False,
 ) -> SpecState:
     """``spec_prefill`` for ``prefix + suffix`` that only computes the
     suffix: the snapshot's KV rows are copied into the caches, the target
@@ -421,7 +437,8 @@ def spec_prefill_continue(
         output=torch.zeros((max_out,), dtype=torch.int32, device=device),
         out_len=zero(torch.int32), new_token=zero(torch.int32),
         done=zero(torch.bool), fuse_b=b_eff, key=key, seen=seen, samp=samp,
-        rope_delta=rope_offset(tcfg, None, device))
+        rope_delta=rope_offset(tcfg, None, device),
+        hiddens=_hiddens_buffer(keep_hiddens, max_out, hidden_s))
 
 
 # ---------------------------------------------------------------------------
@@ -511,6 +528,10 @@ def decode_round(
 
     tree = state.tree
     accept_hidden = take_rows(hidden, -2, path)  # [B?, max_path, hidden]
+    if state.hiddens is not None:
+        # the committed tokens' verify hiddens at their output rows (rows
+        # past acc are overwritten by the next live round, as in ``output``)
+        kv.write_rows(state.hiddens, -2, state.out_len, accept_hidden)
     nxt = take_rows(tree.tokens, -1, path)
     # row j pairs hidden[path[j]] with token[path[j+1]]; the last valid row
     # (and the padding after it) takes the bonus token

@@ -86,12 +86,12 @@ class ServingEngine:
         pad_bucket=None,  # int, or a sequence of bucket sizes: each admission
         # pads to the smallest bucket that fits its prompt
         chunk_rounds: int = 8,
+        seed: int = 0,  # admission n draws from the key of seed + n
         max_images: int = 4,  # image-span plan buckets, fixed for the engine
         max_span: int = 64,
         prefix_ids: Optional[Sequence[int]] = None,  # shared TEXT prefix
         suffix_bucket: int = 128,  # pad bucket for prefix-cached suffixes
         per_request_sampling: bool = False,  # per-slot knobs from submit()
-        seed: int = 0,  # admission n draws from the key of seed + n
     ):
         if model.mparams is not None and prefix_ids is not None:
             raise NotImplementedError(

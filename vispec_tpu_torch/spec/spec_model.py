@@ -28,6 +28,9 @@ waits on the device once per round.
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 import time
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Sequence, Tuple
@@ -37,11 +40,12 @@ import torch
 
 from ..configs import DraftConfig, LlamaConfig, SpecConfig
 from ..models import draft as draft_mod
-from ..models import llama, llava
-from ..models import medusa
+from ..models import clip_vit, llama, llava
+from ..models import medusa, mixtral
 from ..models import qwen2_5_vl as qwen_vl
 from ..ops import kv_cache as kv
 from ..ops import rng
+from ..ops.attention import causal_mask
 from ..ops.quant import quantize_draft_params, quantize_target_params
 from ..ops.sampling import seen_mask
 from . import loop as spec_loop
@@ -49,6 +53,10 @@ from . import loop as spec_loop
 
 def _bucket(n: int, step: int = 128) -> int:
     return max(step, ((n + step - 1) // step) * step)
+
+
+def _first(x):
+    return x[0] if isinstance(x, list) else x
 
 
 def padded_text_embeds(tparams: dict, input_ids, pad_len: int, device) -> torch.Tensor:
@@ -133,6 +141,36 @@ class _Readback:
         return self.host.tolist()
 
 
+class ConversationSnapshot:
+    """What a finished text generation leaves for the next turn of its
+    conversation (``specgenerate(keep_hiddens=True)``): copies of the
+    committed target and draft cache rows (and the int8 cache's row scales),
+    the target's verify hidden of every generated token, and the committed
+    ids.  ``specgenerate(..., continue_from=snap)`` with a prompt that
+    extends a committed prefix reuses those rows and prefills only the
+    suffix."""
+
+    def __init__(self, t_k, t_v, d_k, d_v, hiddens, seq, prompt_len, t_ks=None,
+                 t_vs=None):
+        self.t_k, self.t_v, self.d_k, self.d_v = t_k, t_v, d_k, d_v
+        self.t_ks, self.t_vs = t_ks, t_vs  # int8-cache row scales, or None
+        self.hiddens = hiddens  # [max_out, hidden], indexed like the output
+        self.seq = np.asarray(seq)  # committed ids: prompt + trimmed output
+        self.prompt_len = int(prompt_len)
+
+    def cut_for(self, input_ids) -> Optional[int]:
+        """The longest reusable committed prefix of ``input_ids``, or None.
+        A cut lies past the original prompt (hiddens exist only for
+        generated tokens) and leaves at least one suffix token."""
+        ids = np.asarray(input_ids)
+        m = min(len(self.seq), len(ids) - 1)
+        if m <= self.prompt_len:
+            return None
+        neq = np.nonzero(ids[:m] != self.seq[:m])[0]
+        plen = int(neq[0]) if neq.size else m
+        return plen if plen > self.prompt_len else None
+
+
 class SpecModel:
     """Target + draft pair with a preallocated KV runtime; with ``llava_cfg``
     and ``vparams`` (``{"vision": clip_vit params, **projector params}``) it
@@ -149,20 +187,20 @@ class SpecModel:
         dparams: dict,
         max_len: int = 2048,
         dtype=torch.bfloat16,
-        eos_token_id: int = 2,
-        device="cuda",
-        quantize_draft=False,  # False | True/"int8" | "int4" | "int4_head" | "mixed" | "auto"
-        quantize_kv: bool = False,  # int8 target KV cache with per-row scales
         llava_cfg: Optional[llava.LlavaConfig] = None,
         vparams: Optional[dict] = None,
+        eos_token_id: int = 2,
         image_token_index: Optional[int] = None,
-        mparams: Optional[dict] = None,  # Medusa heads => the Medusa decode path
         qwen_cfg: Optional[qwen_vl.QwenVisionConfig] = None,
         vision_start_token_id: int = 151652,
         video_token_index: Optional[int] = None,
+        mparams: Optional[dict] = None,  # Medusa heads => the Medusa decode path
         min_pixels: int = 256 * 28 * 28,  # the Qwen image budget (HF processor's)
         max_pixels: int = 1280 * 28 * 28,
         video_max_pixels: int = 768 * 28 * 28,  # per-frame budget of a video
+        quantize_draft=False,  # False | True/"int8" | "int4" | "int4_head" | "mixed" | "auto"
+        quantize_kv: bool = False,  # int8 target KV cache with per-row scales
+        device="cuda",
     ):
         if max_len % 128 != 0:
             raise ValueError(
@@ -193,6 +231,8 @@ class SpecModel:
         self.eos_token_id = eos_token_id
         self.device = torch.device(device)
         self.chunk_rounds = 8  # device-side rounds per host read
+        self.last_snapshot: Optional[ConversationSnapshot] = None  # keep_hiddens
+        self.last_autotune_s: Optional[dict] = None  # autotune_total_token's times
         # the caches are allocated at first use: at 7B/2048 the target cache
         # alone is 1 GB in bf16
         self._target_cache: Optional[kv.KVCache] = None
@@ -268,6 +308,197 @@ class SpecModel:
         accepted-append block."""
         draft_scratch = self.spec.depth * self.spec.top_k + self.spec.depth + 2
         return max(self.spec.total_tokens, draft_scratch) + 10
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_pretrained(
+        cls,
+        base_model_path: str,
+        spec_model_path: Optional[str],
+        total_token: int = 30,
+        depth: int = 3,
+        top_k: int = 8,
+        threshold: float = 1.0,
+        num_q: int = 2,
+        max_len: int = 2048,
+        dtype=torch.bfloat16,
+        method: str = "vispec",  # "vispec" | "eagle" | "medusa"
+        min_pixels: int = 256 * 28 * 28,
+        max_pixels: int = 1280 * 28 * 28,
+        video_max_pixels: int = 768 * 28 * 28,
+        quantize_draft=False,  # False | True/"int8" | "int4" | "int4_head" | "mixed" | "auto"
+        quantize_kv: bool = False,
+        mesh=None,  # multi-device placement: not in the port yet
+        pp: bool = False,
+        sp: bool = False,
+        device="cuda",
+    ) -> "SpecModel":
+        """Load an HF checkpoint directory (``config.json`` and its
+        safetensors or ``.bin`` weights, ``convert/hf.py``) as the target, and
+        ``spec_model_path`` as the drafter: a ViSpec draft (``method``
+        "vispec"), the same without its image adaptor ("eagle") or Medusa
+        heads ("medusa"); None builds a target-only model with a stub draft.
+        Targets: ``LlamaForCausalLM``, ``Qwen2ForCausalLM``,
+        ``MixtralForCausalLM``, ``Llava(Next)ForConditionalGeneration`` (its
+        text model at 8,192 positions, as the reference forces) and
+        ``Qwen2_5_VLForConditionalGeneration``.  Weights land on ``device``
+        in ``dtype`` tensor by tensor.  ``total_token=-1`` picks the verify
+        tree's width with ``autotune_total_token``.  ``threshold`` is
+        accepted and unused, as in the reference.  ``mesh`` (with ``pp`` /
+        ``sp``) is refused: multi-device placement is not ported yet."""
+        del threshold, pp, sp
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh: multi-device placement (shard_over) is not in the port yet "
+                "(ROADMAP Queue 1 item 21, parallelism)")
+        from ..convert import hf
+
+        with open(os.path.join(base_model_path, "config.json")) as f:
+            hf_cfg = json.load(f)
+        arch = hf_cfg["architectures"][0]
+        autotune = total_token == -1
+        # the largest candidate sizes the cache slack until the autotune runs
+        spec_cfg = SpecConfig(total_tokens=60 if autotune else total_token, depth=depth,
+                              top_k=top_k)
+        kw = dict(max_len=max_len, dtype=dtype, quantize_draft=quantize_draft,
+                  quantize_kv=quantize_kv, device=device,
+                  eos_token_id=_first(hf_cfg.get("eos_token_id", 2)))
+        sd = hf.load_state_dict(base_model_path)
+        if arch in ("LlavaForConditionalGeneration", "LlavaNextForConditionalGeneration"):
+            tcfg = dataclasses.replace(hf.llama_config_from_hf(hf_cfg["text_config"]),
+                                       max_position_embeddings=8192)
+            tparams = hf.convert_llama(sd, tcfg, dtype, prefix="language_model.model.",
+                                       lm_head_key="language_model.lm_head.weight",
+                                       device=device)
+            vraw = hf_cfg["vision_config"]
+            vcfg = clip_vit.ClipVisionConfig(
+                hidden_size=vraw["hidden_size"], intermediate_size=vraw["intermediate_size"],
+                num_hidden_layers=vraw["num_hidden_layers"],
+                num_attention_heads=vraw["num_attention_heads"],
+                image_size=vraw["image_size"], patch_size=vraw["patch_size"],
+                feature_layer=hf_cfg.get("vision_feature_layer", -2))
+            llava_cfg = llava.LlavaConfig(
+                text=tcfg, vision=vcfg,
+                image_token_index=hf_cfg.get("image_token_index", 32000),
+                anyres=arch == "LlavaNextForConditionalGeneration",
+                image_grid_pinpoints=tuple(tuple(p) for p in hf_cfg.get(
+                    "image_grid_pinpoints", llava.DEFAULT_PINPOINTS)))
+            kw.update(llava_cfg=llava_cfg, image_token_index=llava_cfg.image_token_index,
+                      vparams=hf.convert_clip_and_projector(sd, vcfg, dtype, device=device))
+        elif arch in ("LlamaForCausalLM", "Qwen2ForCausalLM"):
+            tcfg = hf.llama_config_from_hf(hf_cfg)
+            tparams = hf.convert_llama(sd, tcfg, dtype, device=device)
+        elif arch == "MixtralForCausalLM":
+            tcfg = hf.mixtral_config_from_hf(hf_cfg)
+            tparams = mixtral.convert_mixtral(sd, tcfg, dtype, device=device)
+        elif arch == "Qwen2_5_VLForConditionalGeneration":
+            tcfg, tparams = cls._from_pretrained_qwen_vl(sd, hf_cfg, dtype, kw,
+                                                         min_pixels, max_pixels,
+                                                         video_max_pixels)
+        else:
+            raise NotImplementedError(f"architecture {arch} not yet supported")
+        del sd
+
+        if spec_model_path is None:
+            dcfg, dparams = _stub_draft_config(tcfg, num_q), _stub_draft_params(tparams, dtype)
+        else:
+            dsd = hf.load_state_dict(spec_model_path)
+            cfg_path = os.path.join(spec_model_path, "config.json")
+            if os.path.exists(cfg_path):
+                dcfg = DraftConfig.from_json(cfg_path, num_q=num_q)
+            else:
+                dcfg = DraftConfig(
+                    vocab_size=tcfg.vocab_size, hidden_size=tcfg.hidden_size,
+                    intermediate_size=tcfg.intermediate_size,
+                    num_attention_heads=tcfg.num_attention_heads,
+                    num_key_value_heads=tcfg.num_key_value_heads, num_q=num_q)
+            if method == "medusa":
+                kw["mparams"] = medusa.convert_medusa(dsd, dtype, device=device)
+                dparams = _stub_draft_params(tparams, dtype)
+            else:
+                if method == "eagle":
+                    dcfg = dataclasses.replace(dcfg, vision=False)
+                dparams = hf.convert_draft(dsd, dcfg, dtype, embed_fallback=tparams["embed"],
+                                           device=device)
+        model = cls(tcfg, dcfg, spec_cfg, tparams, dparams, **kw)
+        if autotune:
+            model.autotune_total_token()
+        return model
+
+    @staticmethod
+    def _from_pretrained_qwen_vl(sd, hf_cfg: dict, dtype, kw: dict, min_pixels: int,
+                                 max_pixels: int, video_max_pixels: int):
+        """The Qwen2.5-VL branch of ``from_pretrained``: the text model (qkv
+        bias, M-RoPE sections, 4,096 positions as the reference forces) and
+        the vision tower; fills ``kw`` with the tower and the token ids.
+        Returns (target config, target parameters)."""
+        from ..convert import hf
+
+        device = kw["device"]
+        tcfg = dataclasses.replace(hf.llama_config_from_hf(hf_cfg),
+                                   max_position_embeddings=4096, qkv_bias=True)
+        tparams = hf.convert_llama(sd, tcfg, dtype, device=device)
+        vraw = hf_cfg["vision_config"]
+        qcfg = qwen_vl.QwenVisionConfig(
+            hidden_size=vraw["hidden_size"],
+            out_hidden_size=vraw.get("out_hidden_size", hf_cfg["hidden_size"]),
+            intermediate_size=vraw["intermediate_size"], depth=vraw["depth"],
+            num_heads=vraw["num_heads"], patch_size=vraw["patch_size"],
+            temporal_patch_size=vraw["temporal_patch_size"],
+            spatial_merge_size=vraw["spatial_merge_size"], window_size=vraw["window_size"],
+            fullatt_block_indexes=tuple(vraw["fullatt_block_indexes"]),
+            tokens_per_second=vraw.get("tokens_per_second", 2))
+        kw.update(
+            vparams=hf.convert_qwen_vision(sd, qcfg, dtype, device=device), qwen_cfg=qcfg,
+            eos_token_id=_first(hf_cfg.get("eos_token_id", 151645)),
+            image_token_index=hf_cfg.get("image_token_id", 151655),
+            video_token_index=hf_cfg.get("video_token_id", 151656),
+            vision_start_token_id=hf_cfg.get("vision_start_token_id", 151652),
+            min_pixels=min_pixels, max_pixels=max_pixels, video_max_pixels=video_max_pixels)
+        return tcfg, tparams
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def autotune_total_token(self, cans=(40, 48, 50, 56, 60),
+                             weights=(1.0, 1.05, 1.07, 1.1, 1.13), iters: int = 20) -> int:
+        """Pick the verify tree's width: time ``iters`` target forwards of
+        each candidate width from a reset cache (CUDA events after a warm-up
+        forward on the card, ``perf_counter`` on the CPU), divide by the
+        expected acceptance gain ``weights``, keep the argmin, and set it in
+        ``self.spec`` (the reference's ``total_token == -1`` path).  Each
+        candidate's seconds over its weight stay in ``self.last_autotune_s``."""
+        cache = kv.reset(self.target_cache)
+        cuda = self.device.type == "cuda"
+        times = []
+        for length, weight in zip(cans, weights):
+            ids = np.random.default_rng(0).integers(0, max(2, self.tcfg.vocab_size - 200),
+                                                    length)
+            embeds = llama.embed(self.tparams, torch.as_tensor(ids, device=self.device))
+            mask = causal_mask(length, cache.max_len, 0, self.device)
+            pos = torch.arange(length, dtype=torch.int32, device=self.device)
+
+            def forward():
+                spec_loop.target_forward(self.tparams, self.tcfg, embeds, pos, cache, mask)
+
+            forward()  # warm-up
+            if cuda:
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+            else:
+                t0 = time.perf_counter()
+            for _ in range(iters):
+                forward()
+            if cuda:
+                end.record()
+                end.synchronize()
+                elapsed = start.elapsed_time(end) / 1e3
+            else:
+                elapsed = time.perf_counter() - t0
+            times.append(elapsed / weight)
+        best = cans[times.index(min(times))]
+        self.spec = dataclasses.replace(self.spec, total_tokens=best)
+        self.last_autotune_s = dict(zip(cans, times))
+        return best
 
     def _seen_mask(self, sampling, input_ids) -> Optional[torch.Tensor]:
         """The ``[vocab+1]`` prompt-token mask when the repetition penalty is
@@ -427,10 +658,13 @@ class SpecModel:
         pixel_values=None,
         image_size=None,
         pixel_values_videos=None,
-        stop_token_id: Optional[int] = None,
-        seed: int = 0,
-        repetition_penalty: float = 1.0,  # active at T > 0 only
         second_per_grid_ts: float = 1.0,
+        seed: int = 0,
+        log: bool = False,  # accepted and unused, as in the JAX package
+        stop_token_id: Optional[int] = None,
+        repetition_penalty: float = 1.0,  # active at T > 0 only
+        keep_hiddens: bool = False,  # record self.last_snapshot (text prompts)
+        continue_from: Optional["ConversationSnapshot"] = None,
     ) -> GenerationResult:
         """Speculative decoding of a prompt, greedy at ``temperature`` 0,
         else sampled from the request's key of ``seed``.  ``pixel_values``
@@ -444,7 +678,16 @@ class SpecModel:
         ``stop_token_id`` (an extra stop id, such as Llama 3's
         ``<|eot_id|>``); the output keeps the tokens up to and including the
         first of either.  A Medusa model (``mparams``) refuses a repetition
-        penalty, as the JAX package does."""
+        penalty, as the JAX package does.
+
+        Multi-turn conversations: ``keep_hiddens=True`` leaves a
+        ``ConversationSnapshot`` of this generation in ``self.last_snapshot``
+        (text prompts of a ViSpec or EAGLE-2 model only), and a later call
+        with ``continue_from=snap`` whose prompt extends the snapshot's
+        committed tokens prefills only the new suffix.  A suffix that would
+        not fit the cache, a vision prompt and a Medusa model take the full
+        prefill instead."""
+        del log
         input_ids = np.asarray(input_ids, np.int64)
         l = int(input_ids.shape[0])
         if l == 0:
@@ -463,21 +706,34 @@ class SpecModel:
                 "repetition_penalty is not supported with the medusa drafter")
         max_out = min(self.max_len, output_rows(self.spec, max_new_tokens))
         key = self._key(sampling, seed)
+        text_only = pixel_values is None and pixel_values_videos is None
+        snapshots_on = keep_hiddens and text_only and self.mparams is None
 
-        prompt = self._padded_prompt(input_ids, pad_len, pixel_values, image_size,
-                                     pixel_values_videos, second_per_grid_ts)
-        if self.mparams is not None:
-            state = spec_loop.medusa_prefill(
-                self.tparams, self.mparams, self.tcfg, self.spec, sampling, prompt.embeds,
-                l, kv.reset(self.target_cache), max_out, key=key)
-        else:
-            plan, max_span = plan_prompt(self.dcfg, prompt.shifted, prompt.n_spans, l,
-                                         pad_len, self.device)
-            state = spec_loop.spec_prefill(
-                self.tparams, self.dparams, self.tcfg, self.dcfg, self.spec, plan,
-                sampling, prompt.embeds, kv.reset(self.target_cache),
-                kv.reset(self.draft_cache), max_out, max_span, key=key, seen=seen,
-                rope=prompt.rope)
+        state = None
+        if continue_from is not None and text_only and self.mparams is None:
+            plen = continue_from.cut_for(input_ids)
+            # the suffix block is written at row plen: a suffix whose bucket
+            # and the round's slack would not fit takes the full prefill
+            if plen is not None and (plen + _bucket(l - plen) + self._cache_slack()
+                                     <= self.max_len):
+                state = self._prefill_from_snapshot(continue_from, input_ids, plen,
+                                                    sampling, key, max_out, seen=seen,
+                                                    keep_hiddens=snapshots_on)
+        if state is None:
+            prompt = self._padded_prompt(input_ids, pad_len, pixel_values, image_size,
+                                         pixel_values_videos, second_per_grid_ts)
+            if self.mparams is not None:
+                state = spec_loop.medusa_prefill(
+                    self.tparams, self.mparams, self.tcfg, self.spec, sampling,
+                    prompt.embeds, l, kv.reset(self.target_cache), max_out, key=key)
+            else:
+                plan, max_span = plan_prompt(self.dcfg, prompt.shifted, prompt.n_spans,
+                                             l, pad_len, self.device)
+                state = spec_loop.spec_prefill(
+                    self.tparams, self.dparams, self.tcfg, self.dcfg, self.spec, plan,
+                    sampling, prompt.embeds, kv.reset(self.target_cache),
+                    kv.reset(self.draft_cache), max_out, max_span, key=key, seen=seen,
+                    rope=prompt.rope, keep_hiddens=snapshots_on)
 
         # cap rounds so the cache cannot overflow
         budget = min(max_new_tokens, self.max_len - l - self._cache_slack())
@@ -549,17 +805,53 @@ class SpecModel:
         eos_pos = np.nonzero(stops)[0]
         if eos_pos.size:
             out = out[: eos_pos[0] + 1]
+        seq = np.concatenate([input_ids, out])
+        if snapshots_on:
+            # copies of the committed rows: the caches are reused by the
+            # next call
+            pad = _bucket(seq.shape[0])
+            tc, dc = state.target_cache, state.draft_cache
+
+            def rows(t):
+                return None if t is None else t[:, :, :pad].clone()
+
+            self.last_snapshot = ConversationSnapshot(
+                t_k=rows(tc.k), t_v=rows(tc.v), d_k=rows(dc.k), d_v=rows(dc.v),
+                hiddens=state.hiddens, seq=seq, prompt_len=l,
+                t_ks=rows(tc.k_scale), t_vs=rows(tc.v_scale))
         self.target_cache = kv.reset(state.target_cache)
         if self.mparams is None:
             self.draft_cache = kv.reset(state.draft_cache)
         return GenerationResult(
-            sequences=np.concatenate([input_ids, out]),
+            sequences=seq,
             new_tokens=int(out.shape[0]),
             rounds=rounds,
             acceptance_lengths=accept_lengths,
             decode_time=decode_time,
             dispatched=dispatched,
         )
+
+    def _prefill_from_snapshot(self, snap: "ConversationSnapshot", input_ids, plen: int,
+                               sampling, key, max_out: int, seen=None,
+                               keep_hiddens: bool = False) -> spec_loop.SpecState:
+        """The continuation prefill from a ``ConversationSnapshot``: the
+        caches take its committed rows ``[0, plen)``, and only the suffix
+        runs through the target (``loop.spec_prefill_continue``).  ``seen``
+        (the repetition penalty's mask, built from the whole conversation)
+        rides along."""
+        suffix = np.asarray(input_ids, np.int64)[plen:]
+        s_embeds = padded_text_embeds(self.tparams, suffix, _bucket(len(suffix)),
+                                      self.device)
+        psnap = spec_loop.PrefixSnapshot(
+            t_k=snap.t_k, t_v=snap.t_v, d_k=snap.d_k, d_v=snap.d_v,
+            prefix_len=torch.tensor(plen, dtype=torch.int32, device=self.device),
+            boundary_hidden=snap.hiddens[plen - 1 - snap.prompt_len],
+            t_ks=snap.t_ks, t_vs=snap.t_vs)
+        return spec_loop.spec_prefill_continue(
+            self.tparams, self.dparams, self.tcfg, self.dcfg, self.spec, sampling, psnap,
+            s_embeds, torch.tensor(len(suffix), dtype=torch.int32, device=self.device),
+            kv.reset(self.target_cache), kv.reset(self.draft_cache), max_out, key=key,
+            seen=seen, keep_hiddens=keep_hiddens)
 
     def _round(self, sampling, state, eos, cap):
         """One decode round of this model's drafter."""
@@ -581,9 +873,9 @@ class SpecModel:
         pixel_values=None,
         image_size=None,
         pixel_values_videos=None,
+        second_per_grid_ts: float = 1.0,
         seed: int = 0,
         repetition_penalty: float = 1.0,
-        second_per_grid_ts: float = 1.0,
     ) -> GenerationResult:
         """Plain AR baseline over the same runtime (image and video prompts
         and sampling knobs as in ``specgenerate``; the penalty's mask updates
@@ -668,9 +960,9 @@ class SpecModel:
         requests: Sequence[dict],
         temperature: float = 0.0,
         max_new_tokens: int = 256,
+        seed: int = 0,
         top_p: float = 0.0,
         top_k: int = 0,
-        seed: int = 0,
     ) -> List[GenerationResult]:
         """Batched multi-request decoding of request dicts (``input_ids``
         and, for a vision prompt, ``pixel_values`` / ``image_size`` or
@@ -693,9 +985,8 @@ class SpecModel:
         max_out = min(self.max_len, output_rows(self.spec, max_new_tokens))
         states = batch_mod.batched_prefill(
             self.tparams, self.dparams, self.tcfg, self.dcfg, self.spec, sampling, reqs,
-            self.max_len, max_out, self.dtype, cache_pool=self._batch_pool,
-            quantize_kv=self.quantize_kv, device=self.device, seed=seed,
-            mparams=self.mparams)
+            self.max_len, max_out, self.dtype, seed, cache_pool=self._batch_pool,
+            mparams=self.mparams, quantize_kv=self.quantize_kv, device=self.device)
         # decode_time excludes prefill, as in specgenerate
         t0 = time.perf_counter()
         budget = min(max_new_tokens, self.max_len - max(len(p) for p in prompts) - slack)
