@@ -35,7 +35,14 @@ checkpoints written under build/ and loaded by ``from_pretrained`` onto the
 card (bit-equal, load rate), the snapshot continuation and the tree-width
 autotune on the 32-layer 7B, and Mixtral at 24 of its 32 layers in bfloat16
 (tok/s, launches, idle share, the engine, the autotune); the kernel rows
-include Mixtral's groups of 4.  Prints one JSON line per phase, a
+include Mixtral's groups of 4.  Then the evaluation harness and draft
+training: ``run_eval`` over vendored MT-bench questions at 2 layers in
+float32 (spec == AR on every turn) and at 32 layers in bfloat16 with
+``arrival_bench`` on the engine, training steps on the card against the
+CPU at toy widths, a training sample generated by the 7B and ten
+7B-width steps with the state round trip and ``getkacc``, and a LLaVA-1.5
+image sample with a step through the image adaptor; a 1c kernel row at
+``getkacc``'s shape.  Prints one JSON line per phase, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failed phase raises and
 the script exits non-zero without that line; so does a machine without a
@@ -61,6 +68,8 @@ import re
 import subprocess
 import sys
 import time
+import types
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -76,6 +85,16 @@ SOURCES = ("verify_attention", "q4_matmul")
 # the gap grows with sqrt(K)): max abs error over the output's largest
 # magnitude; against the same math in float32 (summation order only)
 Q4_TOL, Q4_EXACT_TOL = 2e-2, 1e-5
+# new tokens of each run under torch.profiler (16 until the training and
+# eval phases needed the time)
+PROFILE_TOKENS = 8
+# new tokens of each sampled / drafter run of sampling_full_depth and of
+# each mixtral_full_depth run (128 until then)
+DEPTH_TOKENS = 64
+# requests of serving_full_depth also run one at a time for the serial rate
+SERIAL_REQUESTS = 4
+# the 1c kernel row at getkacc's shape: 16 slots' committed rows
+KACC_STARTS = tuple(int(x) for x in np.random.default_rng(70).integers(256, 511, 16))
 
 
 T0 = time.perf_counter()
@@ -500,8 +519,10 @@ def phase_kernel_batched(dev):
     at the ragged starts.  Then the LLaVA engine's geometry at max_len 4096
     (64 chunks): starts 604 / 391 / 604 / 66 (two 604-row LLaVA-1.5 image
     prompts, two text prompts) at the verify, the draft expansion and the
-    int8 verify; and the Qwen2.5-VL-7B engine's verify (groups of 7) over
-    bf16 and int8 caches."""
+    int8 verify; the Qwen2.5-VL-7B engine's verify (groups of 7) over
+    bf16 and int8 caches; Mixtral's draft shapes; and ``trainer.getkacc``'s
+    rollout at 7B widths: B = 16, S = 1 over a 519-row float32 draft
+    cache."""
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(2)
     b, starts, layers = 4, (301, 129, 777, 1500), (0, 5, 17, 31)
@@ -514,6 +535,7 @@ def phase_kernel_batched(dev):
     expand[:, torch.arange(8), 16 + torch.arange(8)] = True
     tri = torch.tril(torch.ones((b, 5, 5), dtype=torch.bool))
     ones = torch.ones((b, 1, 1), dtype=torch.bool)
+    ones16 = torch.ones((len(KACC_STARTS), 1, 1), dtype=torch.bool)
     tree, expand, tri, ones = (t.to(dev).contiguous() for t in (tree, expand, tri, ones))
     bf16, f32 = torch.bfloat16, torch.float32
     rows = [
@@ -549,6 +571,11 @@ def phase_kernel_batched(dev):
                             starts, None, expand, flush),
         kernel_case_batched("mixtral_batched_verify_f32", 68, dev, f32, 32, 8, 30, 30,
                             starts, (0, 1, 1, 0), tree, flush, n_layers=2),
+        # getkacc's batched rollout at 7B widths (train_full_width): 16
+        # prefixes, one query row each, over the float32 draft cache of
+        # 512 + 5 + 2 rows (starts in the sample's generated half)
+        kernel_case_batched("batched_getkacc_f32_b16", 70, dev, f32, 32, 32, 1, 1,
+                            KACC_STARTS, None, ones16.to(dev), flush, max_len=519),
     ]
     rows_int8 = [
         kernel_case_batched("batched_target_verify_int8", 25, dev, bf16, 32, 32, 30, 30,
@@ -960,10 +987,10 @@ def phase_full_width_depth(dev):
                  and spec.new_tokens >= 128 and ar.new_tokens >= 128)
     emit(row)
     assert row["ok"], row
-    emit({"phase": "profile_spec_16_tokens",
-          **_profile(lambda: model.specgenerate(prompt, max_new_tokens=16))})
-    emit({"phase": "profile_ar_16_tokens",
-          **_profile(lambda: model.ar_generate(prompt, max_new_tokens=16))})
+    emit({"phase": f"profile_spec_{PROFILE_TOKENS}_tokens",
+          **_profile(lambda: model.specgenerate(prompt, max_new_tokens=PROFILE_TOKENS))})
+    emit({"phase": f"profile_ar_{PROFILE_TOKENS}_tokens",
+          **_profile(lambda: model.ar_generate(prompt, max_new_tokens=PROFILE_TOKENS))})
     return model, prompt, row
 
 
@@ -1064,10 +1091,10 @@ def phase_serving_full_depth(dev, model):
     """The continuous-batching engine at Vicuna-7B, 32 layers, bfloat16,
     max_len 2048: ``ServingEngine(batch_size=4, pad_bucket=(128, 256, 512),
     chunk_rounds=8)`` serves 8 requests from seed 0 (prompts of 64-448
-    tokens, caps of 64-128), so slots free and refill mid-flight.  The same
-    requests through ``specgenerate`` one at a time give the serial rate and
-    the agreeing prefix per request (reported: bf16 argmax near-ties may
-    differ between batch shapes).  Requires the batched-grid kernel (1c)
+    tokens, caps of 64-128), so slots free and refill mid-flight.  The first
+    ``SERIAL_REQUESTS`` of them through ``specgenerate`` one at a time give
+    the serial rate and the agreeing prefix per request (reported: bf16
+    argmax near-ties may differ between batch shapes).  Requires the batched-grid kernel (1c)
     launched 36 times per dispatched round (32 target verifies, 1 draft
     append, 3 expansion levels) and the single-request kernel (1a) 3 times
     per prefill (its first tree's expansion)."""
@@ -1083,9 +1110,12 @@ def phase_serving_full_depth(dev, model):
     del eng
     torch.cuda.empty_cache()
 
+    # the serial rate from the first SERIAL_REQUESTS requests (all 8 until
+    # the training and eval phases needed the time)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    serial = [model.specgenerate(p, max_new_tokens=c).sequences[len(p):] for p, c in reqs]
+    serial = [model.specgenerate(p, max_new_tokens=c).sequences[len(p):]
+              for p, c in reqs[:SERIAL_REQUESTS]]
     serial_s = time.perf_counter() - t0
     serial_tokens = sum(len(o) for o in serial)
     agree = []
@@ -1247,8 +1277,8 @@ def phase_quant_full_depth(dev, model, prompt, bf16_row):
                  and spec.new_tokens >= 128 and ar.new_tokens >= 128)
     emit(row)
     assert row["ok"], row
-    emit({"phase": "profile_quant_spec_16_tokens",
-          **_profile(lambda: qmodel.specgenerate(prompt, max_new_tokens=16))})
+    emit({"phase": f"profile_quant_spec_{PROFILE_TOKENS}_tokens",
+          **_profile(lambda: qmodel.specgenerate(prompt, max_new_tokens=PROFILE_TOKENS))})
     return spec_counts, qmodel
 
 
@@ -1875,9 +1905,11 @@ def phase_qwen_full_depth(dev, model):
         if not seed:  # the first prompt's decode: launches a round past the prefill's
             for label, gen in (("spec", model.specgenerate), ("ar", model.ar_generate)):
                 res = []
-                prof = _profile(lambda: res.append(gen(ids, max_new_tokens=16, **vis)))
+                prof = _profile(lambda: res.append(gen(ids, max_new_tokens=PROFILE_TOKENS,
+                                                       **vis)))
                 n_rounds = res[0].dispatched
-                emit({"phase": f"profile_qwen_{label}_16_tokens", "prompt_kind": name,
+                emit({"phase": f"profile_qwen_{label}_{PROFILE_TOKENS}_tokens",
+                      "prompt_kind": name,
                       "dispatched": n_rounds, "decode_launches_per_round":
                       (prof["kernel_launches"] - pre["kernel_launches"]) / n_rounds,
                       **prof})
@@ -2266,7 +2298,7 @@ def _accept_step_ms(dev, sampling_params, b=None):
 
 def phase_sampling_full_depth(dev, model, prompt):
     """Vicuna-7B at 32 layers in bfloat16 (the ``full_width_depth`` model),
-    128 new tokens after its 128-token prompt, three runs each (median and
+    ``DEPTH_TOKENS`` new tokens after its 128-token prompt, three runs each (median and
     range of tok/s): ViSpec spec at T 1 / top-p 0.9 and AR at T 1 (seeds
     0-2); Medusa spec (random heads from a seed) and EAGLE-2 spec (a random
     ``vision=False`` draft) at T 0.  Gates: kernel 1a launched 36 times a
@@ -2274,7 +2306,7 @@ def phase_sampling_full_depth(dev, model, prompt):
     prefill), 36 an EAGLE-2 round + 3, 32 a sampled AR step; a sampled round
     and a Medusa round make no host read.  Reports the acceptance step's
     device-and-issue ms greedy against sampled (single request and B = 4),
-    one profiled 16-token sampled run (launches a round, 1a apart; idle
+    one profiled ``PROFILE_TOKENS``-token sampled run (launches a round, 1a apart; idle
     share) and peak memory."""
     from vispec_tpu_torch.ops import verify_attention as va
     from vispec_tpu_torch.spec import loop
@@ -2286,12 +2318,12 @@ def phase_sampling_full_depth(dev, model, prompt):
     _decode_round_without_host_sync(model, prompt, sampled)
     _decode_round_without_host_sync(med, prompt)
     runs = {
-        "spec_t1_topp09": lambda s: model.specgenerate(prompt, max_new_tokens=128,
+        "spec_t1_topp09": lambda s: model.specgenerate(prompt, max_new_tokens=DEPTH_TOKENS,
                                                        temperature=1.0, top_p=0.9, seed=s),
-        "ar_t1": lambda s: model.ar_generate(prompt, max_new_tokens=128, temperature=1.0,
+        "ar_t1": lambda s: model.ar_generate(prompt, max_new_tokens=DEPTH_TOKENS, temperature=1.0,
                                              seed=s),
-        "medusa_t0": lambda s: med.specgenerate(prompt, max_new_tokens=128),
-        "eagle_t0": lambda s: eagle.specgenerate(prompt, max_new_tokens=128),
+        "medusa_t0": lambda s: med.specgenerate(prompt, max_new_tokens=DEPTH_TOKENS),
+        "eagle_t0": lambda s: eagle.specgenerate(prompt, max_new_tokens=DEPTH_TOKENS),
     }
     # warm-up: the sampling ops' and the drafters' first launches
     model.specgenerate(prompt, max_new_tokens=8, temperature=1.0, top_p=0.9, seed=9)
@@ -2301,7 +2333,7 @@ def phase_sampling_full_depth(dev, model, prompt):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     row = {"phase": "sampling_full_depth", "layers": layers, "dtype": "bfloat16",
-           "max_len": model.max_len, "prompt": len(prompt), "new_tokens": 128}
+           "max_len": model.max_len, "prompt": len(prompt), "new_tokens": DEPTH_TOKENS}
     ok = True
     for name, fn in runs.items():
         rates, launches, taus = [], [], []
@@ -2313,7 +2345,7 @@ def phase_sampling_full_depth(dev, model, prompt):
                 want = r.dispatched * layers
             else:
                 want = depth + r.dispatched * (layers + 1 + depth)
-            ok &= got == want and r.new_tokens >= 128
+            ok &= got == want and r.new_tokens >= DEPTH_TOKENS
             rates.append(r.new_tokens / r.decode_time)
             launches.append([got, want, r.dispatched])
             if r.acceptance_lengths:
@@ -2336,11 +2368,11 @@ def phase_sampling_full_depth(dev, model, prompt):
     _zero_launch_counts()
     res = []
     prof = _profile(lambda: res.append(model.specgenerate(
-        prompt, max_new_tokens=16, temperature=1.0, top_p=0.9, seed=5)))
+        prompt, max_new_tokens=PROFILE_TOKENS, temperature=1.0, top_p=0.9, seed=5)))
     n = res[0].dispatched
     attn = sum(prof["port_kernels"].get(k, (0, 0.0))[0]
                for k in ("partial_kernel_mma", "combine_kernel"))
-    emit({"phase": "profile_sampled_spec_16_tokens", "dispatched_rounds": n,
+    emit({"phase": f"profile_sampled_spec_{PROFILE_TOKENS}_tokens", "dispatched_rounds": n,
           "launches_1a": va.verify_attention.launches,
           "launches_per_round": prof["kernel_launches"] / n,
           "attention_launches_per_round": attn / n,
@@ -2730,11 +2762,11 @@ def phase_from_pretrained_device(dev):
 def phase_mixtral_full_depth(dev):
     """Mixtral-8x7B at 24 of its 32 layers in bfloat16 (8 experts, dense
     over experts as in the JAX package), its draft at the same widths,
-    max_len 2048: a 128-token prompt, 128 new tokens by spec and by AR,
+    max_len 2048: a 128-token prompt, ``DEPTH_TOKENS`` new tokens by spec and by AR,
     three runs each (median and range of tok/s); kernel 1a's launches
     (3 + 28 per dispatched spec round: 24 target verifies, the draft
     append, 3 expansion levels; 24 per AR step); peak memory; then one
-    16-token spec run under torch.profiler (device busy ms, idle share)."""
+    ``PROFILE_TOKENS``-token spec run under torch.profiler (device busy ms, idle share)."""
     model = _mixtral_model(dev, MIXTRAL_LAYERS, torch.bfloat16, seed=0)
     prompt = np.random.default_rng(0).integers(3, 32000, 128).tolist()
     model.specgenerate(prompt, max_new_tokens=8)  # warm-up
@@ -2747,11 +2779,11 @@ def phase_mixtral_full_depth(dev):
     for _ in range(3):
         for label, gen in (("spec", model.specgenerate), ("ar", model.ar_generate)):
             _zero_launch_counts()
-            res = gen(prompt, max_new_tokens=128)
+            res = gen(prompt, max_new_tokens=DEPTH_TOKENS)
             got = _launch_counts()["1a"]
             want = (depth + res.dispatched * (layers + 1 + depth) if label == "spec"
                     else res.dispatched * layers)
-            launches_ok &= got == want and res.new_tokens >= 128
+            launches_ok &= got == want and res.new_tokens >= DEPTH_TOKENS
             runs[label].append((res.new_tokens / res.decode_time, got, want, res))
     spec, ar = runs["spec"][-1][3], runs["ar"][-1][3]
     a, b = spec.sequences[128:], ar.sequences[128:]
@@ -2777,8 +2809,8 @@ def phase_mixtral_full_depth(dev):
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30, "ok": launches_ok}
     emit(row)
     assert row["ok"], row
-    emit({"phase": "profile_mixtral_spec_16_tokens",
-          **_profile(lambda: model.specgenerate(prompt, max_new_tokens=16))})
+    emit({"phase": f"profile_mixtral_spec_{PROFILE_TOKENS}_tokens",
+          **_profile(lambda: model.specgenerate(prompt, max_new_tokens=PROFILE_TOKENS))})
     return model
 
 
@@ -2897,6 +2929,495 @@ def phase_autotune_full_depth(dev, model, name):
     return row
 
 
+# ---------------------------------------------------------------------------
+# The evaluation harness and draft training
+# ---------------------------------------------------------------------------
+
+
+class _WordTokenizer:
+    """The script's own tokenizer for the harness (the card's machine has no
+    ``transformers``): whitespace-separated words; a word of the list it
+    was built on is its id (from 3), ``w<id>`` is ``<id>``, any other word a
+    crc32 bucket.  ``decode`` writes the list's word or ``w<id>``, so a
+    decoded answer tokenizes back to its ids.  It has what the harness
+    reads: ``__call__(text).input_ids``, ``decode(ids, ...)`` and
+    ``special_tokens_map``."""
+
+    special_tokens_map = {"bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>"}
+
+    def __init__(self, texts, vocab=32000):
+        words = sorted({w for t in texts for w in t.split()})[: vocab - 3]
+        self.vocab = vocab
+        self.ids = {w: 3 + i for i, w in enumerate(words)}
+        self.words = {i: w for w, i in self.ids.items()}
+
+    def _id(self, word):
+        if word in self.ids:
+            return self.ids[word]
+        m = re.fullmatch(r"w(\d+)", word)
+        if m and int(m.group(1)) < self.vocab:
+            return int(m.group(1))
+        return 3 + zlib.crc32(word.encode()) % (self.vocab - 3)
+
+    def __call__(self, text):
+        return types.SimpleNamespace(input_ids=[1] + [self._id(w) for w in text.split()])
+
+    def decode(self, ids, spaces_between_special_tokens=False, skip_special_tokens=False):
+        return " ".join(self.words.get(int(i), f"w{int(i)}") for i in ids)
+
+
+def _mt_bench(n):
+    """The first ``n`` vendored MT-bench questions (both turns) and a
+    tokenizer over all 80 questions' words and the vicuna template's."""
+    from vispec_tpu_torch.evaluation import benchmarks, harness
+
+    qs = list(benchmarks.iter_questions("vicuna", None, os.path.join(ROOT, "build", "none")))
+    texts = [t for q in qs for t in q.turns] + [harness.vicuna_prompt(["x"], ["y"])]
+    return qs[:n], _WordTokenizer(texts)
+
+
+def _fresh(path):
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    return path
+
+
+def _run_eval_pair(model, qs, tok, max_new, tag):
+    """``run_eval`` over ``qs``, spec then baseline, each with the kernels'
+    launch counts of its run; returns (records, paths, counts) by mode."""
+    from vispec_tpu_torch.evaluation import harness
+
+    recs, paths, counts = {}, {}, {}
+    for mode in ("spec", "baseline"):
+        paths[mode] = _fresh(os.path.join(ROOT, "build", "eval", f"{tag}_{mode}.jsonl"))
+        _zero_launch_counts()
+        recs[mode] = harness.run_eval(model, qs, paths[mode], baseline=mode == "baseline",
+                                      max_new_tokens=max_new, num_warmup=0, tokenizer=tok,
+                                      conv_template="vicuna", model_id=f"{tag}-{mode}")
+        counts[mode] = _launch_counts()
+    return recs, paths, counts
+
+
+def phase_eval_exact(dev):
+    """The harness on the card: ``run_eval`` over the first 2 vendored
+    MT-bench questions (both turns, the vicuna template, 64 new tokens a
+    turn) on a 2-layer float32 model at Vicuna-7B widths, spec and
+    baseline.  Gates: every spec answer equals, token for token, the AR
+    answer to the same conversation (a spec turn may commit a token past
+    the budget, as in the JAX package, so the baseline's second-turn
+    prompt can differ: each spec turn's prompt is rebuilt and decoded by
+    ``ar_generate``); the baseline's first answers are those AR answers;
+    ``speed.speedup_report`` of the two answer files is finite."""
+    from vispec_tpu_torch.evaluation import harness, speed
+
+    model = _full_width_model(dev, 2, torch.float32, seed=3)
+    qs, tok = _mt_bench(2)
+    recs, paths, counts = _run_eval_pair(model, qs, tok, 64, "exact")
+    same = True
+    for q, srec, brec in zip(qs, recs["spec"], recs["baseline"]):
+        for j, answer in enumerate(srec["turns"]):
+            ids = tok(harness.vicuna_prompt(q.turns[: j + 1], srec["turns"][:j])).input_ids
+            ar = tok.decode(model.ar_generate(ids, max_new_tokens=64).sequences[len(ids):])
+            ar = ar.split()
+            same &= answer.split()[: len(ar)] == ar and len(ar) == 64
+            if j == 0:
+                same &= brec["turns"][0].split() == ar
+    rep = speed.speedup_report(paths["spec"], paths["baseline"])
+    finite = all(np.isfinite(v) for v in rep.values())
+    row = {"phase": "eval_exact", "layers": 2, "dtype": "float32", "questions": len(qs),
+           "turns": sum(len(r["turns"]) for r in recs["spec"]),
+           "new_tokens": [r["new_tokens"] for r in recs["spec"]],
+           "spec_equals_ar": same, "report": rep,
+           "launches_1a": {m: c["1a"] for m, c in counts.items()},
+           "ok": same and finite and len(recs["spec"]) == 2}
+    emit(row)
+    assert row["ok"], row
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_eval_full_depth(dev, model, serving_row):
+    """The harness at Vicuna-7B, 32 layers, bfloat16 (the
+    ``full_width_depth`` model): ``run_eval`` spec and baseline over the
+    first 2 MT-bench questions, both turns, 128 new tokens a turn; tok/s of
+    each (``speed.speedup_report``, wall time closed on the device), the
+    mean acceptance length, the speed-up and kernel 1a's launches per turn.
+    Then ``bench_batch.arrival_bench`` on the B = 4 engine: 8 requests of 64
+    new tokens, Poisson arrivals at half the saturated request rate that
+    ``serving_full_depth`` measured in this run (0.5 x its tok/s / 64
+    requests a second); its rate, throughput and latency percentiles
+    (completion minus scheduled arrival), and kernel 1c's launches."""
+    from vispec_tpu_torch.evaluation import bench_batch, speed
+
+    qs, tok = _mt_bench(2)
+    recs, paths, counts = _run_eval_pair(model, qs, tok, 128, "full_depth")
+    rep = speed.speedup_report(paths["spec"], paths["baseline"])
+    turns = sum(len(r["turns"]) for r in recs["spec"])
+    agree = []  # words (tokens) in common at the start of each turn's answers
+    for r, q in zip(recs["spec"], recs["baseline"]):
+        for a, b in zip(r["turns"], q["turns"]):
+            a, b = a.split(), b.split()
+            n = min(len(a), len(b))
+            agree.append(int(np.argmin(np.append(np.array(a[:n]) == np.array(b[:n]), False))))
+    row = {"phase": "eval_full_depth", "layers": 32, "dtype": "bfloat16",
+           "questions": len(qs), "turns": turns, "max_new_tokens": 128, **rep,
+           "new_tokens_spec": [r["new_tokens"] for r in recs["spec"]],
+           "new_tokens_baseline": [r["new_tokens"] for r in recs["baseline"]],
+           "wall_time_spec": [r["wall_time"] for r in recs["spec"]],
+           "wall_time_baseline": [r["wall_time"] for r in recs["baseline"]],
+           "agreeing_prefix_per_turn": agree,
+           "launches_1a_per_turn": {m: c["1a"] / turns for m, c in counts.items()}}
+    row["ok"] = (all(np.isfinite(v) for v in rep.values())
+                 and all(n >= 1 for r in recs["spec"] for n in r["new_tokens"])
+                 and counts["spec"]["1a"] > 0 and counts["baseline"]["1a"] > 0)
+    emit(row)
+    assert row["ok"], row
+
+    rate = 0.5 * serving_row["tok_per_s"] / 64
+    _zero_launch_counts()
+    arr = bench_batch.arrival_bench(model, 4, 64, rate, 8, seed=0, vocab=32000)
+    launches = _launch_counts()
+    toks = arr.pop("tokens")
+    row = {"phase": "arrival_full_depth", "layers": 32, "dtype": "bfloat16",
+           "saturated_tok_per_s": serving_row["tok_per_s"], **arr,
+           "request_tokens": [len(t) for t in toks], "launches_1c": launches["1c"]}
+    row["ok"] = (all(len(t) == 64 or (t and t[-1] == model.eos_token_id) for t in toks)
+                 and launches["1c"] > 0 and launches["1c"] % 36 == 0)
+    emit(row)
+    assert row["ok"], row
+
+
+def _train_sample(seed, s, d, span=None, gen_from=None):
+    """A fabricated training record of ``s`` rows at width ``d``; ``span``
+    = (start, stop) image rows; the loss mask on from ``gen_from``."""
+    rng = np.random.default_rng(seed)
+    img = np.zeros(s, bool)
+    if span is not None:
+        img[span[0]:span[1]] = True
+    mask = np.zeros(s, np.float32)
+    mask[(gen_from if gen_from is not None else s // 3):] = 1.0
+    return {"input_ids": rng.integers(0, 256, s).astype(np.int32),
+            "hidden_state": rng.normal(0, 1, (s, d)).astype(np.float32),
+            "inputs_embeds": rng.normal(0, 1, (s, d)).astype(np.float32),
+            "loss_mask": mask, "image_mask": img}
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.detach().clone().to(device)
+            for k, v in tree.items()}
+
+
+def _tree_max_diff(a, b):
+    return max((_tree_max_diff(v, b[k]) if isinstance(v, dict)
+                else (v.float().cpu() - b[k].float().cpu()).abs().max().item())
+               for k, v in a.items())
+
+
+def _trees_equal(a, b):
+    return all(_trees_equal(v, b[k]) if isinstance(v, dict) else torch.equal(v, b[k])
+               for k, v in a.items())
+
+
+def phase_train_exact(dev):
+    """Training on the card against the same steps on the CPU, at toy widths
+    in float32 (hidden 64, 4 heads over 2, head_dim 16, vocab 256), from one
+    state and one batch (an image span included): three ``train_step``s
+    (mtp_steps 2, warm-up 2, so the rate is non-zero from step 1), one
+    ``train_step_stage1`` and one ``train_step_medusa`` (no warm-up).  Gates:
+    the parameters within 1% of the learning rate of the CPU's after every
+    step, the losses within 1e-4 (relative); ``getkacc``'s batched rollout
+    (16 prefixes, kernel 1c over the float32 draft cache) gives the tokens
+    of one rollout per prefix (kernel 1a) and the CPU's accuracies."""
+    from vispec_tpu_torch.configs import DraftConfig
+    from vispec_tpu_torch.models import draft as draft_mod
+    from vispec_tpu_torch.models import medusa
+    from vispec_tpu_torch.train import step as tstep
+    from vispec_tpu_torch.train import trainer
+
+    cpu, lr = torch.device("cpu"), 2e-3
+    dcfg = DraftConfig(vocab_size=256, hidden_size=64, intermediate_size=128,
+                       num_attention_heads=4, num_key_value_heads=2,
+                       max_position_embeddings=512)
+    g = torch.Generator().manual_seed(7)
+    base = draft_mod.init_params(dcfg, g, cpu, torch.float32)
+    base["img_fc_w"] += 0.05 * torch.randn(base["img_fc_w"].shape, generator=g)
+    base["fc_b"] += 0.1 * torch.randn(base["fc_b"].shape, generator=g)
+    med = {"heads_w": 0.05 * torch.randn((medusa.NUM_HEADS, 64, 64), generator=g),
+           "heads_b": 0.05 * torch.randn((medusa.NUM_HEADS, 64), generator=g)}
+    head = 0.3 * torch.randn((64, 256), generator=g)
+    cfg = trainer.TrainConfig(lr=lr, max_len=64, mtp_steps=2, max_images=2,
+                              max_span_bucket=16)
+    sample = _train_sample(5, 60, 64, span=(6, 20))
+    ex = trainer.prepare_example(sample, cfg, dcfg, np.random.default_rng(5))
+    batches = {cpu: trainer.batch_examples([ex], cpu)[0],
+               dev: trainer.batch_examples([ex], dev)[0]}
+    heads = {cpu: head, dev: head.to(dev)}
+    steps = {
+        "train_step": (base, 2, 3, lambda p, o, b, h, opt: tstep.train_step(
+            p, o, dcfg, h, b, opt, mtp_steps=2, max_span=16)),
+        "train_step_stage1": (base, 0, 1, lambda p, o, b, h, opt: tstep.train_step_stage1(
+            p, o, dcfg, h, b, opt, max_span=16)),
+        "train_step_medusa": (med, 0, 1, lambda p, o, b, h, opt: tstep.train_step_medusa(
+            p, o, h, b, opt)),
+    }
+    row = {"phase": "train_exact", "dtype": "float32", "hidden": 64, "lr": lr}
+    ok = True
+    for name, (params, warmup, n, fn) in steps.items():
+        opt = tstep.make_optimizer(lr, warmup, 1000)
+        side = {d: [_tree_to(params, d)] for d in (cpu, dev)}
+        for d in side:
+            side[d].append(opt.init(side[d][0]))
+        diffs, losses = [], []
+        for _ in range(n):
+            out = {}
+            for d in (cpu, dev):
+                p, o, m = fn(side[d][0], side[d][1], batches[d], heads[d], opt)
+                side[d] = [p, o]
+                out[d] = float(m["loss"])
+            diffs.append(_tree_max_diff(side[dev][0], side[cpu][0]))
+            losses.append([out[dev], out[cpu]])
+        good = (max(diffs) <= 0.01 * lr
+                and all(abs(a - b) <= 1e-4 * max(abs(b), 1.0) for a, b in losses))
+        row[name] = {"steps": n, "max_param_diff": diffs, "loss_card_cpu": losses,
+                     "ok": good}
+        ok &= good
+
+    # bf16 products (the card's float32-output bf16 GEMM under autograd):
+    # the MTP loss's gradients against the CPU's, per leaf
+    grads = {}
+    for d in (cpu, dev):
+        leaves = {path: t.detach().clone().to(d).requires_grad_(True)
+                  for path, t in tstep.leaves(base) if path != "embed"}
+        tree = tstep._rebuild(base, {path: leaves.get(path, t.to(d))
+                                     for path, t in tstep.leaves(base)})
+        loss, _ = tstep.mtp_forward(tstep.bf16_compute(tree), dcfg,
+                                    tstep.bf16_compute(heads[d]),
+                                    tstep.bf16_compute(batches[d]), 2, 16)
+        grads[d] = dict(zip(leaves, (x.cpu() for x in torch.autograd.grad(loss, list(
+            leaves.values())))))
+    rel = {path: ((grads[dev][path] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+           for path, g in grads[cpu].items()}
+    row["bf16_grad_rel_err_max"] = max(rel.values())
+    row["bf16_grad_rel_err_worst_leaf"] = max(rel, key=rel.get)
+    # each bf16 side is held within 1e-2 of JAX's bf16 gradients (the CPU by
+    # tests/test_torch_training.py): the two sides within twice that
+    ok &= max(rel.values()) <= 2e-2
+
+    # getkacc: the batched rollout against one rollout per prefix, on the card
+    params = _tree_to(base, dev)
+    _zero_launch_counts()
+    accs = trainer.getkacc(params, dcfg, heads[dev], sample, max_length=4,
+                           max_prefixes=16, max_len=64, max_span=16)
+    kacc_launches = _launch_counts()
+    accs_cpu = trainer.getkacc(base, dcfg, head, sample, max_length=4, max_prefixes=16,
+                               max_len=64, max_span=16)
+    hidden = torch.as_tensor(sample["hidden_state"], device=dev)
+    embeds = torch.as_tensor(sample["inputs_embeds"], device=dev)
+    h_pads, e_pads, plans, seq = [], [], [], []
+    _zero_launch_counts()
+    for pre_len in range(3, 60, 4)[:16]:
+        plan, _ = draft_mod.make_prefill_plan(sample["image_mask"][1:pre_len], pre_len - 1,
+                                              dcfg.num_q, 64, max_images=8, max_span=16,
+                                              device=dev)
+        h = trainer._pad_rows(hidden[:pre_len - 1], 64)
+        e = trainer._pad_rows(embeds[1:pre_len], 64)
+        seq.append(trainer._kacc_rollout_one(params, dcfg, heads[dev], h, e, plan, 70, 4, 16))
+        h_pads.append(h)
+        e_pads.append(e)
+        plans.append(plan)
+    seq_launches = _launch_counts()
+    _zero_launch_counts()
+    batched = trainer._kacc_rollout_batched(
+        params, dcfg, heads[dev], torch.stack(h_pads), torch.stack(e_pads),
+        draft_mod.PrefillPlan(*(torch.stack(fs) for fs in zip(*plans))), 70, 4, 16)
+    batched_launches = _launch_counts()
+    same = torch.equal(batched.cpu(), torch.stack(seq).cpu())
+    row["getkacc"] = {"prefixes": len(plans), "k": 4, "batched_equals_sequential": same,
+                      "accs_card": accs, "accs_cpu": accs_cpu,
+                      "launches_batched": batched_launches, "launches_sequential": seq_launches,
+                      "launches_getkacc": kacc_launches}
+    ok &= (same and accs == accs_cpu and batched_launches["1c"] == 4
+           and batched_launches["1a"] == 0 and seq_launches["1a"] == 4 * len(plans)
+           and kacc_launches["1c"] == 4)
+    row["ok"] = ok
+    emit(row)
+    assert row["ok"], row
+
+
+def phase_train_full_width(dev, model):
+    """Training at Vicuna-7B width.  ``generate_sample`` with the 32-layer
+    bfloat16 target (the ``full_width_depth`` model) builds one sample: a
+    256-token MT-bench prompt and 256 generated tokens (kernel 1a at 32
+    launches a step).  Then 10 ``train_step``s of a draft at the 7B's widths
+    (float32 master weights, ``bf16=True``, bs 1, mtp_steps 2, max_len 512,
+    lr 1e-5 without warm-up) on that one sample: median step ms, peak
+    memory, and the loss falling from the first step to the last.  Then
+    ``save_state`` / ``load_state`` (identical tensors) and ``getkacc`` at
+    16 prefixes and max_length 5: its time and kernel 1c's launches (one a
+    rollout step, over the float32 draft cache at B = 16, S = 1)."""
+    from vispec_tpu_torch.configs import DraftConfig
+    from vispec_tpu_torch.evaluation import harness
+    from vispec_tpu_torch.models import draft as draft_mod
+    from vispec_tpu_torch.ops import kv_cache as kv
+    from vispec_tpu_torch.spec.spec_model import padded_text_embeds
+    from vispec_tpu_torch.train import data_gen, step as tstep, trainer
+
+    qs, tok = _mt_bench(80)
+    ids = [i for q in qs for i in tok(harness.vicuna_prompt([q.turns[0]], [])).input_ids]
+    ids = ids[:256]
+    embeds = padded_text_embeds(model.tparams, ids, 256, dev)
+    never = model.tcfg.vocab_size  # no id reaches it: every sample runs its budget
+    data_gen.generate_sample(model.tparams, model.tcfg, embeds, 256, None,
+                             kv.reset(model.target_cache), max_new_tokens=16,
+                             eos_token_id=never)  # warm-up
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    sample, cache = data_gen.generate_sample(model.tparams, model.tcfg, embeds, 256, None,
+                                             kv.reset(model.target_cache),
+                                             max_new_tokens=256, eos_token_id=never)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_launches = _launch_counts()
+    model.target_cache = kv.reset(cache)
+    steps_run = gen_launches["1a"] / model.tcfg.num_hidden_layers
+    row = {"phase": "train_full_width", "sample_rows": int(sample["hidden_state"].shape[0]),
+           "generated": int(sample["loss_mask"].sum()), "generate_s": gen_s,
+           "generate_tok_per_s": 256 / gen_s, "launches_1a": gen_launches["1a"],
+           "steps_dispatched": steps_run}
+    ok = (row["sample_rows"] == 512 and row["generated"] == 256
+          and gen_launches["1a"] % model.tcfg.num_hidden_layers == 0
+          and 256 <= steps_run <= 256 + 2 * 16 and gen_launches["1c"] == 0)
+
+    dcfg = DraftConfig()
+    g = torch.Generator(device=dev).manual_seed(11)
+    dparams = draft_mod.init_params(dcfg, g, dev, torch.float32)
+    head_w = model.tparams["lm_head"].float()
+    cfg = trainer.TrainConfig(lr=1e-5, max_len=512, mtp_steps=2, warmup_steps=0, bf16=True)
+    ex = trainer.prepare_example(sample, cfg, dcfg, np.random.default_rng(0))
+    batch, _ = trainer.batch_examples([ex], dev)
+    opt = tstep.make_optimizer(cfg.lr, cfg.warmup_steps, cfg.total_steps, cfg.grad_clip)
+    state = opt.init(dparams)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, losses = [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        dparams, state, metrics = tstep.train_step(dparams, state, dcfg, head_w, batch, opt,
+                                                   mtp_steps=2, max_span=cfg.max_span_bucket,
+                                                   bf16=True)
+        losses.append(float(metrics["loss"]))  # a readback: the step is done
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    row.update(train_steps=10, step_ms_median=float(np.median(times)),
+               step_ms_range=[min(times), max(times)], step_ms=times, losses=losses,
+               loss_falls=losses[-1] < losses[0], peak_mem_gb=peak,
+               draft_params=sum(t.numel() for _, t in tstep.leaves(dparams)))
+    ok &= losses[-1] < losses[0] and all(np.isfinite(losses))
+
+    cpdir = os.path.join(ROOT, "build", "train_state")
+    t0 = time.perf_counter()
+    path = trainer.save_state(cpdir, 0, dparams, state)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    epoch, params2, state2 = trainer.load_state(path, device=dev)
+    load_s = time.perf_counter() - t0
+    same = (epoch == 0 and state2.count == state.count and _trees_equal(params2, dparams)
+            and _trees_equal(state2.mu, state.mu) and _trees_equal(state2.nu, state.nu))
+    state_gb = os.path.getsize(path) / 1e9
+    os.remove(path)
+    del params2, state2
+    row.update(state_round_trip=same, state_gb=state_gb, save_s=save_s, load_s=load_s)
+    ok &= same
+
+    del state
+    torch.cuda.empty_cache()
+    trainer.getkacc(dparams, dcfg, head_w, sample, max_length=5, max_prefixes=16,
+                    max_len=512, max_span=64)  # warm-up
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    accs = trainer.getkacc(dparams, dcfg, head_w, sample, max_length=5, max_prefixes=16,
+                           max_len=512, max_span=64)
+    torch.cuda.synchronize()
+    kacc_s = time.perf_counter() - t0
+    kacc = _launch_counts()
+    row.update(getkacc=accs, getkacc_s=kacc_s, getkacc_launches=kacc)
+    ok &= kacc["1c"] == 5 and kacc["1a"] == 0
+    row["ok"] = ok
+    emit(row)
+    assert row["ok"], row
+    del dparams, head_w
+    torch.cuda.empty_cache()
+
+
+def phase_train_vlm_data_gen(dev, models):
+    """Image-conditioned training data at LLaVA-1.5-7B (32 layers bfloat16,
+    the ``llava_full_depth`` model): ``generate_vlm_sample`` with one
+    336x336 image (576 image tokens) and 64 generated tokens, then one
+    ``train_step`` (float32 master, ``bf16=True``, mtp_steps 2, no warm-up)
+    of a fresh draft at the 7B's widths whose plan has that image span, at
+    the span's own bucket: the image adaptor's gradient path.  Gates: the
+    sample's image mask is the 576-row span, the continuation is the
+    target's own, and the step moves the adaptor and ``img_fc``."""
+    from vispec_tpu_torch.configs import DraftConfig
+    from vispec_tpu_torch.models import draft as draft_mod
+    from vispec_tpu_torch.spec.spec_model import _bucket
+    from vispec_tpu_torch.train import data_gen, step as tstep, trainer
+
+    model = models["llava-1.5"]
+    req = _image_request(model, (336, 336), seed=40)
+    ids, n = req["input_ids"], len(req["input_ids"])
+    pixels = torch.as_tensor(req["pixel_values"], device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sample = data_gen.generate_vlm_sample(model, ids, pixel_values=pixels,
+                                          image_size=(336, 336), max_new_tokens=64)
+    gen_s = time.perf_counter() - t0
+    ar = model.ar_generate(ids, max_new_tokens=64, pixel_values=pixels,
+                           image_size=(336, 336))
+    gen = sample["input_ids"][n:].tolist()
+    row = {"phase": "train_vlm_data_gen", "prompt": n, "image_tokens": 576,
+           "generate_s": gen_s, "sample_rows": int(sample["hidden_state"].shape[0]),
+           "image_mask_rows": int(sample["image_mask"].sum()),
+           "continuation_equals_ar": gen == ar.sequences[n:n + len(gen)].tolist()}
+    ok = (row["image_mask_rows"] == 576 and sample["loss_mask"][:n].sum() == 0
+          and len(gen) == 64 and np.isfinite(sample["hidden_state"]).all()
+          and row["continuation_equals_ar"])
+
+    dcfg = DraftConfig(vocab_size=LLAVA_VOCAB)
+    g = torch.Generator(device=dev).manual_seed(12)
+    dparams = draft_mod.init_params(dcfg, g, dev, torch.float32)
+    head_w = model.tparams["lm_head"].float()
+    cfg = trainer.TrainConfig(lr=1e-5, max_len=768, mtp_steps=2, warmup_steps=0, bf16=True)
+    ex = trainer.prepare_example(sample, cfg, dcfg, np.random.default_rng(0))
+    batch, span = trainer.batch_examples([ex], dev)
+    before = {k: v.clone() for k, v in (("adaptor_wk", dparams["adaptor"]["wk"]),
+                                        ("adaptor_q", dparams["adaptor"]["q"]),
+                                        ("img_fc_w", dparams["img_fc_w"]))}
+    opt = tstep.make_optimizer(cfg.lr, 0, cfg.total_steps, cfg.grad_clip)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dparams, _, metrics = tstep.train_step(dparams, opt.init(dparams), dcfg, head_w, batch,
+                                           opt, mtp_steps=2, max_span=_bucket(span, 64),
+                                           bf16=True)
+    loss = float(metrics["loss"])
+    step_ms = (time.perf_counter() - t0) * 1e3
+    after = {"adaptor_wk": dparams["adaptor"]["wk"], "adaptor_q": dparams["adaptor"]["q"],
+             "img_fc_w": dparams["img_fc_w"]}
+    moved = {k: (after[k] - v).abs().max().item() for k, v in before.items()}
+    row.update(span=span, max_span=_bucket(span, 64), step_ms=step_ms, loss=loss,
+               moved=moved, plan_images=int(batch.plans.num_images[0]))
+    ok &= np.isfinite(loss) and all(v > 0 for v in moved.values())
+    row["ok"] = ok
+    emit(row)
+    assert row["ok"], row
+    del dparams, head_w, batch
+    model.target_cache = None
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU port only",
@@ -2932,8 +3453,12 @@ def main():
     rows_q4 += phase_mixtral_exact(dev)
     phase_snapshot_exact(dev)
     phase_from_pretrained_device(dev)
+    phase_eval_exact(dev)
+    phase_train_exact(dev)
     model, prompt, bf16_row = phase_full_width_depth(dev)
     serving_row = phase_serving_full_depth(dev, model)
+    phase_eval_full_depth(dev, model, serving_row)
+    phase_train_full_width(dev, model)
     med = phase_sampling_full_depth(dev, model, prompt)
     phase_serving_sampling_full_depth(dev, model, med)
     del med
@@ -2949,6 +3474,7 @@ def main():
     llava_models = _llava_models(dev, 32, torch.bfloat16, seed=0)
     phase_llava_full_depth(dev, llava_models)
     phase_serving_vision_full_depth(dev, llava_models["llava-1.5"])
+    phase_train_vlm_data_gen(dev, llava_models)
     del llava_models
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,5 +1,5 @@
 """The port stands alone: no file of vispec_tpu_torch/, and not chip_smoke.py,
-imports jax, vispec_tpu or safetensors; importing the package loads none of
+imports jax, vispec_tpu, safetensors or optax; importing the package loads none of
 them; its entry points default to the GPU."""
 
 import ast
@@ -13,9 +13,10 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "vispec_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-# the card's machine has no safetensors package: the port reads and writes
-# the format itself (convert/hf.py, convert/export.py)
-FORBIDDEN = ("jax", "jaxlib", "vispec_tpu", "safetensors")
+# the card's machine has no safetensors or optax package: the port reads and
+# writes the format itself (convert/hf.py, convert/export.py) and writes its
+# optimizer out on tensors (train/step.py)
+FORBIDDEN = ("jax", "jaxlib", "vispec_tpu", "safetensors", "optax")
 
 
 def _imported_modules(path):
@@ -55,6 +56,7 @@ def test_entry_points_default_to_the_gpu():
     from vispec_tpu_torch.ops.kv_cache import init_cache
     from vispec_tpu_torch.spec import batch
     from vispec_tpu_torch.spec.spec_model import SpecModel
+    from vispec_tpu_torch.train import main_mtp, trainer
 
     for fn in (SpecModel.__init__, init_cache, from_numpy, llama.init_params,
                draft.init_params, draft.init_draft_cache, draft.make_prefill_plan,
@@ -63,6 +65,8 @@ def test_entry_points_default_to_the_gpu():
                medusa.init_params, medusa.convert_medusa, static_tree.from_choices,
                rng.key, rng.keys, SpecModel.from_pretrained, mixtral.init_params,
                mixtral.convert_mixtral, hf.convert_llama, hf.convert_draft,
-               hf.convert_clip_and_projector, hf.convert_qwen_vision):
+               hf.convert_clip_and_projector, hf.convert_qwen_vision,
+               trainer.batch_examples, trainer.data_iterator, trainer.load_state,
+               main_mtp.load_head_only):
         default = inspect.signature(fn).parameters["device"].default
         assert torch.device(default).type == "cuda", fn.__qualname__

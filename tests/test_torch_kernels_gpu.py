@@ -576,3 +576,72 @@ def test_medusa_depth5_region_matches_plain_in_1a_and_1c(cuda_device, dtype):
     torch.cuda.synchronize()
     assert (one.float() - ref.float()).abs().max().item() <= tol
     assert (out.float() - ref_b.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+def test_batched_kernel_at_the_getkacc_shape_matches_plain(cuda_device):
+    """Kernel 1c at ``trainer.getkacc``'s rollout: 16 prefixes, one query row
+    each, over a float32 draft cache of 512 + 5 + 2 rows (a row count that
+    is not a multiple of the 64-row tile), 32 heads over 32."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(70)
+    b, h, d, rows = 16, 32, 128, 519
+    q = torch.randn((b, h, 1, d), generator=g, device=dev)
+    k = torch.randn((b, h, rows, d), generator=g, device=dev)
+    v = torch.randn((b, h, rows, d), generator=g, device=dev)
+    starts = torch.randint(2, rows - 1, (b,), generator=g, device=dev, dtype=torch.int32)
+    starts[0] = rows - 1  # a region ending at the cache's last row
+    ones = torch.ones((b, 1, 1), dtype=torch.bool, device=dev)
+    before = va.verify_attention_batched.launches
+    out = va.verify_attention_batched(q, k, v, starts, ones)
+    ref = va.verify_attention_batched_ref(q, k, v, starts, ones)
+    torch.cuda.synchronize()
+    assert va.verify_attention_batched.launches == before + 1
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One ``train_step`` (mtp_steps 2, float32, no warm-up so the update is
+    live) of a toy draft with an image span, on the card and on the CPU from
+    one state: the parameters within 1% of the learning rate, the loss
+    within 1e-4 (relative)."""
+    import numpy as np
+
+    from vispec_tpu_torch.configs import DraftConfig
+    from vispec_tpu_torch.models import draft as draft_mod
+    from vispec_tpu_torch.train import step as tstep
+    from vispec_tpu_torch.train import trainer
+
+    cpu, lr = torch.device("cpu"), 2e-3
+    dcfg = DraftConfig(vocab_size=256, hidden_size=64, intermediate_size=128,
+                       num_attention_heads=4, num_key_value_heads=2,
+                       max_position_embeddings=512)
+    g = torch.Generator().manual_seed(3)
+    params = draft_mod.init_params(dcfg, g, cpu, torch.float32)
+    head = 0.3 * torch.randn((64, 256), generator=g)
+    rng = np.random.default_rng(3)
+    img = np.zeros(60, bool)
+    img[6:20] = True
+    mask = np.zeros(60, np.float32)
+    mask[20:] = 1
+    sample = {"hidden_state": rng.normal(0, 1, (60, 64)).astype(np.float32),
+              "inputs_embeds": rng.normal(0, 1, (60, 64)).astype(np.float32),
+              "loss_mask": mask, "image_mask": img}
+    cfg = trainer.TrainConfig(lr=lr, max_len=64, max_images=2, max_span_bucket=16)
+    ex = trainer.prepare_example(sample, cfg, dcfg, np.random.default_rng(5))
+    opt = tstep.make_optimizer(lr, 0, 1000)
+    out = {}
+    for dev in (cpu, cuda_device):
+        # copies: a step updates its parameters in place
+        p = {k: ({kk: vv.clone().to(dev) for kk, vv in v.items()} if isinstance(v, dict)
+                 else v.clone().to(dev)) for k, v in params.items()}
+        batch, _ = trainer.batch_examples([ex], dev)
+        p, _, m = tstep.train_step(p, opt.init(p), dcfg, head.to(dev), batch, opt,
+                                   mtp_steps=2, max_span=16)
+        out[dev.type] = (p, float(m["loss"]))
+    (pc, lc), (pd, ld) = out["cpu"], out["cuda"]
+    assert abs(ld - lc) <= 1e-4 * max(abs(lc), 1.0)
+    for path, t in tstep.leaves(pd):
+        ref = dict(tstep.leaves(pc))[path]
+        assert (t.cpu() - ref).abs().max().item() <= 0.01 * lr, path

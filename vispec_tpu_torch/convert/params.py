@@ -11,7 +11,8 @@ Quantized leaves (the JAX ``QTensor`` / ``Q4Tensor`` NamedTuples of arrays)
 cross field by field into the port's ``ops.quant`` containers.  A JAX
 Mixtral tree (``router``, ``we_gate``, ``we_up``, ``we_down``) carries
 across with its expert gate and up weights laid out as ``models/mixtral.py``
-holds them.
+holds them.  ``adam_state_from_numpy`` carries optax's Adam state across
+into the port's optimizer (``train/step.py``).
 """
 
 from __future__ import annotations
@@ -97,3 +98,13 @@ def npz_side(z: Mapping, side: str) -> dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = np.asarray(z[key])
     return out
+
+
+def adam_state_from_numpy(count, mu: Mapping, nu: Mapping, device="cuda"):
+    """Adam's state handed over as numpy (optax's ``ScaleByAdamState``:
+    the step ``count`` and the moment trees ``mu``, ``nu``, each leaf as an
+    array) -> the port's ``train.step.AdamState``, so that both optimizers
+    can start from one state."""
+    from ..train.step import AdamState
+
+    return AdamState(int(np.asarray(count)), from_numpy(mu, device), from_numpy(nu, device))

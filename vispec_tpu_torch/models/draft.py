@@ -1,6 +1,9 @@
-"""ViSpec draft model (inference half): one EAGLE-style decoder layer plus the
-image adaptor, with the compressed prefill, the accepted-token append and the
-depth-limited beam expansion that grows the next verify tree.
+"""ViSpec draft model: one EAGLE-style decoder layer plus the image adaptor,
+with the compressed prefill, the accepted-token append and the
+depth-limited beam expansion that grows the next verify tree, and the
+cache-less training forwards (``layer_forward_nocache``, ``forward_train``:
+plain differentiable torch ops, the compressed sequence re-scattered to its
+positions).
 
 The prompt's image spans become a host-side integer plan (``PrefillPlan``,
 built once per prompt with numpy), which drives static gathers on the device.
@@ -349,6 +352,70 @@ def compress_inputs(
     x = torch.where(plan.is_adapted[:, None],
                     adapted_flat.index_select(0, ad_src).to(dtype), text_out)
     return x, last_img_table
+
+
+# ---------------------------------------------------------------------------
+# Training forwards (differentiable, cache-less)
+# ---------------------------------------------------------------------------
+
+
+def layer_forward_nocache(
+    params: dict,
+    cfg: DraftConfig,
+    x: torch.Tensor,  # [S, hidden] — already fc-fused
+    position_ids: torch.Tensor,  # [S]
+    attn_mask: torch.Tensor,  # [S, S] bool
+) -> torch.Tensor:
+    """Cache-less decoder layer for training: the full sequence through the
+    plain masked ``attend``, every op differentiable."""
+    lp = params["layer"]
+    cos, sin = rope_ops.cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
+    cos, sin = cos.unsqueeze(-3), sin.unsqueeze(-3)
+    s = x.shape[0]
+    h, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+
+    q = qdot(x, lp["wq"]).to(x.dtype)
+    k = qdot(x, lp["wk"]).to(x.dtype)
+    v = qdot(x, lp["wv"]).to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + lp["bq"].to(q.dtype)
+        k = k + lp["bk"].to(k.dtype)
+        v = v + lp["bv"].to(v.dtype)
+    q = q.reshape(s, h, d).transpose(0, 1)
+    k = k.reshape(s, hkv, d).transpose(0, 1)
+    v = v.reshape(s, hkv, d).transpose(0, 1)
+    q, k = rope_ops.apply_rope(q, k, cos, sin)
+    attn = attend(q, k, v, attn_mask)
+    attn = attn.transpose(0, 1).reshape(s, h * d)
+    hidden = x + qdot(attn, lp["wo"]).to(x.dtype)
+    normed = rms_norm(hidden, lp["post_norm"], cfg.rms_norm_eps)
+    return hidden + swiglu_mlp(normed, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
+def forward_train(
+    params: dict,
+    cfg: DraftConfig,
+    target_hidden: torch.Tensor,  # [pad_len, hidden] — (possibly noised) target hiddens
+    embeds: torch.Tensor,  # [pad_len, hidden] — input embeds (vision-merged)
+    plan: PrefillPlan,
+    max_span: int = 1,
+) -> torch.Tensor:
+    """Training-time full-sequence forward with compression and re-scatter:
+    compressed slot s writes to original position ``plan.pos_ids[s]``;
+    dropped image positions stay zero.  Returns [pad_len, hidden]."""
+    pad_len = plan.gather_src.shape[0]
+    x, _ = compress_inputs(params, cfg, target_hidden, embeds, plan, max_span)
+
+    rows = torch.arange(pad_len, dtype=torch.int32, device=x.device)
+    valid = rows < plan.comp_len
+    attn_mask = (rows[None, :] <= rows[:, None]) & valid[None, :]
+    hidden = layer_forward_nocache(params, cfg, x, plan.pos_ids, attn_mask)
+
+    # the re-scatter: slot s -> original position pos_ids[s]; the invalid
+    # slots add zeros at the last row
+    scatter_pos = torch.where(valid, plan.pos_ids, pad_len - 1).to(torch.int64)
+    contrib = torch.where(valid[:, None], hidden, torch.zeros_like(hidden))
+    return torch.zeros_like(hidden).index_add(0, scatter_pos, contrib)
 
 
 # ---------------------------------------------------------------------------

@@ -165,12 +165,44 @@ def dequantize(w: MaybeQuant, dtype=torch.bfloat16) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _mm_bf16_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """2-D bf16 ``a @ b`` on the card as one cuBLAS GEMM with a float32
+    output (``aten::mm.dtype``)."""
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+class _MatmulBF16F32(torch.autograd.Function):
+    """The bf16 card product under autograd (training's ``bf16=True``): the
+    forward as ``_mm_bf16_f32``; the backward takes the float32 cotangent
+    to bf16 and returns each input's gradient in its own dtype, from the
+    same float32-output GEMMs."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return _mm_bf16_f32(x2, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(torch.bfloat16)
+        gx = _mm_bf16_f32(g, w.t()).to(x2.dtype) if ctx.needs_input_grad[0] else None
+        gw = _mm_bf16_f32(x2.t(), g).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` (w 2-D) accumulated and returned in float32, never rounded
     to the inputs' dtype in between.  bf16 on the card: one cuBLAS GEMM with
-    a float32 output (``aten::mm.dtype``); otherwise a float32 product."""
+    a float32 output (``aten::mm.dtype``); otherwise a float32 product.
+    Both are differentiable (the training forwards run them under
+    autograd)."""
     if x.is_cuda and x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        x2 = x.reshape(-1, x.shape[-1])
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            y = _MatmulBF16F32.apply(x2, w)
+        else:
+            y = _mm_bf16_f32(x2, w)
         return y.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())
 
