@@ -42,7 +42,16 @@ float32 (spec == AR on every turn) and at 32 layers in bfloat16 with
 CPU at toy widths, a training sample generated by the 7B and ten
 7B-width steps with the state round trip and ``getkacc``, and a LLaVA-1.5
 image sample with a step through the image adaptor; a 1c kernel row at
-``getkacc``'s shape.  Prints one JSON line per phase, a
+``getkacc``'s shape.  Then multi-device inference (``parallel/``) in worlds
+of rank processes of this script (``--parallel-rank``) that share the card
+over gloo with CUDA tensors: tp 2, pp 2, pp 2 x sp 2, tp 2 with an int4
+draft over int8 KV and Mixtral at ep 2, 2 layers in float32, token-equal
+to one process; Vicuna-7B at 32 layers and Mixtral at 8 of 32 layers in
+bfloat16 over tp / ep 2 (tok/s, launches and collectives per round, idle
+share, peak memory per rank: on one card these measure the collectives'
+cost, not a speed-up); and kernel rows at the shard shapes (16 heads over
+16 or 4 KV heads, a pp stage's cache, kernel 2 at N / 2).  Prints one JSON
+line per phase, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failed phase raises and
 the script exits non-zero without that line; so does a machine without a
@@ -58,7 +67,9 @@ request and through the engine (``full_width_depth``,
 ``serving_full_depth``, ``quant_full_depth``,
 ``serving_quant_full_depth`` and their profiles).  ``--attention-times``:
 every attention ``kernel_vs_plain`` line (rows 1a, 1b, 1c).
-``--q4-times``: kernel 2 alone.
+``--q4-times``: kernel 2 alone.  ``--parallel`` runs only the build and
+the multi-device phases (on a machine with a card per rank their worlds
+take NCCL, one card each).
 """
 
 import gc
@@ -93,6 +104,8 @@ PROFILE_TOKENS = 8
 DEPTH_TOKENS = 64
 # requests of serving_full_depth also run one at a time for the serial rate
 SERIAL_REQUESTS = 4
+# MT-bench questions of eval_full_depth (2 before slice 13's phases)
+EVAL_QUESTIONS = 1
 # the 1c kernel row at getkacc's shape: 16 slots' committed rows
 KACC_STARTS = tuple(int(x) for x in np.random.default_rng(70).integers(256, 511, 16))
 
@@ -922,6 +935,10 @@ def _profile(fn):
     stats = prof.key_averages()
     kernels = sorted((e for e in stats if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.device_time_total)
+    # NCCL's kernels wait on the peer inside the kernel: their time is the
+    # collectives', reported apart and not counted as busy
+    comm = [e for e in kernels if "nccl" in e.key.lower()]
+    kernels = [e for e in kernels if e not in comm]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     port = {}  # the port's own kernels: [launches, device ms]
     for e in kernels:
@@ -933,6 +950,7 @@ def _profile(fn):
                   key=lambda e: -e.self_cpu_time_total)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "nccl_kernel_ms": sum(e.device_time_total for e in comm) / 1e3,
             "kernel_launches": sum(e.count for e in kernels),
             "port_kernels": {k: list(v) for k, v in port.items()},
             "top_kernels_ms": [[e.key[:60], e.count, e.device_time_total / 1e3]
@@ -3040,7 +3058,7 @@ def phase_eval_exact(dev):
 def phase_eval_full_depth(dev, model, serving_row):
     """The harness at Vicuna-7B, 32 layers, bfloat16 (the
     ``full_width_depth`` model): ``run_eval`` spec and baseline over the
-    first 2 MT-bench questions, both turns, 128 new tokens a turn; tok/s of
+    first ``EVAL_QUESTIONS`` MT-bench questions, both turns, 128 new tokens a turn; tok/s of
     each (``speed.speedup_report``, wall time closed on the device), the
     mean acceptance length, the speed-up and kernel 1a's launches per turn.
     Then ``bench_batch.arrival_bench`` on the B = 4 engine: 8 requests of 64
@@ -3050,7 +3068,7 @@ def phase_eval_full_depth(dev, model, serving_row):
     (completion minus scheduled arrival), and kernel 1c's launches."""
     from vispec_tpu_torch.evaluation import bench_batch, speed
 
-    qs, tok = _mt_bench(2)
+    qs, tok = _mt_bench(EVAL_QUESTIONS)
     recs, paths, counts = _run_eval_pair(model, qs, tok, 128, "full_depth")
     rep = speed.speedup_report(paths["spec"], paths["baseline"])
     turns = sum(len(r["turns"]) for r in recs["spec"])
@@ -3418,11 +3436,390 @@ def phase_train_vlm_data_gen(dev, models):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Multi-device inference: worlds of ranks that share the card over gloo
+# ---------------------------------------------------------------------------
+
+# (mode, tp, pp, sp, options): each at 2 layers in float32, Vicuna-7B widths
+# (Mixtral-8x7B's for mixtral_ep2); the batch case runs on the tp2 model
+PARALLEL_EXACT = (
+    ("tp2", 2, 1, 1, {}),
+    ("pp2", 1, 2, 1, {}),
+    ("pp2_sp2", 1, 2, 2, {}),
+    ("tp2_int4_draft_int8_kv", 2, 1, 1, {"quantize_draft": "int4", "quantize_kv": True}),
+    ("mixtral_ep2", 2, 1, 1, {"mixtral": True}),
+)
+PARALLEL_WORLD_EXACT = 4  # pp2_sp2 needs four ranks; the others take dp 2
+PARALLEL_WORLD_FULL = 2
+PARALLEL_MIXTRAL_LAYERS = 8  # of 32: two ranks' bf16 shards and one full copy at a time
+PARALLEL_BATCH = (40, 90, 130)  # specgenerate_batch prompts of the tp2 case
+# new tokens of each full-width parallel run: two ranks on one card decode
+# at 4-19 tok/s, held back by ~2 ms of host a collective
+PARALLEL_TOKENS = 32
+
+
+def _parallel_model(dev, opts):
+    """The float32 2-layer model of a parallel_exact mode (full_width_exact's
+    and mixtral_exact's seeds) and its prompt."""
+    if opts.get("mixtral"):
+        return (_mixtral_model(dev, 2, torch.float32, seed=9),
+                np.random.default_rng(9).integers(3, 32000, 100).tolist())
+    quant = {k: v for k, v in opts.items() if k in ("quantize_draft", "quantize_kv")}
+    return (_full_width_model(dev, 2, torch.float32, seed=1, **quant),
+            np.random.default_rng(1).integers(3, 32000, 100).tolist())
+
+
+def _staggered_shard(mesh, build, pp, sp):
+    """Each rank in turn builds the whole model and keeps its shard, so that
+    one whole copy at a time lives on the shared card."""
+    import torch.distributed as dist
+
+    model = None
+    for turn in range(dist.get_world_size()):
+        if turn == mesh.rank:
+            model = build()
+            model.shard_over(mesh, pp=pp, sp=sp)
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return model
+
+
+def _rank_exact(dev):
+    """One rank of the parallel_exact world: every mode's spec and AR tokens,
+    its kernel launches, collectives and int4 shapes; the tp2 model also
+    decodes a batch."""
+    from vispec_tpu_torch.parallel import mesh as meshmod
+    from vispec_tpu_torch.parallel import sharding
+
+    out = {}
+    for mode, tp, pp, sp, opts in PARALLEL_EXACT:
+        mesh = meshmod.make_mesh(tp=tp, pp=pp, sp=sp, device="cuda")
+        model = _staggered_shard(mesh, lambda: _parallel_model(dev, opts)[0], pp > 1, sp > 1)
+        prompt = np.random.default_rng(9 if opts.get("mixtral") else 1).integers(
+            3, 32000, 100).tolist()
+        q4_shapes, undo = _recording_q4_dispatch()
+        _zero_launch_counts()
+        sharding.COLLECTIVES.reset()
+        try:
+            spec = model.specgenerate(prompt, max_new_tokens=64)
+            spec_counts, spec_coll = _launch_counts(), dict(sharding.COLLECTIVES.calls)
+            ar = model.ar_generate(prompt, max_new_tokens=64)
+        finally:
+            undo()
+        row = {"mesh": mesh.describe(), "spec": spec.sequences[:164].tolist(),
+               "ar": ar.sequences[:164].tolist(), "dispatched": spec.dispatched,
+               "launches_spec": spec_counts, "launches_all": _launch_counts(),
+               "collectives_spec": spec_coll,
+               "local_wq": list(model.tparams["layers"]["wq"].shape),
+               "q4_shapes": sorted(q4_shapes)}
+        if mode == "tp2":
+            rng = np.random.default_rng(9)
+            prompts = [rng.integers(3, 32000, n).tolist() for n in PARALLEL_BATCH]
+            refs = [model.specgenerate(p, max_new_tokens=32).sequences[len(p):].tolist()
+                    for p in prompts]
+            _zero_launch_counts()
+            got = model.specgenerate_batch([{"input_ids": p} for p in prompts],
+                                           max_new_tokens=32)
+            row["batch_equal"] = [o.sequences[len(p):len(p) + 32].tolist() == r[:32]
+                                  for p, o, r in zip(prompts, got, refs)]
+            row["launches_batch"] = _launch_counts()
+        out[mode] = row
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rank_full_run(model, prompt, tokens):
+    """Warm-up, then spec and AR ``tokens`` each: tok/s, kernel launches,
+    collectives and their host ms, peak memory; one spec run profiled."""
+    from vispec_tpu_torch.parallel import sharding
+
+    model.specgenerate(prompt, max_new_tokens=8)
+    model.ar_generate(prompt, max_new_tokens=8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    row = {}
+    for label, gen in (("spec", model.specgenerate), ("ar", model.ar_generate)):
+        _zero_launch_counts()
+        sharding.COLLECTIVES.reset()
+        res = gen(prompt, max_new_tokens=tokens)
+        coll = sharding.COLLECTIVES
+        row[label] = {"tokens": res.new_tokens, "s": res.decode_time,
+                      "tok_per_s": res.new_tokens / res.decode_time,
+                      "dispatched": res.dispatched, "launches": _launch_counts(),
+                      "collectives": dict(coll.calls), "collective_calls": coll.total_calls,
+                      "collective_host_ms": coll.total_seconds * 1e3,
+                      "sequence": res.sequences[len(prompt):].tolist()}
+        if label == "spec":
+            row[label]["tau"] = float(np.mean([x + 1 for x in res.acceptance_lengths]))
+    row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    row["profile"] = _profile(lambda: model.specgenerate(prompt,
+                                                         max_new_tokens=PROFILE_TOKENS))
+    return row
+
+
+def _rank_full(dev):
+    """One rank of the full-width world: Vicuna-7B at 32 layers in bfloat16
+    over tp 2, then Mixtral-8x7B at PARALLEL_MIXTRAL_LAYERS layers over ep 2."""
+    from vispec_tpu_torch.parallel import mesh as meshmod
+
+    mesh = meshmod.make_mesh(tp=2, device="cuda")
+    prompt = np.random.default_rng(0).integers(3, 32000, 128).tolist()
+    model = _staggered_shard(mesh, lambda: _full_width_model(dev, 32, torch.bfloat16, 0),
+                             False, False)
+    out = {"mesh": mesh.describe(), "vicuna": _rank_full_run(model, prompt, PARALLEL_TOKENS)}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = _staggered_shard(
+        mesh, lambda: _mixtral_model(dev, PARALLEL_MIXTRAL_LAYERS, torch.bfloat16, 0),
+        False, False)
+    out["mixtral"] = _rank_full_run(model, prompt, PARALLEL_TOKENS)
+    return out
+
+
+def parallel_rank(rank, world, init_file, job, out_path):
+    """A rank process of ``run_world``: joins the world, runs ``job`` and
+    writes its result as JSON."""
+    from vispec_tpu_torch.parallel import multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the mesh's device: a card of its own per rank (NCCL) where there are
+    # enough, else the shared first card
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    multihost.init_distributed(init_method="file://" + init_file, num_processes=world,
+                               process_id=rank)
+    result = {"exact": _rank_exact, "full": _rank_full}[job](dev)
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+
+
+def run_world(job, world, timeout_s=600):
+    """``world`` rank processes of this script on the one card (gloo with
+    CUDA tensors), each running ``job``; returns their results in rank
+    order.  The kernels are built already (``phase_build``): the ranks load
+    them and never run nvcc."""
+    tmp = os.path.join(ROOT, "build", "parallel")
+    os.makedirs(tmp, exist_ok=True)
+    init = os.path.join(tmp, f"{job}.init")
+    if os.path.exists(init):
+        os.remove(init)
+    outs = [os.path.join(tmp, f"{job}_rank{r}.json") for r in range(world)]
+    logs = [os.path.join(tmp, f"{job}_rank{r}.log") for r in range(world)]
+    procs = []
+    for r in range(world):
+        if os.path.exists(outs[r]):
+            os.remove(outs[r])
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-rank", str(r), str(world),
+             init, job, outs[r]], cwd=ROOT, stdout=open(logs[r], "w"),
+            stderr=subprocess.STDOUT))
+    deadline = time.perf_counter() + timeout_s
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0 or not os.path.exists(outs[r])]
+    if bad:
+        tails = {r: open(logs[r]).read()[-3000:] for r in bad}
+        raise RuntimeError(f"parallel world {job}: ranks {bad} failed: {tails}")
+    results = []
+    for path in outs:
+        with open(path) as f:
+            results.append(json.load(f))
+    return results
+
+
+def phase_parallel_exact(dev):
+    """Multi-device inference against one process: each mode of
+    PARALLEL_EXACT (2 layers, float32, Vicuna-7B or Mixtral-8x7B widths) in
+    a world of four ranks sharing the card over gloo gives, on every rank,
+    the single-process spec and AR tokens (64 new tokens; spec == AR too);
+    the tp2 model's ``specgenerate_batch`` equals its per-request runs.
+    Returns the (K, N, M) the int4 draft sent kernel 2."""
+    refs = {}
+    for mode, _, _, _, opts in PARALLEL_EXACT:
+        key = "mixtral" if opts.get("mixtral") else str(sorted(opts.items()))
+        if key not in refs:
+            model, prompt = _parallel_model(dev, opts)
+            refs[key] = (model.specgenerate(prompt, max_new_tokens=64).sequences[:164].tolist(),
+                         model.ar_generate(prompt, max_new_tokens=64).sequences[:164].tolist())
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_world("exact", PARALLEL_WORLD_EXACT)
+    world_s = time.perf_counter() - t0
+    q4_shapes = set()
+    for mode, tp, pp, sp, opts in PARALLEL_EXACT:
+        key = "mixtral" if opts.get("mixtral") else str(sorted(opts.items()))
+        ref_spec, ref_ar = refs[key]
+        per = [r[mode] for r in ranks]
+        row = {"phase": "parallel_exact", "case": mode, "mesh": per[0]["mesh"],
+               "layers": 2, "dtype": "float32", "world_s": world_s,
+               "single_spec_equals_ar": ref_spec == ref_ar,
+               "spec_equals_single": [p["spec"] == ref_spec for p in per],
+               "ar_equals_single": [p["ar"] == ref_ar for p in per],
+               "local_wq": per[0]["local_wq"], "dispatched": per[0]["dispatched"],
+               "launches_spec": per[0]["launches_spec"],
+               "launches_all": per[0]["launches_all"],
+               "collectives_spec": per[0]["collectives_spec"]}
+        if "batch_equal" in per[0]:
+            row["batch_equal"] = [p["batch_equal"] for p in per]
+            row["launches_batch"] = per[0]["launches_batch"]
+        for p in per:
+            q4_shapes.update(tuple(s) for s in p["q4_shapes"])
+        row["ok"] = (row["single_spec_equals_ar"] and all(row["spec_equals_single"])
+                     and all(row["ar_equals_single"]) and row["launches_spec"]["1a"] > 0
+                     and all(all(b) for b in row.get("batch_equal", [[True]]))
+                     and (mode != "tp2" or row["launches_batch"]["1c"] > 0)
+                     and (not opts.get("quantize_kv") or row["launches_all"]["1b"] > 0)
+                     and (not opts.get("quantize_draft") or row["launches_all"]["2"] > 0))
+        emit(row)
+        assert row["ok"], row
+    return sorted(q4_shapes)
+
+
+def _full_row(phase, layers, ranks, key, note):
+    """The line of one full-width model of the parallel world."""
+    runs = [r[key] for r in ranks]
+    depth = 3
+    spec_1a = [r["spec"]["launches"]["1a"] for r in runs]
+    disp = [r["spec"]["dispatched"] for r in runs]
+    ar_1a = [r["ar"]["launches"]["1a"] for r in runs]
+    want_spec = [depth + d * (layers + 1 + depth) for d in disp]
+    want_ar = [r["ar"]["dispatched"] * layers for r in runs]
+    prof = [r["profile"] for r in runs]
+    row = {"phase": phase, "mesh": ranks[0]["mesh"], "layers": layers, "dtype": "bfloat16",
+           "note": note,
+           "spec_tok_per_s": [r["spec"]["tok_per_s"] for r in runs],
+           "ar_tok_per_s": [r["ar"]["tok_per_s"] for r in runs],
+           "tau": runs[0]["spec"]["tau"], "dispatched_rounds": disp,
+           "launches_1a_per_round": [(a - depth) / d for a, d in zip(spec_1a, disp)],
+           "launches_1a_spec": spec_1a, "expected_spec": want_spec,
+           "launches_1a_ar": ar_1a, "expected_ar": want_ar,
+           "collectives_per_round": [r["spec"]["collective_calls"] / d
+                                     for r, d in zip(runs, disp)],
+           "collective_host_ms_per_round": [r["spec"]["collective_host_ms"] / d
+                                            for r, d in zip(runs, disp)],
+           "collective_host_ms_each": [r["spec"]["collective_host_ms"]
+                                       / max(1, r["spec"]["collective_calls"]) for r in runs],
+           "collectives_per_ar_step": [r["ar"]["collective_calls"] / r["ar"]["dispatched"]
+                                       for r in runs],
+           "collectives_spec": runs[0]["spec"]["collectives"],
+           "device_idle_share_per_rank": [p["device_idle_share"] for p in prof],
+           "profile_wall_ms": [p["wall_ms"] for p in prof],
+           "profile_device_busy_ms": [p["device_busy_ms"] for p in prof],
+           "profile_nccl_kernel_ms": [p["nccl_kernel_ms"] for p in prof],
+           "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in runs],
+           "ranks_agree": all(r["spec"]["sequence"] == runs[0]["spec"]["sequence"]
+                              and r["ar"]["sequence"] == runs[0]["ar"]["sequence"]
+                              for r in runs)}
+    row["ok"] = (spec_1a == want_spec and ar_1a == want_ar and row["ranks_agree"]
+                 and all(r["spec"]["tokens"] >= PARALLEL_TOKENS and r["ar"]["tokens"]
+                         >= PARALLEL_TOKENS for r in runs))
+    emit(row)
+    assert row["ok"], row
+
+
+def phase_parallel_full_width():
+    """Vicuna-7B at 32 layers and Mixtral-8x7B at PARALLEL_MIXTRAL_LAYERS of
+    32 layers, bfloat16, over two ranks (sharing the card over gloo, or a
+    card each over NCCL where there are enough): tok/s of spec and AR,
+    kernel 1a's launches per round against the expected count, collectives
+    per round and their host ms, the idle share each rank's profiler sees,
+    peak memory per rank."""
+    ranks = run_world("full", PARALLEL_WORLD_FULL, timeout_s=900)
+    note = ("two ranks on one card over gloo: tok/s measure the cost of the "
+            "collectives, not a speed-up" if "shared" in ranks[0]["mesh"] else
+            "a card per rank over NCCL")
+    _full_row("parallel_full_width", 32, ranks, "vicuna", note)
+    _full_row("parallel_mixtral_ep2_full_width", PARALLEL_MIXTRAL_LAYERS, ranks, "mixtral",
+              note + f"; {PARALLEL_MIXTRAL_LAYERS} of Mixtral's 32 layers")
+
+
+def phase_kernel_shards(dev, q4_shapes):
+    """Kernels 1a, 1b, 1c and 2 against their plain versions at the shapes
+    that the parallel phases give them: 16 heads over 16 KV heads (Vicuna-7B
+    and its draft at tp 2), 16 over 4 (Mixtral-8x7B and its draft at ep 2),
+    a pp stage's one layer of a 2-layer cache, the int8 cache at tp 2 with
+    float32 q (the quantized parallel_exact mode), the batched verify at
+    tp 2, and every (K, N, M) the int4 draft sent kernel 2 at tp 2.
+    Returns the rows by kernel."""
+    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
+    g = torch.Generator().manual_seed(13)
+    tree = torch.tril(torch.rand((30, 30), generator=g) < 0.3)
+    tree.fill_diagonal_(True)
+    tree[:, 0] = True
+    expand = torch.zeros((8, 24), dtype=torch.bool)
+    expand[:, :16] = torch.rand((8, 16), generator=g) < 0.3
+    expand[torch.arange(8), 16 + torch.arange(8)] = True
+    tree, expand = tree.to(dev), expand.to(dev)
+    ones = torch.ones((1, 1), dtype=torch.bool, device=dev)
+    tri = torch.tril(torch.ones((5, 5), dtype=torch.bool, device=dev))
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows_1a = [
+        kernel_case("tp2_target_verify", 80, dev, bf16, 16, 16, 30, 30, 301, 32, tree, flush),
+        kernel_case("tp2_ar_step", 81, dev, bf16, 16, 16, 1, 1, 319, 32, ones, flush),
+        kernel_case("tp2_draft_append", 82, dev, bf16, 16, 16, 5, 5, 317, None, tri, flush),
+        kernel_case("tp2_draft_expand", 83, dev, bf16, 16, 16, 8, 24, 300, None, expand,
+                    flush),
+        kernel_case("tp2_target_verify_f32", 84, dev, f32, 16, 16, 30, 30, 301, 2, tree,
+                    flush),
+        kernel_case("pp2_stage_target_verify_f32", 85, dev, f32, 32, 32, 30, 30, 301, 1,
+                    tree, flush),
+        kernel_case("ep2_mixtral_target_verify", 86, dev, bf16, 16, 4, 30, 30, 301,
+                    PARALLEL_MIXTRAL_LAYERS, tree, flush),
+        kernel_case("ep2_mixtral_ar_step", 87, dev, bf16, 16, 4, 1, 1, 319,
+                    PARALLEL_MIXTRAL_LAYERS, ones, flush),
+        kernel_case("ep2_mixtral_draft_expand", 88, dev, bf16, 16, 4, 8, 24, 300, None,
+                    expand, flush),
+        kernel_case("ep2_mixtral_target_verify_f32", 89, dev, f32, 16, 4, 30, 30, 301, 2,
+                    tree, flush),
+    ]
+    rows_1b = [
+        kernel_case_int8("tp2_target_verify_int8_f32", 90, dev, 16, 16, 30, 30, 301, 2, tree,
+                         flush, dtype=f32),
+        kernel_case_int8("tp2_ar_step_int8_f32", 91, dev, 16, 16, 1, 1, 319, 2, ones, flush,
+                         dtype=f32),
+        kernel_case_int8("tp2_target_verify_int8", 92, dev, 16, 16, 30, 30, 301, 32, tree,
+                         flush),
+    ]
+    b, starts, layers = 3, (301, 129, 777), (0, 1, 1)
+    tree_b = torch.tril(torch.rand((b, 30, 30), generator=g) < 0.3)
+    tree_b |= torch.eye(30, dtype=torch.bool)
+    tree_b[:, :, 0] = True
+    expand_b = torch.zeros((b, 8, 24), dtype=torch.bool)
+    expand_b[:, :, :16] = torch.rand((b, 8, 16), generator=g) < 0.3
+    expand_b[:, torch.arange(8), 16 + torch.arange(8)] = True
+    tree_b, expand_b = tree_b.to(dev).contiguous(), expand_b.to(dev).contiguous()
+    rows_1c = [
+        kernel_case_batched("tp2_batched_target_verify_f32", 93, dev, f32, 16, 16, 30, 30,
+                            starts, layers, tree_b, flush, n_layers=2),
+        kernel_case_batched("tp2_batched_draft_expand_f32", 94, dev, f32, 16, 16, 8, 24,
+                            starts, None, expand_b, flush),
+    ]
+    rows_2 = [q4_case(dev, k, n, m, flush, prefix="tp2_q4") for k, n, m in q4_shapes]
+    torch.cuda.empty_cache()
+    return rows_1a, rows_1b, rows_1c, rows_2
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU port only",
               file=sys.stderr)
         sys.exit(2)
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        parallel_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5],
+                      sys.argv[6])
+        return
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3430,6 +3827,14 @@ def main():
           "python": sys.version.split()[0], "device": torch.cuda.get_device_name(0)})
     if sys.argv[1:2] and sys.argv[1] in CHECKOUT_PHASES:
         checkout_runs(sys.argv[1], sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["--parallel"]:
+        phase_build()
+        phase_parallel_exact(dev)
+        phase_parallel_full_width()
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             check=True, timeout=60).stdout.strip(), flush=True)
         return
 
     phase_build()
@@ -3488,6 +3893,11 @@ def main():
     phase_serving_mixtral_full_depth(dev, mixtral)
     phase_autotune_full_depth(dev, mixtral, f"mixtral-8x7b-{MIXTRAL_LAYERS}-layers")
     del mixtral
+    gc.collect()
+    torch.cuda.empty_cache()
+    q4_tp2_shapes = phase_parallel_exact(dev)
+    phase_parallel_full_width()
+    shard_1a, shard_1b, shard_1c, shard_2 = phase_kernel_shards(dev, q4_tp2_shapes)
 
     def entry(name, source, replaces, launches, case_rows, main_row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3502,18 +3912,20 @@ def main():
     # verify, 32 of 36 launches per batched round) and the int4 product at
     # [4096, 4096], M = 8 (6 of the 10 products per expansion level)
     q4_main = next(r for r in rows_q4 if r["case"] == "q4_4096x4096_m8")
+    # the rows at the parallel phases' shard shapes join each kernel's rows
+    # (max_abs_err is the largest over all of them)
     emit({"kernels": [
         entry("verify_attention", "vispec_tpu_torch/csrc/verify_attention.cu",
               "vispec_tpu/ops/pallas_attention.py:32", bf16_row["launches_spec"],
-              rows, rows[0]),
+              rows + shard_1a, rows[0]),
         entry("verify_attention_int8", "vispec_tpu_torch/csrc/verify_attention.cu",
               "vispec_tpu/ops/pallas_attention.py:32", quant_counts["1b"],
-              rows_int8, rows_int8[0]),
+              rows_int8 + shard_1b, rows_int8[0]),
         entry("q4_matmul", "vispec_tpu_torch/csrc/q4_matmul.cu",
-              "vispec_tpu/ops/quant.py:162", quant_counts["2"], rows_q4, q4_main),
+              "vispec_tpu/ops/quant.py:162", quant_counts["2"], rows_q4 + shard_2, q4_main),
         entry("verify_attention_batched", "vispec_tpu_torch/csrc/verify_attention.cu",
               "vispec_tpu/ops/pallas_attention.py:32", serving_row["launches"]["1c"],
-              rows_1c, rows_1c[0]),
+              rows_1c + shard_1c, rows_1c[0]),
         entry("verify_attention_batched_int8", "vispec_tpu_torch/csrc/verify_attention.cu",
               "vispec_tpu/ops/pallas_attention.py:32", serving_quant_counts["1c_int8"],
               rows_1c_int8, rows_1c_int8[0]),

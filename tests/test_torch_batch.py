@@ -19,7 +19,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from tests.torch_parity import (CPU, J_DCFG, J_SPEC, J_TCFG, T_DCFG, T_SPEC, T_TCFG, make_models,
-                                t2n, to_numpy_tree)
+                                t2n, to_numpy_tree, in_fresh_interpreter_module)
 from vispec_tpu.configs import DraftConfig as JDraftConfig
 from vispec_tpu.configs import LlamaConfig as JLlamaConfig
 from vispec_tpu.configs import SpecConfig as JSpecConfig
@@ -400,3 +400,8 @@ def test_pick_chunk_rounds_matches_jax():
                       prev + rng.integers(0, 40, b), rng.uniform(size=b) < 0.7))
     for case in cases:
         assert tbatch.pick_chunk_rounds(*case) == jbatch.pick_chunk_rounds(*case), case
+
+
+# every test runs in the module's child pytest process (the JAX compiles
+# stay out of the suite's worker): tests/torch_parity.in_fresh_interpreter_module
+in_fresh_interpreter_module(globals())

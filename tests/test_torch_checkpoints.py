@@ -354,9 +354,21 @@ def test_quantize_flags_and_the_mesh_refusal(ckpts):
     spec = tm.specgenerate(PROMPT, max_new_tokens=NEW).sequences
     ar = tm.ar_generate(PROMPT, max_new_tokens=NEW).sequences
     np.testing.assert_array_equal(spec[:len(PROMPT) + NEW], ar[:len(PROMPT) + NEW])
-    with pytest.raises(NotImplementedError, match="item 21"):
-        TSpecModel.from_pretrained(ckpts["llama"], ckpts["draft"], dtype=torch.float32,
-                                   device=CPU, mesh=object(), **LOAD)
+    # a mesh is no longer refused (multi-device inference against JAX:
+    # tests/test_torch_parallel.py): a one-rank mesh loads the unsharded
+    # model's tokens, and quantizing after sharding is refused
+    from vispec_tpu_torch.parallel.mesh import AXES, Mesh
+
+    one = Mesh({a: 1 for a in AXES}, 0, {a: 0 for a in AXES}, {a: None for a in AXES},
+               {a: [0] for a in AXES}, CPU, "gloo", False)
+    sm = TSpecModel.from_pretrained(ckpts["llama"], ckpts["draft"], dtype=torch.float32,
+                                    device=CPU, mesh=one, **LOAD)
+    ref = TSpecModel.from_pretrained(ckpts["llama"], ckpts["draft"], dtype=torch.float32,
+                                     device=CPU, **LOAD)
+    np.testing.assert_array_equal(sm.specgenerate(PROMPT, max_new_tokens=NEW).sequences,
+                                  ref.specgenerate(PROMPT, max_new_tokens=NEW).sequences)
+    with pytest.raises(ValueError, match="quantize first"):
+        sm.quantize_target_inplace()
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,7 @@ import torch
 
 from tests.torch_parity import (CPU, J_DCFG, J_SPEC, J_TCFG, MAX_LEN, T_DCFG, T_SPEC,
                                 T_TCFG, llava_cfgs, make_models, t2n, to_numpy_tree,
-                                vision_params)
+                                vision_params, in_fresh_interpreter_module)
 from vispec_tpu.configs import DraftConfig as JDraftConfig
 from vispec_tpu.models import draft as jdraft
 from vispec_tpu.models import medusa as jmedusa
@@ -233,3 +233,8 @@ def test_quantize_draft_leaves_a_layerless_draft_alone_like_jax(weights):
     prompt = list(range(40, 70))
     assert (tmodel.specgenerate(prompt, max_new_tokens=12).sequences.tolist()
             == jmodel.specgenerate(prompt, max_new_tokens=12).sequences.tolist())
+
+
+# every test runs in the module's child pytest process (the JAX compiles
+# stay out of the suite's worker): tests/torch_parity.in_fresh_interpreter_module
+in_fresh_interpreter_module(globals())

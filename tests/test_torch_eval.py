@@ -9,7 +9,7 @@
     spec and baseline): tokens, texts and record keys equal to JAX's;
     ``speed.speedup_report`` of the answer files equal;
   - the ``gen_answer`` CLI, spec and ``--baseline`` (the port's form of
-    ``tests/test_gen_answer_cli.py``), and its refusal of ``--tp 2``;
+    ``tests/test_gen_answer_cli.py``), and ``--tp 2`` outside a world of two ranks;
   - ``bench_batch.arrival_bench``: every request's tokens equal
     ``specgenerate``'s.
 Float32 on the CPU; the JAX runs compile graphs, so the module runs in a
@@ -218,7 +218,9 @@ def test_gen_answer_cli_spec_and_baseline(tmp_path, monkeypatch):
     report = tspeed.speedup_report(spec_file, base_file)
     assert np.isfinite(report["speedup"]) and report["speedup"] > 0
 
-    for flag in ("--tp", "--pp", "--sp"):  # the mesh flags wait for item 21
+    # a mesh flag needs a world of that many ranks (torchrun): in one
+    # process it is a usage error (tests/test_torch_parallel.py runs --tp 2)
+    for flag in ("--tp", "--pp", "--sp"):
         with pytest.raises(SystemExit):
             run(["--answer-file", str(tmp_path / "x.jsonl"), flag, "2"])
 

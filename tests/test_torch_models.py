@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from tests.torch_parity import (CPU, GEOMETRY, J_DCFG, J_SPEC, J_TCFG, MAX_LEN, T_DCFG,
-                                T_SPEC, T_TCFG, make_models, t2n, to_numpy_tree)
+                                T_SPEC, T_TCFG, make_models, t2n, to_numpy_tree,
+                                in_fresh_interpreter_module)
 from vispec_tpu.configs import LlamaConfig as JLlamaConfig
 from vispec_tpu.models import draft as jdraft
 from vispec_tpu.models import llama as jllama
@@ -230,3 +231,8 @@ def test_forward_hidden_plain_ids_on_mrope_config_match_jax(batched):
                                   region=(st, torch.from_numpy(pick(tm))), seq_len=st + t,
                                   mrope_ids=True)
     _close(th, jh)
+
+
+# every test runs in the module's child pytest process (the JAX compiles
+# stay out of the suite's worker): tests/torch_parity.in_fresh_interpreter_module
+in_fresh_interpreter_module(globals())

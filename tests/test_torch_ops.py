@@ -8,7 +8,7 @@ import pytest
 import torch
 from jax import lax
 
-from tests.torch_parity import CPU, t2n
+from tests.torch_parity import CPU, t2n, in_fresh_interpreter_module
 from vispec_tpu.ops import kv_cache as jkv
 from vispec_tpu.ops import rope as jrope
 from vispec_tpu.ops import topk as jtopk
@@ -147,3 +147,8 @@ def test_build_tree_path_and_greedy_accept(seed, ties):
         np.testing.assert_array_equal(
             t2n(ttree.path_to_root(tt, torch.tensor(n, dtype=torch.int32), 5)),
             np.asarray(jtree.path_to_root(jt, jnp.asarray(n, jnp.int32), 5)))
+
+
+# every test runs in the module's child pytest process (the JAX compiles
+# stay out of the suite's worker): tests/torch_parity.in_fresh_interpreter_module
+in_fresh_interpreter_module(globals())

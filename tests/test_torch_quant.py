@@ -16,7 +16,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from tests.torch_parity import CPU, t2n, to_numpy_tree
+from tests.torch_parity import CPU, t2n, to_numpy_tree, in_fresh_interpreter_module
 from vispec_tpu.configs import DraftConfig as JDraftConfig
 from vispec_tpu.configs import LlamaConfig as JLlamaConfig
 from vispec_tpu.configs import SpecConfig as JSpecConfig
@@ -502,3 +502,8 @@ def test_jax_quantized_weights_cross_the_bridge():
         from_numpy({"w": jkv.init_cache(1, 1, 4, 2)}, CPU)
     with pytest.raises(TypeError, match="not a numeric array"):
         from_numpy({"w": "weights.bin"}, CPU)
+
+
+# every test runs in the module's child pytest process (the JAX compiles
+# stay out of the suite's worker): tests/torch_parity.in_fresh_interpreter_module
+in_fresh_interpreter_module(globals())

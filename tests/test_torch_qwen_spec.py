@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from tests.torch_parity import (CPU, J_SPEC, MAX_LEN, T_SPEC, qwen_models, t2n,
-                                to_numpy_tree)
+                                to_numpy_tree, in_fresh_interpreter_module)
 from vispec_tpu.models import medusa as jmedusa
 from vispec_tpu.spec.spec_model import SpecModel as JSpecModel
 from vispec_tpu_torch.convert.params import from_numpy
@@ -256,3 +256,8 @@ def test_a_qwen_tower_needs_an_mrope_target(weights):
     with pytest.raises(ValueError, match="mrope_section"):
         TSpecModel(plain, tdc, T_SPEC, tt, dict(td), dtype=torch.float32, device=CPU,
                    qwen_cfg=tvc, vparams=tv)
+
+
+# every test runs in the module's child pytest process (the JAX compiles
+# stay out of the suite's worker): tests/torch_parity.in_fresh_interpreter_module
+in_fresh_interpreter_module(globals())

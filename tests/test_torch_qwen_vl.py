@@ -12,7 +12,7 @@ import torch
 
 from tests.test_vision import QCFG as J_QCFG
 from tests.torch_parity import (CPU, QWEN_TARGET, qwen_vision_tree, t2n,
-                                to_numpy_tree)
+                                to_numpy_tree, in_fresh_interpreter_module)
 from vispec_tpu.configs import LlamaConfig as JLlamaConfig
 from vispec_tpu.models import llama as jllama
 from vispec_tpu.models import qwen2_5_vl as jqwen
@@ -201,3 +201,8 @@ def test_bicubic_resize_at_qwen_sizes_matches_jax(src, dst):
     want = jax.image.resize(jnp.asarray(frames), (3, *dst, 3), method="bicubic")
     got = tllava.resize_image(torch.from_numpy(frames), *dst)
     np.testing.assert_allclose(t2n(got), np.asarray(want), rtol=0, atol=1e-5)
+
+
+# every test runs in the module's child pytest process (the JAX compiles
+# stay out of the suite's worker): tests/torch_parity.in_fresh_interpreter_module
+in_fresh_interpreter_module(globals())

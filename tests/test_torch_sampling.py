@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from tests.test_tree import PARENT, TOKENS, manual_tree, np_reference_accept
-from tests.torch_parity import CPU, t2n
+from tests.torch_parity import CPU, t2n, in_fresh_interpreter_module
 from vispec_tpu.ops import sampling as jsamp
 from vispec_tpu.ops import tree as jtree
 from vispec_tpu_torch.ops import rng
@@ -422,3 +422,8 @@ def test_tau_fixture_at_t_above_0_matches_jax_in_distribution():
                                                            want.mean(), se)
         means[temperature] = ours.mean()
     assert means[0.5] > means[1.0] >= 1.0, means
+
+
+# every test runs in the module's child pytest process (the JAX compiles
+# stay out of the suite's worker): tests/torch_parity.in_fresh_interpreter_module
+in_fresh_interpreter_module(globals())

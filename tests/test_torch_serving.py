@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_parity import CPU, t2n, to_numpy_tree
+from tests.torch_parity import CPU, t2n, to_numpy_tree, in_fresh_interpreter_module
 from vispec_tpu.configs import DraftConfig as JDraftConfig
 from vispec_tpu.configs import LlamaConfig as JLlamaConfig
 from vispec_tpu.configs import SpecConfig as JSpecConfig
@@ -333,3 +333,8 @@ def test_admitted_slot_rows_land_in_place(params):
     eng.step()
     n = int(eng._states.target_cache.length[1])
     assert n >= 20 and np.abs(t2n(k[1])[..., :20, :] - other[..., :20, :]).max() > 0
+
+
+# every test runs in the module's child pytest process (the JAX compiles
+# stay out of the suite's worker): tests/torch_parity.in_fresh_interpreter_module
+in_fresh_interpreter_module(globals())

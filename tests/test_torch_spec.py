@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from tests.torch_parity import (CPU, J_DCFG, J_SPEC, J_TCFG, MAX_LEN, T_DCFG, T_SPEC,
-                                T_TCFG, make_models, t2n)
+                                T_TCFG, make_models, t2n, in_fresh_interpreter_module)
 from vispec_tpu.models import draft as jdraft
 from vispec_tpu.models import llama as jllama
 from vispec_tpu.ops import kv_cache as jkv
@@ -185,3 +185,8 @@ def test_output_buffer_headroom_matches_jax(monkeypatch):
     assert seen["jax"] - new == 12
     assert seen["specgenerate"] - new == seen["batch"] - new == 12
     assert tmodel.serving_engine(batch_size=2, max_new_tokens=new).max_out - new == 12
+
+
+# every test runs in the module's child pytest process (the JAX compiles
+# stay out of the suite's worker): tests/torch_parity.in_fresh_interpreter_module
+in_fresh_interpreter_module(globals())

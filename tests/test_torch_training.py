@@ -528,14 +528,16 @@ def test_train_two_epochs_with_resume_matches_jax(tmp_path):
 @in_fresh_interpreter
 def test_refusals_of_the_parallel_layer(tmp_path, monkeypatch):
     _, th = _head()
-    with pytest.raises(NotImplementedError, match="item 21"):
+    with pytest.raises(NotImplementedError, match="item 21b"):
         ttrainer.train(str(tmp_path), str(tmp_path / "cp"), T_DCFG, th,
                        ttrainer.TrainConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 21"):
+    with pytest.raises(NotImplementedError, match="item 21b"):
         ttrainer.train(str(tmp_path), str(tmp_path / "cp"), T_DCFG, th,
                        ttrainer.TrainConfig(ckpt_backend="orbax"))
     from vispec_tpu_torch.train import ge_data, main, main_medusa, main_mtp
 
+    # the training CLIs refuse a mesh (item 21b); ge_data's --tp runs under
+    # torchrun (tests/test_torch_parallel.py) and is a usage error in one process
     for mod, flag in ((main_mtp, "--dp"), (main_mtp, "--tp"), (main, "--sp"),
                       (main_medusa, "--dp"), (ge_data, "--tp")):
         argv = ["x", "--basepath", "b", "--configpath", "c", flag, "2"]

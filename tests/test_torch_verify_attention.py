@@ -12,7 +12,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from tests.torch_parity import t2n
+from tests.torch_parity import t2n, in_fresh_interpreter_module
 from vispec_tpu.ops import pallas_attention
 from vispec_tpu.ops.attention import attend as j_attend
 from vispec_tpu.ops.attention import tree_verify_mask as j_tree_verify_mask
@@ -134,3 +134,8 @@ def test_cpu_wrapper_runs_the_plain_version_without_a_launch():
         torch.from_numpy(tm)))
     np.testing.assert_array_equal(out, ref)
     assert tva.verify_attention.launches == before
+
+
+# every test runs in the module's child pytest process (the JAX compiles
+# stay out of the suite's worker): tests/torch_parity.in_fresh_interpreter_module
+in_fresh_interpreter_module(globals())

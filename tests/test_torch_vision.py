@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from tests.torch_parity import (CPU, J_TCFG, J_VCFG, T_VCFG, llava_cfgs, to_numpy_tree,
-                                vision_params)
+                                vision_params, in_fresh_interpreter_module)
 from vispec_tpu.models import clip_vit as jclip
 from vispec_tpu.models import llava as jllava
 from vispec_tpu_torch.convert.params import from_numpy
@@ -144,3 +144,8 @@ def test_from_numpy_keeps_clip_leaf_dtypes_like_jax():
         for p in path:
             node = node[p.key]
         assert str(node.dtype) == f"torch.{leaf.dtype}", jax.tree_util.keystr(path)
+
+
+# every test runs in the module's child pytest process (the JAX compiles
+# stay out of the suite's worker): tests/torch_parity.in_fresh_interpreter_module
+in_fresh_interpreter_module(globals())

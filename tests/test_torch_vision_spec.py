@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from tests.torch_parity import (CPU, J_DCFG, J_SPEC, J_TCFG, MAX_LEN, T_DCFG, T_SPEC,
-                                T_TCFG, llava_cfgs, make_models, t2n, vision_params)
+                                T_TCFG, llava_cfgs, make_models, t2n, vision_params,
+                                in_fresh_interpreter_module)
 from vispec_tpu.spec import loop as jloop
 from vispec_tpu.spec.serving import ServingEngine as JServingEngine
 from vispec_tpu.spec.spec_model import SpecModel as JSpecModel
@@ -254,3 +255,8 @@ def test_quantized_spec_with_an_image_matches_jax(weights):
     ar = tmodel.ar_generate(ids, max_new_tokens=NEW, pixel_values=img)
     assert tres.new_tokens >= NEW and _new(tres, ids)[:NEW] == _new(ar, ids)
     assert tmodel.vparams["vision"]["layers"]["wq"].dtype == torch.float32
+
+
+# every test runs in the module's child pytest process (the JAX compiles
+# stay out of the suite's worker): tests/torch_parity.in_fresh_interpreter_module
+in_fresh_interpreter_module(globals())

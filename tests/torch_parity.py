@@ -275,3 +275,16 @@ def in_fresh_interpreter(test):
         [inspect.Parameter(n, inspect.Parameter.KEYWORD_ONLY) for n in names])
     reported.pytestmark = marks
     return reported
+
+
+def in_fresh_interpreter_module(namespace: dict) -> None:
+    """``in_fresh_interpreter`` on every test function of a module; call it
+    last in the module with ``globals()``.  For the modules whose JAX
+    references compile in the test process: in a driver-style run (six
+    xdist workers, whole files per worker) their compiles, added to the JAX
+    package's own in one worker, brought back pytest.ini's XLA:CPU crash,
+    in a JAX test that passes alone (tests/test_from_pretrained.py's tp 2
+    compile aborted)."""
+    for name, obj in list(namespace.items()):
+        if name.startswith("test_") and inspect.isfunction(obj):
+            namespace[name] = in_fresh_interpreter(obj)

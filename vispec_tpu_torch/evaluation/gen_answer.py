@@ -10,9 +10,14 @@ scripts behind one entry point:
 The JAX package's flags in its order, plus the port's own ``--device``
 (default ``cuda``; ``cpu`` runs the plain versions of the kernels).  The
 model loads through ``SpecModel.from_pretrained``.  ``--tp``, ``--pp`` and
-``--sp`` above 1 are refused until the parallel layer lands (ROADMAP Queue
-1 item 21).  Scale-out: run several processes with disjoint
---question-begin/--question-end.
+``--sp`` shard one model over a world of ``tp * pp * sp`` ranks:
+
+  torchrun --nproc-per-node 2 -m vispec_tpu_torch.evaluation.gen_answer \
+      ... --tp 2
+
+Every rank loads the checkpoint, keeps its shard and generates the same
+answers; rank 0 alone writes the answer file.  Scale-out: run several
+processes with disjoint --question-begin/--question-end.
 """
 
 from __future__ import annotations
@@ -67,10 +72,12 @@ def main():
     p.add_argument("--sp", type=int, default=1)
     p.add_argument("--device", default="cuda")
     args = p.parse_args()
-    for flag in ("tp", "pp", "sp"):
-        if getattr(args, flag) > 1:
-            p.error(f"--{flag} {getattr(args, flag)}: a device mesh is not in the "
-                    "PyTorch port yet (ROADMAP Queue 1 item 21, parallelism)")
+    from ..parallel.mesh import mesh_from_args
+
+    try:
+        mesh = mesh_from_args(tp=args.tp, pp=args.pp, sp=args.sp, device=args.device)
+    except ValueError as e:
+        p.error(str(e))
     if args.video_max_pixels is None:
         args.video_max_pixels = (360 * 420 if args.bench in ("mvbench", "msvd_qa")
                                  else 768 * 28 * 28)
@@ -109,10 +116,15 @@ def main():
         quantize_draft=args.quantize_draft or False,
         quantize_kv=args.quantize_kv,
         device=args.device,
+        # a quantized target is sharded after its quantization
+        mesh=None if args.quantize_target else mesh,
+        pp=args.pp > 1, sp=args.sp > 1,
     )
     if args.quantize_target:
         # right after the load: each bf16 matrix is freed as its int8 copy lands
         model.quantize_target_inplace()
+        if mesh is not None:
+            model.shard_over(mesh, pp=args.pp > 1, sp=args.sp > 1)
 
     questions = list(iter_questions(args.bench, processor, args.data_root,
                                     args.question_begin, args.question_end))
@@ -121,7 +133,7 @@ def main():
     records = run_eval(
         model,
         questions,
-        args.answer_file,
+        args.answer_file if mesh is None or mesh.rank == 0 else None,
         baseline=args.baseline,
         temperature=args.temperature,
         max_new_tokens=args.max_new_tokens,

@@ -21,6 +21,7 @@ before the second clock read, so no queued work escapes the interval.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -184,7 +185,7 @@ def _run_multiturn(
 def run_eval(
     model,
     questions: Iterable[Question],
-    answer_file: str,
+    answer_file: Optional[str],  # None: write nothing (a mesh rank other than 0)
     *,
     baseline: bool = False,
     temperature: float = 0.0,
@@ -210,7 +211,8 @@ def run_eval(
     (CONV_TEMPLATES; resolve from the model path with get_conv_template).
     """
     questions = list(questions)
-    os.makedirs(os.path.dirname(os.path.abspath(answer_file)), exist_ok=True)
+    if answer_file is not None:
+        os.makedirs(os.path.dirname(os.path.abspath(answer_file)), exist_ok=True)
 
     generate = model.ar_generate if baseline else model.specgenerate
 
@@ -247,7 +249,8 @@ def run_eval(
         answer(q, seed_base)
 
     records = []
-    with open(answer_file, "a") as fout:
+    with (open(answer_file, "a") if answer_file is not None
+          else contextlib.nullcontext()) as fout:
         for i, q in enumerate(questions):
             rec = {
                 "question_id": q.question_id,
@@ -257,9 +260,11 @@ def run_eval(
                 "tstamp": time.time(),
             }
             records.append(rec)
-            fout.write(json.dumps(rec) + "\n")
-            fout.flush()
-    reorg_answer_file(answer_file)
+            if fout is not None:
+                fout.write(json.dumps(rec) + "\n")
+                fout.flush()
+    if answer_file is not None:
+        reorg_answer_file(answer_file)
     return records
 
 

@@ -41,6 +41,7 @@ from ..ops.kv_cache import KVCache, advance, init_cache, take_rows
 from ..ops.quant import Q4Tensor, QTensor, qdot, quantize_q4, quantize_q8
 from ..ops.topk import top_k
 from ..ops.tree import Tree, build_tree
+from ..parallel import sharding
 from .llama import rms_norm, swiglu_mlp
 
 
@@ -161,12 +162,14 @@ def make_prefill_plan(
 
 
 def img_adaptor(params: dict, cfg: DraftConfig, span_embeds: torch.Tensor,
-                span_mask: torch.Tensor) -> torch.Tensor:
+                span_mask: torch.Tensor, mesh=None) -> torch.Tensor:
     """num_q learned queries cross-attend over one image span.
     span_embeds [max_span, hidden] (padded), span_mask [max_span] bool;
-    returns [num_q, hidden]."""
-    h, d = cfg.num_attention_heads, cfg.head_dim
+    returns [num_q, hidden].  Under a mesh the adaptor holds this rank's
+    heads and its ``wo`` partial is summed over tp."""
     a = params["adaptor"]
+    d = cfg.head_dim
+    h = a["wk"].shape[-1] // d
     k = qdot(span_embeds, a["wk"]).to(span_embeds.dtype)
     v = qdot(span_embeds, a["wv"]).to(span_embeds.dtype)
     if cfg.qkv_bias:
@@ -178,18 +181,28 @@ def img_adaptor(params: dict, cfg: DraftConfig, span_embeds: torch.Tensor,
     mask = span_mask[None, :].expand(cfg.num_q, span_mask.shape[0])
     out = attend(q, k, v, mask)
     out = out.transpose(0, 1).reshape(cfg.num_q, h * d)
-    return qdot(out, a["wo"]).to(span_embeds.dtype)
+    return sharding.row_dot(out, a["wo"], mesh).to(span_embeds.dtype)
 
 
-def fuse_weight_mats(params: dict, cfg: DraftConfig):
+def _whole(params: dict, cfg: DraftConfig, key: str, mesh) -> torch.Tensor:
+    """A fuse weight (``fc_w`` / ``img_fc_w``, [2 * hidden, hidden]) with all
+    its columns: gathered over tp when it holds this rank's columns."""
+    w = params[key]
+    return sharding.gather_cols(w, mesh) if w.shape[-1] != cfg.hidden_size else w
+
+
+def fuse_weight_mats(params: dict, cfg: DraftConfig, mesh=None):
     """The request-independent decode fuse matrices W_e = F1 and
     W_h = G1 @ F2 (or F2 for EAGLE), see decode_fuse_weights; quantized as
-    the layer is (int4 or int8) when the draft is quantized."""
+    the layer is (int4 or int8) when the draft is quantized.  Whole on every
+    rank (the JAX package replicates them): from column-split fuse weights
+    they are built from the gathered weights."""
     d = cfg.hidden_size
-    f1 = params["fc_w"][:d]
-    f2 = params["fc_w"][d:]
+    fc_w = _whole(params, cfg, "fc_w", mesh)
+    f1 = fc_w[:d]
+    f2 = fc_w[d:]
     if "img_fc_w" in params:
-        g1 = params["img_fc_w"][:d]
+        g1 = _whole(params, cfg, "img_fc_w", mesh)[:d]
         w_h = qdot(g1, f2).to(f1.dtype)
     else:
         w_h = f2
@@ -201,35 +214,43 @@ def fuse_weight_mats(params: dict, cfg: DraftConfig):
     return f1, w_h
 
 
-def ensure_fuse_mats(params: dict, cfg: DraftConfig):
+def ensure_fuse_mats(params: dict, cfg: DraftConfig, mesh=None):
     """Precomputed fuse matrices when present (SpecModel), derived otherwise."""
     if "fuse_we" in params and "fuse_wh" in params:
         return params["fuse_we"], params["fuse_wh"]
-    return fuse_weight_mats(params, cfg)
+    return fuse_weight_mats(params, cfg, mesh)
 
 
-def decode_fuse_bias(params: dict, cfg: DraftConfig, last_img: torch.Tensor) -> torch.Tensor:
-    """b_eff = (L @ G2 + gb) @ F2 + fb, with L = last_img (fixed per generation)."""
+def decode_fuse_bias(params: dict, cfg: DraftConfig, last_img: torch.Tensor,
+                     mesh=None) -> torch.Tensor:
+    """b_eff = (L @ G2 + gb) @ F2 + fb, with L = last_img (fixed per
+    generation).  From column-split fuse weights each product gives this
+    rank's columns, gathered over tp."""
     d = cfg.hidden_size
     f2 = params["fc_w"][d:]
-    zeros = torch.zeros((d,), dtype=f2.dtype, device=f2.device)
+    split = f2.shape[-1] != d
+    zeros = torch.zeros((f2.shape[-1],), dtype=f2.dtype, device=f2.device)
     b = params.get("fc_b", zeros).float()
     if "img_fc_w" in params:
         g2 = params["img_fc_w"][d:]
         gb = params.get("img_fc_b", zeros).float()
-        bias = torch.matmul(torch.matmul(last_img.float(), g2.float()) + gb,
-                            f2.float()) + b
+        t = torch.matmul(last_img.float(), g2.float()) + gb
+        if split:
+            t = sharding.gather_cols(t, mesh)
+        bias = torch.matmul(t, f2.float()) + b
     else:
         bias = b
+    if split:
+        bias = sharding.gather_cols(bias, mesh)
     return bias.float()
 
 
-def decode_fuse_weights(params: dict, cfg: DraftConfig, last_img: torch.Tensor):
+def decode_fuse_weights(params: dict, cfg: DraftConfig, last_img: torch.Tensor, mesh=None):
     """Fold the decode-path fc(img_fc(.)) composition into two D x D matmuls:
     fc([e; img_fc([h; L])]) = e @ F1 + h @ (G1 @ F2) + (L @ G2 + gb) @ F2 + fb.
     Returns (W_e, W_h, b_eff)."""
-    w_e, w_h = ensure_fuse_mats(params, cfg)
-    return w_e, w_h, decode_fuse_bias(params, cfg, last_img)
+    w_e, w_h = ensure_fuse_mats(params, cfg, mesh)
+    return w_e, w_h, decode_fuse_bias(params, cfg, last_img, mesh)
 
 
 def fused_input(w_e, w_h, b_eff, embeds: torch.Tensor, hidden: torch.Tensor) -> torch.Tensor:
@@ -239,30 +260,35 @@ def fused_input(w_e, w_h, b_eff, embeds: torch.Tensor, hidden: torch.Tensor) -> 
 
 
 def fuse(params: dict, embeds: torch.Tensor, hidden: torch.Tensor,
-         last_img: torch.Tensor) -> torch.Tensor:
+         last_img: torch.Tensor, mesh=None) -> torch.Tensor:
     """img_fc + fc input fusion for decode-path tokens (last_img broadcast
     to every token); without img_fc weights (EAGLE) only fc([embed; hidden])."""
-    fused = _fuse_img_only(params, hidden, last_img.unsqueeze(-2).expand_as(hidden))
-    return _fc(params, embeds, fused)
+    fused = _fuse_img_only(params, hidden, last_img.unsqueeze(-2).expand_as(hidden), mesh)
+    return _fc(params, embeds, fused, mesh)
 
 
 def _fuse_img_only(params: dict, hidden: torch.Tensor,
-                   last_img_per_tok: torch.Tensor) -> torch.Tensor:
+                   last_img_per_tok: torch.Tensor, mesh=None) -> torch.Tensor:
     if "img_fc_w" not in params:
         return hidden
     img_in = torch.cat([hidden, last_img_per_tok.to(hidden.dtype)], dim=-1)
     fused = qdot(img_in, params["img_fc_w"])
     if "img_fc_b" in params:
         fused = fused + params["img_fc_b"].float()
-    return fused.to(hidden.dtype)
+    return _join_cols(fused.to(hidden.dtype), hidden.shape[-1], mesh)
 
 
-def _fc(params: dict, embeds: torch.Tensor, fused: torch.Tensor) -> torch.Tensor:
+def _fc(params: dict, embeds: torch.Tensor, fused: torch.Tensor, mesh=None) -> torch.Tensor:
     fc_in = torch.cat([embeds.to(fused.dtype), fused], dim=-1)
     out = qdot(fc_in, params["fc_w"])
     if "fc_b" in params:
         out = out + params["fc_b"].float()
-    return out.to(fused.dtype)
+    return _join_cols(out.to(fused.dtype), fused.shape[-1], mesh)
+
+
+def _join_cols(y: torch.Tensor, width: int, mesh) -> torch.Tensor:
+    """A column-parallel fuse output with all its ``width`` columns."""
+    return sharding.gather_cols(y, mesh) if y.shape[-1] != width else y
 
 
 def layer_forward(
@@ -274,14 +300,18 @@ def layer_forward(
     write_at,  # [B?]
     attn_mask: Optional[torch.Tensor],  # [S, max_len] (used when region is None)
     region=None,  # optional (start [B?], mask [B?, S, T_reg]) => verify_attention
+    mesh=None,  # parallel.mesh.Mesh: this rank's heads, tp-summed wo / w_down
 ) -> Tuple[torch.Tensor, KVCache]:
     """One llama decoder layer with layer-0 semantics (no input norm); the
-    new K/V rows are written into the cache in place at ``write_at``."""
+    new K/V rows are written into the cache in place at ``write_at``.
+    Under a mesh the layer and its cache hold this rank's heads (counted
+    from the weights' shapes)."""
     lp = params["layer"]
     cos, sin = rope_ops.cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
     cos, sin = cos.unsqueeze(-3), sin.unsqueeze(-3)  # broadcast over heads
     lead, s = x.shape[:-2], x.shape[-2]
-    h, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    d = cfg.head_dim
+    h, hkv = lp["wq"].shape[-1] // d, lp["wk"].shape[-1] // d
 
     q = qdot(x, lp["wq"]).to(x.dtype)
     k = qdot(x, lp["wk"]).to(x.dtype)
@@ -300,9 +330,9 @@ def layer_forward(
     kvc.write_rows(v_full, -2, write_at, v)
     attn = attend_region(q.contiguous(), k_full, v_full, attn_mask, region)
     attn = attn.transpose(-3, -2).reshape(*lead, s, h * d)
-    hidden = x + qdot(attn, lp["wo"]).to(x.dtype)
+    hidden = x + sharding.row_dot(attn, lp["wo"], mesh).to(x.dtype)
     normed = rms_norm(hidden, lp["post_norm"], cfg.rms_norm_eps)
-    hidden = hidden + swiglu_mlp(normed, lp["w_gate"], lp["w_up"], lp["w_down"])
+    hidden = hidden + swiglu_mlp(normed, lp["w_gate"], lp["w_up"], lp["w_down"], mesh)
     return hidden, cache
 
 
@@ -313,6 +343,7 @@ def compress_inputs(
     embeds: torch.Tensor,  # [pad_len, hidden] (vision-merged, shifted)
     plan: PrefillPlan,
     max_span: int,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Compressed-sequence assembly: adaptor over image spans, img_fc/fc text
     fusion, adapted-slot substitution.  Returns (x [pad_len, hidden],
@@ -327,7 +358,7 @@ def compress_inputs(
         idx = torch.clamp(plan.span_start[:, None] + span_cols[None, :], 0, pad_len - 1)
         adapted = torch.stack([
             img_adaptor(params, cfg, embeds.index_select(0, idx[m]),
-                        span_cols < plan.span_len[m])
+                        span_cols < plan.span_len[m], mesh)
             for m in range(max_images)
         ])  # [M, num_q, D]
     else:
@@ -342,7 +373,8 @@ def compress_inputs(
     txt_hidden = target_hidden.index_select(0, plan.gather_src)
     txt_embeds = embeds.index_select(0, plan.gather_src)
     txt_img = last_img_table.index_select(0, torch.clamp(plan.seg_id, 0, max_images))
-    text_out = _fc(params, txt_embeds, _fuse_img_only(params, txt_hidden, txt_img))
+    text_out = _fc(params, txt_embeds, _fuse_img_only(params, txt_hidden, txt_img, mesh),
+                   mesh)
 
     if cfg.num_q > 1:
         adapted_flat = adapted[:, : cfg.num_q - 1, :].reshape(-1, cfg.hidden_size)
@@ -431,6 +463,7 @@ def prefill(
     plan: PrefillPlan,
     cache: KVCache,
     max_span: int = 1,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
     """Compressed draft prefill.  Returns (last_hidden [hidden],
     last_img [hidden], cache advanced to comp_len/real_len)."""
@@ -438,11 +471,12 @@ def prefill(
     max_images = plan.span_start.shape[0]
     device = target_hidden.device
     x, last_img_table = compress_inputs(params, cfg, target_hidden, embeds, plan,
-                                        max_span)
+                                        max_span, mesh)
     rows = torch.arange(pad_len, device=device)
     attn_mask = torch.zeros((pad_len, cache.max_len), dtype=torch.bool, device=device)
     attn_mask[:, :pad_len] = rows[None, :] <= rows[:, None]
-    hidden, cache = layer_forward(params, cfg, x, plan.pos_ids, cache, 0, attn_mask)
+    hidden, cache = layer_forward(params, cfg, x, plan.pos_ids, cache, 0, attn_mask,
+                                  mesh=mesh)
     cache = advance(cache, plan.comp_len, plan.real_len)
     last_hidden = hidden.index_select(0, (plan.comp_len - 1).reshape(1))[0]
     last_img = last_img_table.index_select(
@@ -459,25 +493,25 @@ def append_accepted(
     last_img: torch.Tensor,
     cache: KVCache,
     fuse_w=None,  # optional (w_e, w_h, b_eff) from decode_fuse_weights
+    mesh=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Draft forward over newly accepted tokens, appended to the committed
     draft KV.  Returns (seed_hidden [B?, hidden], cache)."""
     lead, s = accept_tokens.shape[:-1], accept_tokens.shape[-1]
     device = accept_hidden.device
-    embeds = params["embed"].index_select(
-        0, accept_tokens.reshape(-1).to(torch.int64)).reshape(*lead, s, -1)
+    embeds = sharding.embed_rows(params["embed"], accept_tokens, mesh)
     if fuse_w is not None:
         x = fused_input(fuse_w[0], fuse_w[1], fuse_w[2], embeds.to(accept_hidden.dtype),
                         accept_hidden)
     else:
-        x = fuse(params, embeds.to(accept_hidden.dtype), accept_hidden, last_img)
+        x = fuse(params, embeds.to(accept_hidden.dtype), accept_hidden, last_img, mesh)
 
     rows = torch.arange(s, dtype=torch.int32, device=device)
     pos_ids = cache.real_length.unsqueeze(-1) + rows
     tri = torch.tril(torch.ones((s, s), dtype=torch.bool, device=device))
     tri = tri.expand(*lead, s, s).contiguous()
     hidden, cache = layer_forward(params, cfg, x, pos_ids, cache, cache.length, None,
-                                  region=(cache.length, tri))
+                                  region=(cache.length, tri), mesh=mesh)
     cache = advance(cache, num_valid, num_valid)
     seed_row = torch.clamp(num_valid - 1, 0, s - 1).unsqueeze(-1)
     return take_rows(hidden, -2, seed_row).squeeze(-2), cache
@@ -498,6 +532,7 @@ def expand_tree(
     head_w,  # [hidden, vocab] ranking head: rank_head or the target's lm_head
     cache: KVCache,
     fuse_w=None,  # optional (w_e, w_h, b_eff [B?, hidden]) from decode_fuse_weights
+    mesh=None,  # the ranking logits of a vocab-sharded head are gathered over tp
 ) -> Tuple[Tree, KVCache]:
     """Depth-limited beam growth + global re-rank.
 
@@ -513,7 +548,7 @@ def expand_tree(
     device = seed_hidden.device
     lead = seed_hidden.shape[:-1]
 
-    logp0 = torch.log_softmax(qdot(seed_hidden, head_w), dim=-1)
+    logp0 = torch.log_softmax(sharding.vocab_logits(seed_hidden, head_w, mesh), dim=-1)
     top_p0, top_i0 = top_k(logp0, k_beam)
 
     tokens_flat = torch.zeros((*lead, num_cand), dtype=torch.int32, device=device)
@@ -536,13 +571,11 @@ def expand_tree(
     beam_rows = torch.arange(k_beam, device=device)
 
     for i in range(depth):
-        embeds = params["embed"].index_select(
-            0, beam_tokens.reshape(-1).to(torch.int64)).reshape(
-                *lead, k_beam, -1).to(vdtype)
+        embeds = sharding.embed_rows(params["embed"], beam_tokens, mesh).to(vdtype)
         if fuse_w is not None:
             x = fused_input(fuse_w[0], fuse_w[1], fuse_w[2], embeds, beam_hidden)
         else:
-            x = fuse(params, embeds, beam_hidden, last_img)
+            x = fuse(params, embeds, beam_hidden, last_img, mesh)
         pos_ids = (real_len + i).unsqueeze(-1).expand(*lead, k_beam)
         write_at = stable_len + i * k_beam
 
@@ -551,9 +584,9 @@ def expand_tree(
         reg_self = (sc[None, :] - i * k_beam) == beam_rows[:, None]
         reg_mask = (reg_prior | reg_self).contiguous()  # [B?, K, scratch_cols]
         hidden, cache = layer_forward(params, cfg, x, pos_ids, cache, write_at, None,
-                                      region=(stable_len, reg_mask))
+                                      region=(stable_len, reg_mask), mesh=mesh)
 
-        logp = torch.log_softmax(qdot(hidden, head_w), dim=-1)
+        logp = torch.log_softmax(sharding.vocab_logits(hidden, head_w, mesh), dim=-1)
         top_p, top_i = top_k(logp, k_beam)  # [B?, K, K]
         cu = top_p + beam_scores.unsqueeze(-1)
 

@@ -40,6 +40,7 @@ from ..ops.attention import attend
 from ..ops.kv_cache import KVCache
 from ..ops.quant import qdot
 from ..ops.verify_attention import verify_attention, verify_attention_batched
+from ..parallel import sharding
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -50,11 +51,13 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (weight.float() * normed).to(x.dtype)
 
 
-def swiglu_mlp(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+def swiglu_mlp(x: torch.Tensor, w_gate, w_up, w_down, mesh=None) -> torch.Tensor:
+    """SwiGLU over this rank's MLP columns; the down projection's float32
+    partial is summed over tp before the cast (``sharding.row_dot``)."""
     gate = qdot(x, w_gate)
     up = qdot(x, w_up)
     inter = (F.silu(gate) * up).to(x.dtype)
-    return qdot(inter, w_down).to(x.dtype)
+    return sharding.row_dot(inter, w_down, mesh).to(x.dtype)
 
 
 def append_kv(k_cache, v_cache, k_scale, v_scale, k_new, v_new, layer_idx: int,
@@ -106,6 +109,7 @@ def forward_hidden(
     seq_len=None,  # real kv length [B?] (dynamic-NTK stretch; None => from positions)
     mrope_ids: bool = False,  # position_ids are 3-row M-RoPE ids (Qwen2.5-VL)
     mlp=None,  # (normed, layer params) -> the MLP's output; None: the SwiGLU MLP
+    mesh=None,  # parallel.mesh.Mesh of sharded params and cache; None: one device
 ):
     """Run the decoder stack; returns (final-normed hidden [B?, S, hidden],
     cache with the new block written at cache.length — call
@@ -122,7 +126,17 @@ def forward_hidden(
     request's ``[3, S]`` M-RoPE ids.
 
     ``mlp`` replaces the dense SwiGLU MLP of each layer (Mixtral's expert
-    block, ``models/mixtral.py``); the attention half is shared."""
+    block, ``models/mixtral.py``); the attention half is shared.
+
+    Under a ``mesh`` (``parallel/sharding.py``) the parameters and the cache
+    are this rank's shards: the head counts come from the weights' shapes,
+    the float32 partials of ``wo`` and ``w_down`` are summed over tp before
+    the cast, a prefill (no region) on a mesh with sp > 1 runs this rank's
+    rows and gathers K/V over sp for the causal attention (the cache stays
+    whole over sp), and parameters holding fewer layers than ``cfg`` are
+    one pp stage: each stage runs its layers in turn and hands the hidden
+    state on, and the last stage's reaches every rank.  The returned K/V
+    blocks hold this rank's heads and layers."""
     if mrope_ids:
         if cfg.mrope_section is None:
             raise ValueError("mrope_ids given to a config without mrope_section")
@@ -138,19 +152,23 @@ def forward_hidden(
                          if cfg.rope_scaling_type == "dynamic" else None),
             seq_len=seq_len,
         )
+    sp = sharding.sp_active(mesh, region)
+    if sp:  # this rank's rows of the prompt, their rotations and mask rows
+        inputs_embeds, cos, sin, attn_mask = (sharding.sp_shard_prefill(mesh, x) for x in (
+            inputs_embeds, cos, sin, attn_mask))
     cos, sin = cos.unsqueeze(-3), sin.unsqueeze(-3)  # broadcast over heads
     write_at = cache.length
     lead, s = inputs_embeds.shape[:-2], inputs_embeds.shape[-2]
-    h, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    d = cfg.head_dim
     lp_all = params["layers"]
     num_layers = lp_all["wq"].shape[0]
+    h, hkv = lp_all["wq"].shape[-1] // d, lp_all["wk"].shape[-1] // d
     layer_ids = torch.arange(num_layers, dtype=torch.int32, device=cache.k.device)
     if lead:  # one layer index per slot for the batched kernel: [L, B]
         layer_ids = layer_ids[:, None].expand(num_layers, *lead).contiguous()
     new_k, new_v = [], []
 
-    hidden = inputs_embeds
-    for li in range(num_layers):
+    def layer(li, hidden):
         lp = {name: w[li] for name, w in lp_all.items()}
         residual = hidden
         normed = rms_norm(hidden, lp["input_norm"], cfg.rms_norm_eps)
@@ -166,36 +184,60 @@ def forward_hidden(
         v_new = v.reshape(*lead, s, hkv, d).transpose(-3, -2).contiguous()
         q, k_new = rope_ops.apply_rope(q, k_new, cos, sin)
         q = q.contiguous()
+        if sp:  # the whole prompt's K/V rows for the causal attention
+            k_new = sharding.gather_rows(k_new, mesh)
+            v_new = sharding.gather_rows(v_new, mesh)
 
         append_kv(cache.k, cache.v, cache.k_scale, cache.v_scale, k_new, v_new, li,
                   write_at)
         out = cached_attend(q, cache.k, cache.v, cache.k_scale, cache.v_scale, li,
                             layer_ids, attn_mask, region)
         out = out.transpose(-3, -2).reshape(*lead, s, h * d)
-        hidden = residual + qdot(out, lp["wo"]).to(normed.dtype)
+        hidden = residual + sharding.row_dot(out, lp["wo"], mesh).to(normed.dtype)
         normed = rms_norm(hidden, lp["post_norm"], cfg.rms_norm_eps)
         if mlp is None:
-            hidden = hidden + swiglu_mlp(normed, lp["w_gate"], lp["w_up"], lp["w_down"])
+            hidden = hidden + swiglu_mlp(normed, lp["w_gate"], lp["w_up"], lp["w_down"],
+                                         mesh)
         else:
             hidden = hidden + mlp(normed, lp)
         if return_new_kv:
             new_k.append(k_new)
             new_v.append(v_new)
+        return hidden
+
+    hidden = inputs_embeds
+    if num_layers == cfg.num_hidden_layers:
+        for li in range(num_layers):
+            hidden = layer(li, hidden)
+    else:  # one pp stage of the layers
+        stage, stages = mesh.coords["pp"], mesh.shape["pp"]
+        if num_layers * stages != cfg.num_hidden_layers:
+            raise ValueError(f"{num_layers} layers on each of {stages} pp stages != "
+                             f"{cfg.num_hidden_layers}")
+        for turn in range(stages):
+            if turn == stage:
+                for li in range(num_layers):
+                    hidden = layer(li, hidden)
+            hidden = sharding.stage_handoff(hidden, mesh, turn)
 
     hidden = rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps)
+    if sp:
+        hidden = sharding.gather_rows(hidden, mesh)
     if return_new_kv:
         return hidden, cache, (torch.stack(new_k, dim=-4), torch.stack(new_v, dim=-4))
     return hidden, cache
 
 
-def embed(params: dict, token_ids: torch.Tensor) -> torch.Tensor:
-    return params["embed"].index_select(0, token_ids.reshape(-1).to(torch.int64)
-                                        ).reshape(*token_ids.shape, -1)
+def embed(params: dict, token_ids: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Embedding rows of ``token_ids`` (any shape); a vocab-sharded table
+    under a mesh (``sharding.embed_rows``)."""
+    return sharding.embed_rows(params["embed"], token_ids, mesh)
 
 
-def lm_head(params: dict, hidden: torch.Tensor) -> torch.Tensor:
-    """[..., hidden] -> [..., vocab] float32 logits."""
-    return qdot(hidden, params["lm_head"])
+def lm_head(params: dict, hidden: torch.Tensor, mesh=None) -> torch.Tensor:
+    """[..., hidden] -> [..., vocab] float32 logits (gathered over tp from a
+    vocab-sharded head)."""
+    return sharding.vocab_logits(hidden, params["lm_head"], mesh)
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator, device="cuda",

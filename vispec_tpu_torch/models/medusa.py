@@ -6,7 +6,8 @@ linear, so a fresh head is the identity) sharing the target's lm_head.  The
 tree comes from the same beam bookkeeping as the ViSpec draft's, but level
 i + 1's candidates all come from head i + 1's logits at the same hidden
 state: no sequential drafting.  Every function also takes a leading slot
-dim (the batched round).
+dim (the batched round).  The heads stay whole on every rank of a mesh,
+as in the JAX package; only the shared head's logits are gathered.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from ..configs import SpecConfig
 from ..ops.quant import qdot
 from ..ops.topk import top_k
 from ..ops.tree import Tree, build_tree
+from ..parallel import sharding
 
 NUM_HEADS = 5  # medusa_num_heads
 
@@ -37,6 +39,7 @@ def expand_tree(
     seed_hidden: torch.Tensor,  # [B?, D] target hidden at the frontier token
     sample_token: torch.Tensor,  # [B?] int32
     head_w,  # [D, V] the target's lm_head (plain or quantized)
+    mesh=None,  # a vocab-sharded head's logits are gathered over tp
 ) -> Tree:
     """Beam bookkeeping over the per-head logits: NUM_HEADS - 1 expansion
     levels after the root top-k; level i's candidate pool is head i + 1's
@@ -48,7 +51,7 @@ def expand_tree(
     lead = seed_hidden.shape[:-1]
 
     mh = heads_forward(params, seed_hidden).movedim(0, -2)  # [B?, H, D]
-    logp = torch.log_softmax(qdot(mh, head_w), dim=-1)  # [B?, H, V]
+    logp = torch.log_softmax(sharding.vocab_logits(mh, head_w, mesh), dim=-1)  # [B?, H, V]
 
     top_p0, top_i0 = top_k(logp[..., 0, :], k_beam)
     tokens_flat = torch.zeros((*lead, num_cand), dtype=torch.int32, device=device)

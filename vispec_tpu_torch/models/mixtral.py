@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from ..configs import LlamaConfig
 from ..ops.quant import qdot
 from ..ops.topk import top_k
+from ..parallel import sharding
 from . import llama
 
 
@@ -43,37 +44,44 @@ class MixtralConfig(LlamaConfig):
     num_experts_per_tok: int = 2
 
 
-def moe_block(x: torch.Tensor, lp: dict, cfg: MixtralConfig) -> torch.Tensor:
+def moe_block(x: torch.Tensor, lp: dict, cfg: MixtralConfig, mesh=None) -> torch.Tensor:
     """Top-k routed expert MLP of one layer over ``x [..., hidden]`` (any
     leading dims, such as the batched layout's ``[B, S]``), computed densely
-    over the experts; returns ``[..., hidden]`` in x's dtype."""
+    over the experts; returns ``[..., hidden]`` in x's dtype.  Under a mesh
+    the layer holds this rank's E / tp experts (``sharding.
+    mixtral_param_specs``): the routing stays whole, each rank sums its own
+    experts' weighted outputs in float32, and the sum over tp comes before
+    the cast."""
     lead, d = x.shape[:-1], x.shape[-1]
     xs = x.reshape(-1, d)
-    n, e = xs.shape[0], cfg.num_local_experts
+    n = xs.shape[0]
+    e_local = lp["we_down"].shape[0]
+    first = (0 if mesh is None else mesh.coords["tp"]) * e_local
     probs = torch.softmax(qdot(xs, lp["router"]), dim=-1)  # [N, E] float32
     top_w, top_i = top_k(probs, cfg.num_experts_per_tok)
     top_w = top_w / top_w.sum(dim=-1, keepdim=True)
     weights = torch.zeros_like(probs).scatter_(1, top_i.to(torch.int64), top_w)
-    gate = qdot(xs, lp["we_gate"]).reshape(n, e, -1)
-    up = qdot(xs, lp["we_up"]).reshape(n, e, -1)
+    gate = qdot(xs, lp["we_gate"]).reshape(n, e_local, -1)
+    up = qdot(xs, lp["we_up"]).reshape(n, e_local, -1)
     inter = (F.silu(gate) * up).to(x.dtype)
     out = None
-    for j in range(e):
-        part = qdot(inter[:, j], lp["we_down"][j]) * weights[:, j:j + 1]
+    for j in range(e_local):
+        w = weights[:, first + j:first + j + 1]
+        part = qdot(inter[:, j], lp["we_down"][j]) * w
         out = part if out is None else out + part
-    return out.to(x.dtype).reshape(*lead, d)
+    return sharding.all_reduce(out, mesh, "tp").to(x.dtype).reshape(*lead, d)
 
 
 def forward_hidden(params: dict, cfg: MixtralConfig, inputs_embeds, position_ids, cache,
                    attn_mask, region=None, return_new_kv: bool = False, seq_len=None,
-                   mrope_ids: bool = False):
+                   mrope_ids: bool = False, mesh=None):
     """``llama.forward_hidden``'s contract (region, ``return_new_kv``,
-    ``seq_len``, the int8 cache, the slot-stacked batched layout) with the
-    expert block as each layer's MLP."""
+    ``seq_len``, the int8 cache, the slot-stacked batched layout, a mesh)
+    with the expert block as each layer's MLP."""
     return llama.forward_hidden(params, cfg, inputs_embeds, position_ids, cache,
                                 attn_mask, region, return_new_kv, seq_len=seq_len,
-                                mrope_ids=mrope_ids,
-                                mlp=lambda normed, lp: moe_block(normed, lp, cfg))
+                                mrope_ids=mrope_ids, mesh=mesh,
+                                mlp=lambda normed, lp: moe_block(normed, lp, cfg, mesh))
 
 
 def init_params(cfg: MixtralConfig, generator: torch.Generator, device="cuda",

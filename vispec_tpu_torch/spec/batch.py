@@ -18,6 +18,10 @@ would prefill it, and a Qwen2.5-VL vision request with its own M-RoPE
 position ids; its slot of the stacked state carries its ``rope_delta``.
 At T > 0 request i draws from the key of ``seed + i``, as in the JAX
 package; a slot's key rides the stacked state.
+
+Under a ``mesh`` the parameters are one rank's shards (as the JAX package's
+batch takes sharded parameters): the stacked caches hold the rank's layers
+and KV heads, sized from the parameters' shapes.
 """
 
 from __future__ import annotations
@@ -45,6 +49,13 @@ def _slot_cache(cache: kv.KVCache, i: int) -> kv.KVCache:
         v_scale=None if cache.v_scale is None else cache.v_scale[i])
 
 
+def _local_cache_dims(params_layer: dict, head_dim: int) -> tuple:
+    """(layers, KV heads) of the cache a (possibly sharded) layer stack
+    writes: the stacked weights' leading dim and ``wk``'s heads."""
+    shape = params_layer["wk"].shape  # a plain or quantized weight
+    return (shape[0] if len(shape) == 3 else 1), shape[-1] // head_dim
+
+
 def batched_prefill(
     tparams, dparams, tcfg: LlamaConfig, dcfg: DraftConfig, spec: SpecConfig,
     sampling: spec_loop.SamplingParams,
@@ -57,6 +68,7 @@ def batched_prefill(
     mparams: Optional[dict] = None,  # Medusa heads: medusa_prefill, no draft cache
     quantize_kv: bool = False,  # int8 target caches (kv_cache.init_cache)
     device="cuda",
+    mesh=None,
 ) -> spec_loop.SpecState:
     """Prefill each request into its slot and return the slot-stacked state.
 
@@ -76,10 +88,12 @@ def batched_prefill(
     else:
         if cache_pool:
             cache_pool.clear()  # free the smaller pair before the larger one lands
-        tc_all = kv.init_cache(tcfg.num_hidden_layers, tcfg.num_key_value_heads, max_len,
-                               tcfg.head_dim, dtype, device, quantized=quantize_kv, slots=b)
+        t_layers, t_heads = _local_cache_dims(tparams["layers"], tcfg.head_dim)
+        tc_all = kv.init_cache(t_layers, t_heads, max_len, tcfg.head_dim, dtype, device,
+                               quantized=quantize_kv, slots=b)
         dc_all = None if medusa else kv.init_cache(
-            1, dcfg.num_key_value_heads, max_len, dcfg.head_dim, dtype, device, slots=b)
+            1, _local_cache_dims(dparams["layer"], dcfg.head_dim)[1], max_len,
+            dcfg.head_dim, dtype, device, slots=b)
         if cache_pool is not None:
             cache_pool.append((tc_all, dc_all))
     keys = [None] * b if sampling.greedy else rng.keys(
@@ -89,11 +103,12 @@ def batched_prefill(
         if medusa:
             return spec_loop.medusa_prefill(tparams, mparams, tcfg, spec, sampling,
                                             req["embeds"], req["real_len"],
-                                            _slot_cache(tc_all, i), max_out, key=keys[i])
+                                            _slot_cache(tc_all, i), max_out, key=keys[i],
+                                            mesh=mesh)
         return spec_loop.spec_prefill(
             tparams, dparams, tcfg, dcfg, spec, req["plan"], sampling, req["embeds"],
             _slot_cache(tc_all, i), _slot_cache(dc_all, i), max_out, req["max_span"],
-            key=keys[i], rope=req.get("rope"))
+            key=keys[i], rope=req.get("rope"), mesh=mesh)
 
     states = [prefill(i, req) for i, req in enumerate(requests)]
     # the rows already sit in the stacked buffers: stack only the rest (a
@@ -116,7 +131,7 @@ def batched_prefill(
             dc_all, [st.draft_cache for st in states]))
 
 
-def text_prompt(tparams, device="cuda"):
+def text_prompt(tparams, device="cuda", mesh=None):
     """The ``padded_prompt`` of ``prepare_requests`` for token lists:
     ``padded_text_embeds`` in ``SpecModel._padded_prompt``'s signature."""
     def padded(ids, pad, pixel_values=None, image_size=None, pixel_values_videos=None,
@@ -124,8 +139,8 @@ def text_prompt(tparams, device="cuda"):
         if pixel_values is not None or pixel_values_videos is not None:
             raise ValueError("image and video requests need a model with a vision tower "
                              "(SpecModel.specgenerate_batch)")
-        return PaddedPrompt(padded_text_embeds(tparams, ids, pad, device), None, None, 0,
-                            None)
+        return PaddedPrompt(padded_text_embeds(tparams, ids, pad, device, mesh), None, None,
+                            0, None)
     return padded
 
 
@@ -190,6 +205,7 @@ def batched_decode_rounds_chunk(
     eos_id,
     max_new_tokens,  # scalar, or [B] per-request caps
     n_rounds: int = 8,
+    mesh=None,
 ):
     """``n_rounds`` batched rounds queued back to back with no host read;
     returns (states, cumulative counters ``[n_rounds, B]``).  The caches are
@@ -197,7 +213,7 @@ def batched_decode_rounds_chunk(
     this returns."""
     def one(state, eos, caps):
         return spec_loop.decode_round(tparams, dparams, tcfg, dcfg, spec, sampling, state,
-                                      eos, caps)
+                                      eos, caps, mesh)
     return _rounds_chunk(one, states, eos_id, max_new_tokens, n_rounds)
 
 
@@ -208,12 +224,13 @@ def batched_medusa_rounds_chunk(
     eos_id,
     max_new_tokens,
     n_rounds: int = 8,
+    mesh=None,
 ):
     """``batched_decode_rounds_chunk`` for Medusa rounds
     (``loop.medusa_decode_round``)."""
     def one(state, eos, caps):
         return spec_loop.medusa_decode_round(tparams, mparams, tcfg, spec, sampling, state,
-                                             eos, caps)
+                                             eos, caps, mesh)
     return _rounds_chunk(one, states, eos_id, max_new_tokens, n_rounds)
 
 
@@ -257,6 +274,7 @@ def drain_batch(
     tparams, dparams, tcfg, dcfg, spec, sampling, states,
     budget: int, eos_id: int, chunk_rounds: int = 8,
     mparams: Optional[dict] = None,
+    mesh=None,
 ):
     """Run batched rounds (Medusa rounds with ``mparams``) until every
     request is done or the budget is hit, each dispatch sized from the chunk
@@ -275,11 +293,11 @@ def drain_batch(
         if mparams is not None:
             states, counts = batched_medusa_rounds_chunk(
                 tparams, mparams, tcfg, spec, sampling, states, eos_id, budget,
-                n_rounds=ch)
+                n_rounds=ch, mesh=mesh)
         else:
             states, counts = batched_decode_rounds_chunk(
                 tparams, dparams, tcfg, dcfg, spec, sampling, states, eos_id, budget,
-                n_rounds=ch)
+                n_rounds=ch, mesh=mesh)
         vals = np.asarray(_Readback(torch.cat(
             [counts.reshape(-1), states.done.to(torch.int32)])).values())
         apply_count_diffs(vals[:ch * b].reshape(ch, b), prev, accepts, slot_keys)
@@ -319,14 +337,15 @@ def generate_batch(
     cache_pool: Optional[List] = None,
     quantize_kv: bool = False,
     device="cuda",
+    mesh=None,  # parallel.mesh.Mesh when the parameters are one rank's shards
 ) -> List[np.ndarray]:
     """Decode a batch of text prompts to completion; returns generated ids per
     request (request i sampled from the key of ``seed + i`` at T > 0)."""
     sampling = spec_loop.SamplingParams(temperature, top_p, int(top_k))
     slack = max(spec.total_tokens, spec.depth * spec.top_k + spec.depth + 2) + 10
     max_out = output_rows(spec, max_new_tokens)
-    requests = prepare_requests(dcfg, prompts, max_len, slack, text_prompt(tparams, device),
-                                device)
+    requests = prepare_requests(dcfg, prompts, max_len, slack,
+                                text_prompt(tparams, device, mesh), device)
     longest = max(len(p) for p in prompts)
     budget = min(max_new_tokens, max_len - longest - slack)
     if budget <= 0:
@@ -335,7 +354,7 @@ def generate_batch(
     with torch.no_grad():
         states = batched_prefill(tparams, dparams, tcfg, dcfg, spec, sampling, requests,
                                  max_len, max_out, dtype, seed, cache_pool=cache_pool,
-                                 quantize_kv=quantize_kv, device=device)
+                                 quantize_kv=quantize_kv, device=device, mesh=mesh)
         states, _, _ = drain_batch(tparams, dparams, tcfg, dcfg, spec, sampling, states,
-                                   budget, eos_id, chunk_rounds)
+                                   budget, eos_id, chunk_rounds, mesh=mesh)
     return finished_outputs(states, eos_id)

@@ -22,6 +22,11 @@ lengths, trees, keys and caps, and one launch of each kernel per call for
 the whole batch.  Prefill and the prefix-snapshot continuation stay
 single-request, as in JAX; ``stack_states`` and ``map_states`` move states
 in and out of the stacked layout.
+
+Every function takes ``mesh`` (``parallel/mesh.py``) when its parameters
+and caches are one rank's shards: the models then sum and gather over the
+mesh, the logits are gathered over the vocab before any ranking, and every
+rank holds the same state after each round.
 """
 
 from __future__ import annotations
@@ -46,13 +51,13 @@ from ..ops.tree import Tree, greedy_accept, path_to_root, sampling_accept
 
 
 def target_forward(tparams, tcfg, embeds, pos, cache, mask, region=None,
-                   return_new_kv=False, seq_len=None, mrope_ids=False):
+                   return_new_kv=False, seq_len=None, mrope_ids=False, mesh=None):
     """The target backbone's forward: a Mixtral MoE stack when the layers
     hold a ``router``, else the dense Llama (or Qwen2.5-VL text) stack."""
     forward = (mixtral.forward_hidden if "router" in tparams["layers"]
                else llama.forward_hidden)
     return forward(tparams, tcfg, embeds, pos, cache, mask, region, return_new_kv,
-                   seq_len=seq_len, mrope_ids=mrope_ids)
+                   seq_len=seq_len, mrope_ids=mrope_ids, mesh=mesh)
 
 
 class SpecState(NamedTuple):
@@ -230,6 +235,7 @@ def spec_prefill(
     samp: Optional[torch.Tensor] = None,  # [4] f32 per-request knobs
     rope: Optional[PromptRope] = None,  # a Qwen2.5-VL vision prompt's positions
     keep_hiddens: bool = False,  # record the committed tokens' verify hiddens
+    mesh=None,  # parallel.mesh.Mesh of sharded params and caches
 ) -> SpecState:
     """Target prompt prefill, first token (the greedy argmax or a draw from
     a key split off ``key``), draft prefill + first tree.  A Qwen2.5-VL
@@ -246,24 +252,24 @@ def spec_prefill(
     mask = causal_mask(pad_len, target_cache.max_len, 0, device)
     hidden, target_cache = target_forward(tparams, tcfg, inputs_embeds, position_ids,
                                           target_cache, mask, seq_len=real_len,
-                                          mrope_ids=mrope)
+                                          mrope_ids=mrope, mesh=mesh)
     target_cache = kv.advance(target_cache, real_len)
-    last_logits = llama.lm_head(tparams, _take(hidden, real_len - 1))
+    last_logits = llama.lm_head(tparams, _take(hidden, real_len - 1), mesh)
     first_token, key, seen = _draw_token(last_logits, sampling, samp, seen, key)
 
     # draft prefill embeds: shifted merged embeds with the sampled token's
     # embedding at slot real_len-1
     shifted = torch.roll(inputs_embeds, -1, dims=0)
-    first_embed = _take(dparams["embed"], first_token).to(shifted.dtype)
+    first_embed = llama.embed(dparams, first_token, mesh).to(shifted.dtype)
     rows = torch.arange(pad_len, device=device)
     shifted = torch.where((rows == real_len - 1)[:, None], first_embed[None], shifted)
 
     last_hidden, last_img, draft_cache = draft_mod.prefill(
-        dparams, dcfg, hidden, shifted, plan, draft_cache, max_span)
-    w_e, w_h, b_eff = draft_mod.decode_fuse_weights(dparams, dcfg, last_img)
+        dparams, dcfg, hidden, shifted, plan, draft_cache, max_span, mesh)
+    w_e, w_h, b_eff = draft_mod.decode_fuse_weights(dparams, dcfg, last_img, mesh)
     tree, draft_cache = draft_mod.expand_tree(
         dparams, dcfg, spec, last_hidden, first_token, last_img,
-        _rank_head(tparams, dparams), draft_cache, fuse_w=(w_e, w_h, b_eff))
+        _rank_head(tparams, dparams), draft_cache, fuse_w=(w_e, w_h, b_eff), mesh=mesh)
 
     def zero(dtype):
         return torch.zeros((), dtype=dtype, device=device)
@@ -322,6 +328,7 @@ def make_prefix_snapshot(
     prefix_len: torch.Tensor,  # [] int32
     target_cache: kv.KVCache,  # scratch caches, overwritten
     draft_cache: kv.KVCache,
+    mesh=None,
 ) -> PrefixSnapshot:
     """Prefill a shared text prefix once; returns copies of its KV rows and
     the boundary hidden for ``spec_prefill_continue``.  Text only."""
@@ -330,17 +337,17 @@ def make_prefix_snapshot(
     pos = torch.arange(pad, dtype=torch.int32, device=device)
     mask = causal_mask(pad, target_cache.max_len, 0, device)
     hidden, tc = target_forward(tparams, tcfg, prefix_embeds, pos, target_cache, mask,
-                                seq_len=prefix_len)
+                                seq_len=prefix_len, mesh=mesh)
     boundary = _take(hidden, prefix_len - 1)
 
     # draft rows for positions [0, prefix_len-1): hidden[i] + embed(token[i+1])
     shifted = torch.roll(prefix_embeds, -1, dims=0)
     x = draft_mod.fuse(dparams, shifted.to(hidden.dtype), hidden,
-                       hidden.new_zeros((dcfg.hidden_size,)))
+                       hidden.new_zeros((dcfg.hidden_size,)), mesh)
     rows = torch.arange(pad, dtype=torch.int32, device=device)
     attn = torch.zeros((pad, draft_cache.max_len), dtype=torch.bool, device=device)
     attn[:, :pad] = rows[None, :] <= rows[:, None]
-    _, dc = draft_mod.layer_forward(dparams, dcfg, x, rows, draft_cache, 0, attn)
+    _, dc = draft_mod.layer_forward(dparams, dcfg, x, rows, draft_cache, 0, attn, mesh=mesh)
 
     def rows_of(t):  # copies of the first rows: the scratch caches are reused
         return t[..., :pad, :].clone()
@@ -371,6 +378,7 @@ def spec_prefill_continue(
     seen: Optional[torch.Tensor] = None,
     samp: Optional[torch.Tensor] = None,
     keep_hiddens: bool = False,
+    mesh=None,
 ) -> SpecState:
     """``spec_prefill`` for ``prefix + suffix`` that only computes the
     suffix: the snapshot's KV rows are copied into the caches, the target
@@ -398,35 +406,37 @@ def spec_prefill_continue(
     pos = plen + torch.arange(pad_s, dtype=torch.int32, device=device)
     mask = causal_mask(pad_s, target_cache.max_len, plen, device)
     hidden_s, target_cache = target_forward(tparams, tcfg, suffix_embeds, pos,
-                                            target_cache, mask, seq_len=plen + suffix_len)
+                                            target_cache, mask, seq_len=plen + suffix_len,
+                                            mesh=mesh)
     target_cache = kv.advance(target_cache, suffix_len)
-    last_logits = llama.lm_head(tparams, _take(hidden_s, suffix_len - 1))
+    last_logits = llama.lm_head(tparams, _take(hidden_s, suffix_len - 1), mesh)
     first_token, key, seen = _draw_token(last_logits, sampling, samp, seen, key)
 
     # ---- draft continuation over positions [plen-1, plen+suffix_len) ----
     # row j (block-relative) is position plen-1+j: hidden + NEXT token's embed
-    first_embed = _take(dparams["embed"], first_token)
+    first_embed = llama.embed(dparams, first_token, mesh)
     d_embeds = torch.cat([suffix_embeds[:1], torch.roll(suffix_embeds, -1, dims=0)])
     ridx = torch.arange(pad_s + 1, dtype=torch.int32, device=device)
     d_embeds = torch.where((ridx == suffix_len)[:, None],
                            first_embed[None].to(d_embeds.dtype), d_embeds)
     d_hidden = torch.cat([snap.boundary_hidden[None], hidden_s])
     last_img = d_hidden.new_zeros((dcfg.hidden_size,))
-    x = draft_mod.fuse(dparams, d_embeds.to(d_hidden.dtype), d_hidden, last_img)
+    x = draft_mod.fuse(dparams, d_embeds.to(d_hidden.dtype), d_hidden, last_img, mesh)
     d_pos = plen - 1 + ridx
     cols = torch.arange(draft_cache.max_len, dtype=torch.int32, device=device)
     committed = cols[None, :] < draft_cache.length
     in_block = (cols[None, :] >= draft_cache.length) & (
         cols[None, :] <= draft_cache.length + ridx[:, None])
     d_out, draft_cache = draft_mod.layer_forward(
-        dparams, dcfg, x, d_pos, draft_cache, draft_cache.length, committed | in_block)
+        dparams, dcfg, x, d_pos, draft_cache, draft_cache.length, committed | in_block,
+        mesh=mesh)
     draft_cache = kv.advance(draft_cache, suffix_len + 1)
     last_hidden = _take(d_out, suffix_len)
 
-    w_e, w_h, b_eff = draft_mod.decode_fuse_weights(dparams, dcfg, last_img)
+    w_e, w_h, b_eff = draft_mod.decode_fuse_weights(dparams, dcfg, last_img, mesh)
     tree, draft_cache = draft_mod.expand_tree(
         dparams, dcfg, spec, last_hidden, first_token, last_img,
-        _rank_head(tparams, dparams), draft_cache, fuse_w=(w_e, w_h, b_eff))
+        _rank_head(tparams, dparams), draft_cache, fuse_w=(w_e, w_h, b_eff), mesh=mesh)
 
     def zero(dtype):
         return torch.zeros((), dtype=dtype, device=device)
@@ -447,7 +457,8 @@ def spec_prefill_continue(
 
 
 def _verify_accept_commit(tparams, tcfg, sampling: SamplingParams, state: SpecState,
-                          eos_id, max_new_tokens, max_path: int, max_accept_depth: int):
+                          eos_id, max_new_tokens, max_path: int, max_accept_depth: int,
+                          mesh=None):
     """Every drafter's round core: target verify over the tree block, the
     acceptance walk (greedy, or rejection sampling from the state's key),
     KV commit and output append.  Returns (hidden [B?, T, D], path, jcols,
@@ -457,7 +468,7 @@ def _verify_accept_commit(tparams, tcfg, sampling: SamplingParams, state: SpecSt
     device = tree.tokens.device
     tree_start = state.target_cache.length
 
-    embeds = llama.embed(tparams, tree.tokens)
+    embeds = llama.embed(tparams, tree.tokens, mesh)
     pos = tree_start.unsqueeze(-1) + tree.depth
     if state.rope_delta is not None:
         # M-RoPE: decode positions are 1-D, the cache row + rope_delta, on
@@ -466,8 +477,9 @@ def _verify_accept_commit(tparams, tcfg, sampling: SamplingParams, state: SpecSt
         pos = pos + state.rope_delta.unsqueeze(-1)
     hidden, target_cache, new_kv = target_forward(
         tparams, tcfg, embeds, pos, state.target_cache, None,
-        region=(tree_start, tree.mask), return_new_kv=True, seq_len=tree_start + t)
-    logits = llama.lm_head(tparams, hidden)  # [B?, T, V] float32
+        region=(tree_start, tree.mask), return_new_kv=True, seq_len=tree_start + t,
+        mesh=mesh)
+    logits = llama.lm_head(tparams, hidden, mesh)  # [B?, T, V] float32, whole vocab
 
     key = state.key
     if sampling.greedy:
@@ -515,6 +527,7 @@ def decode_round(
     state: SpecState,
     eos_id,
     max_new_tokens,
+    mesh=None,  # parallel.mesh.Mesh of sharded params and caches
 ) -> SpecState:
     """verify -> accept -> commit -> next draft tree, all on the device.
     The caches are written in place; ``state`` must not be used again except
@@ -524,7 +537,8 @@ def decode_round(
     max_path = spec.depth + 2
     (hidden, path, jcols, acc, bonus, target_cache, output, out_len,
      new_token, done, key, seen) = _verify_accept_commit(
-        tparams, tcfg, sampling, state, eos_id, max_new_tokens, max_path, spec.depth + 1)
+        tparams, tcfg, sampling, state, eos_id, max_new_tokens, max_path, spec.depth + 1,
+        mesh)
 
     tree = state.tree
     accept_hidden = take_rows(hidden, -2, path)  # [B?, max_path, hidden]
@@ -538,14 +552,14 @@ def decode_round(
     tok_next = torch.where(jcols < acc.unsqueeze(-1), torch.roll(nxt, -1, dims=-1),
                            bonus.unsqueeze(-1))
 
-    w_e, w_h = draft_mod.ensure_fuse_mats(dparams, dcfg)
+    w_e, w_h = draft_mod.ensure_fuse_mats(dparams, dcfg, mesh)
     fuse_w = (w_e, w_h, state.fuse_b)
     seed, draft_cache = draft_mod.append_accepted(
         dparams, dcfg, accept_hidden, tok_next, acc + 1, state.last_img,
-        state.draft_cache, fuse_w=fuse_w)
+        state.draft_cache, fuse_w=fuse_w, mesh=mesh)
     new_tree, draft_cache = draft_mod.expand_tree(
         dparams, dcfg, spec, seed, bonus, state.last_img,
-        _rank_head(tparams, dparams), draft_cache, fuse_w=fuse_w)
+        _rank_head(tparams, dparams), draft_cache, fuse_w=fuse_w, mesh=mesh)
 
     new_state = state._replace(
         tree=new_tree, target_cache=target_cache, draft_cache=draft_cache,
@@ -601,6 +615,7 @@ def medusa_prefill(
     max_out: int,
     key: Optional[torch.Tensor] = None,
     samp: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> SpecState:
     """Target prompt prefill, first token, and the first tree from the heads
     on the last prompt hidden.  The state carries a dummy draft cache of
@@ -615,13 +630,13 @@ def medusa_prefill(
     mask = causal_mask(pad_len, target_cache.max_len, 0, device)
     hidden, target_cache = target_forward(tparams, tcfg, inputs_embeds, position_ids,
                                           target_cache, mask, seq_len=real_len,
-                                          mrope_ids=mrope)
+                                          mrope_ids=mrope, mesh=mesh)
     target_cache = kv.advance(target_cache, real_len)
     last_hidden = _take(hidden, real_len - 1)
-    last_logits = llama.lm_head(tparams, last_hidden)
+    last_logits = llama.lm_head(tparams, last_hidden, mesh)
     first_token, key, _ = _draw_token(last_logits, sampling, samp, None, key)
     tree = medusa_mod.expand_tree(mparams, spec, last_hidden, first_token,
-                                  tparams["lm_head"])
+                                  tparams["lm_head"], mesh)
 
     def zero(dtype):
         return torch.zeros((), dtype=dtype, device=device)
@@ -645,6 +660,7 @@ def medusa_decode_round(
     state: SpecState,
     eos_id,
     max_new_tokens,
+    mesh=None,
 ) -> SpecState:
     """A Medusa round: the shared verify, accept and commit over a tree of
     depth NUM_HEADS, then the next tree from the heads on the deepest
@@ -653,10 +669,11 @@ def medusa_decode_round(
     (hidden, path, _, acc, bonus, target_cache, output, out_len,
      new_token, done, key, _) = _verify_accept_commit(
         tparams, tcfg, sampling, state, eos_id, max_new_tokens, max_path,
-        medusa_mod.NUM_HEADS)
+        medusa_mod.NUM_HEADS, mesh)
     best = take_rows(path, -1, torch.clamp(acc, 0, max_path - 1).unsqueeze(-1))
     best_hidden = take_rows(hidden, -2, best).squeeze(-2)
-    new_tree = medusa_mod.expand_tree(mparams, spec, best_hidden, bonus, tparams["lm_head"])
+    new_tree = medusa_mod.expand_tree(mparams, spec, best_hidden, bonus, tparams["lm_head"],
+                                      mesh)
     new_state = state._replace(
         tree=new_tree, target_cache=target_cache, output=output, out_len=out_len,
         new_token=new_token, done=done, key=key)
@@ -677,22 +694,23 @@ def ar_step(
     key: Optional[torch.Tensor] = None,  # required unless greedy
     seen: Optional[torch.Tensor] = None,  # [vocab+1] bool (repetition penalty)
     rope_delta: Optional[torch.Tensor] = None,  # [] int32 M-RoPE offset (Qwen2.5-VL)
+    mesh=None,
 ):
     """One AR decode step over the same KV runtime; returns (next token []
     int32, cache, key, seen).  The penalty's mask updates per token.  The
     token's position is the cache row + ``rope_delta``."""
     _need_key(key, sampling)
-    embeds = llama.embed(tparams, token.reshape(1))
+    embeds = llama.embed(tparams, token.reshape(1), mesh)
     pos = cache.length.reshape(1)
     if rope_delta is not None:
         pos = pos + rope_delta
     ones = torch.ones((1, 1), dtype=torch.bool, device=token.device)
     hidden, cache = target_forward(tparams, tcfg, embeds, pos, cache, None,
                                    region=(cache.length, ones),
-                                   seq_len=cache.length + 1)
+                                   seq_len=cache.length + 1, mesh=mesh)
     cache = kv.advance(cache, 1)
-    nxt, key, seen = _draw_token(llama.lm_head(tparams, hidden[0]), sampling, None, seen,
-                                  key)
+    nxt, key, seen = _draw_token(llama.lm_head(tparams, hidden[0], mesh), sampling, None,
+                                  seen, key)
     return nxt, cache, key, seen
 
 
@@ -706,6 +724,7 @@ def ar_prefill(
     key: Optional[torch.Tensor] = None,
     seen: Optional[torch.Tensor] = None,
     rope: Optional[PromptRope] = None,  # a Qwen2.5-VL vision prompt's positions
+    mesh=None,
 ):
     """Prompt prefill for the AR baseline; returns (first token, cache, key,
     seen, the ``rope_delta`` that ``ar_step`` takes)."""
@@ -716,8 +735,8 @@ def ar_prefill(
     pos, mrope, rope_delta = _prefill_rope(tcfg, rope, pad_len, device)
     mask = causal_mask(pad_len, cache.max_len, 0, device)
     hidden, cache = target_forward(tparams, tcfg, inputs_embeds, pos, cache, mask,
-                                   seq_len=real_len, mrope_ids=mrope)
+                                   seq_len=real_len, mrope_ids=mrope, mesh=mesh)
     cache = kv.advance(cache, real_len)
-    nxt, key, seen = _draw_token(llama.lm_head(tparams, _take(hidden, real_len - 1)),
+    nxt, key, seen = _draw_token(llama.lm_head(tparams, _take(hidden, real_len - 1), mesh),
                                   sampling, None, seen, key)
     return nxt, cache, key, seen, rope_delta

@@ -24,6 +24,11 @@ The host loop keeps the JAX version's shape: rounds are queued in chunks,
 each round latches ``done`` on the device, and the host reads the per-round
 counters one chunk behind through a pinned copy, so the decode loop never
 waits on the device once per round.
+
+``shard_over`` (or ``from_pretrained(mesh=...)``) places the model over a
+rank mesh (``parallel/mesh.py``): every rank of a ``torchrun`` world builds
+the same model, keeps its shard of the weights and caches, and runs the
+same calls; each rank's result is the whole generation.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from ..ops import rng
 from ..ops.attention import causal_mask
 from ..ops.quant import quantize_draft_params, quantize_target_params
 from ..ops.sampling import seen_mask
+from ..parallel import sharding
 from . import loop as spec_loop
 
 
@@ -59,9 +65,11 @@ def _first(x):
     return x[0] if isinstance(x, list) else x
 
 
-def padded_text_embeds(tparams: dict, input_ids, pad_len: int, device) -> torch.Tensor:
+def padded_text_embeds(tparams: dict, input_ids, pad_len: int, device,
+                       mesh=None) -> torch.Tensor:
     """Token embeddings of a text prompt, zero rows to ``pad_len``."""
-    x = llama.embed(tparams, torch.as_tensor(np.asarray(input_ids, np.int64), device=device))
+    x = llama.embed(tparams, torch.as_tensor(np.asarray(input_ids, np.int64), device=device),
+                    mesh)
     return torch.cat([x, x.new_zeros((pad_len - x.shape[0], x.shape[1]))])
 
 
@@ -206,6 +214,9 @@ class SpecModel:
             raise ValueError(
                 f"max_len must be a multiple of 128 (prompt buckets assume it); "
                 f"got {max_len}")
+        self.mesh = None  # set by shard_over
+        self._pp = False
+        self._sp = False
         self.quantize_draft = False
         self.quantize_target = False  # set by quantize_target_inplace
         self.quantize_kv = bool(quantize_kv)
@@ -243,9 +254,12 @@ class SpecModel:
     @property
     def target_cache(self) -> kv.KVCache:
         if self._target_cache is None:
+            # under a mesh, this rank's part (shard_over ran before first touch)
+            layers, heads = sharding.local_cache_dims(
+                self.mesh, self.tcfg.num_hidden_layers, self.tcfg.num_key_value_heads,
+                pp=self._pp)
             self._target_cache = kv.init_cache(
-                self.tcfg.num_hidden_layers, self.tcfg.num_key_value_heads,
-                self.max_len, self.tcfg.head_dim, self.dtype, self.device,
+                layers, heads, self.max_len, self.tcfg.head_dim, self.dtype, self.device,
                 quantized=self.quantize_kv)
         return self._target_cache
 
@@ -256,9 +270,10 @@ class SpecModel:
     @property
     def draft_cache(self) -> kv.KVCache:
         if self._draft_cache is None:
+            layers, heads = sharding.local_cache_dims(
+                self.mesh, self.dcfg.num_hidden_layers, self.dcfg.num_key_value_heads)
             self._draft_cache = kv.init_cache(
-                self.dcfg.num_hidden_layers, self.dcfg.num_key_value_heads,
-                self.max_len, self.dcfg.head_dim, self.dtype, self.device)
+                layers, heads, self.max_len, self.dcfg.head_dim, self.dtype, self.device)
         return self._draft_cache
 
     @draft_cache.setter
@@ -286,6 +301,7 @@ class SpecModel:
         draft without a layer (Medusa, target-only) is left as it is."""
         if not self.dparams.get("layer"):
             return
+        self._refuse_sharded("quantize_draft_inplace")
         base = {k: v for k, v in self.dparams.items()
                 if k not in ("fuse_we", "fuse_wh")}
         self.dparams = quantize_draft_params(base, self.tparams["lm_head"], mode=mode)
@@ -299,8 +315,61 @@ class SpecModel:
         change (the verifier itself is quantized), but speculative output
         still equals autoregressive output on the same weights.  The vision
         tower and projector (``vparams``) stay as they are."""
+        self._refuse_sharded("quantize_target_inplace")
         quantize_target_params(self.tparams, mode=mode, inplace=True)
         self.quantize_target = mode
+
+    def _refuse_sharded(self, what: str) -> None:
+        if self.mesh is not None:
+            raise ValueError(f"{what} after shard_over: quantize first, then shard, "
+                             "as the JAX package orders them")
+
+    # ------------------------------------------------------------------
+    def shard_over(self, mesh, pp: bool = False, sp: bool = False) -> None:
+        """Keep this rank's shard of the weights and single-request caches
+        (``parallel/sharding.py``), the public entry to multi-device
+        inference.  Every rank of the mesh's world calls it on the same
+        model and then makes the same calls.
+
+        Default: tensor parallelism (heads, MLP columns and a Mixtral
+        target's experts over ``tp``, embed and head over the vocab, KV
+        caches over heads).  ``pp=True`` places the target's layers (and its
+        cache's) in stages over ``pp``; ``sp=True`` splits each prefill's
+        prompt rows over ``sp``.  A mesh with pp (sp) > 1 needs ``pp=True``
+        (``sp=True``): its ranks would otherwise hold the same layers (rows)
+        and the port does not repeat work silently.  The draft (quantized or
+        not) shards over tp and never over pp; the vision tower and Medusa
+        heads stay whole.  Caches that exist are cut now; the lazy ones are
+        allocated at this rank's size on first touch.  Quantize before
+        sharding.  The engine (``serving_engine``) is not sharded."""
+        if mesh.shape["pp"] > 1 and not pp or mesh.shape["sp"] > 1 and not sp:
+            raise ValueError(f"a mesh with pp={mesh.shape['pp']} sp={mesh.shape['sp']} "
+                             f"needs shard_over(pp={mesh.shape['pp'] > 1}, "
+                             f"sp={mesh.shape['sp'] > 1})")
+        if torch.device(mesh.device) != self.device:
+            raise ValueError(f"the model lives on {self.device}, the mesh on {mesh.device}")
+        if "router" in self.tparams.get("layers", {}):
+            tspecs = (sharding.mixtral_param_specs_pp(self.tcfg) if pp
+                      else sharding.mixtral_param_specs(self.tcfg))
+        else:
+            tspecs = (sharding.llama_param_specs_pp(self.tcfg) if pp
+                      else sharding.llama_param_specs(self.tcfg))
+        tspecs = sharding.quantize_aware_specs(tspecs, self.tparams)
+        # a draft that shares the target's embed keeps sharing its shard
+        aliased = self.dparams.get("embed") is self.tparams.get("embed")
+        self.tparams = sharding.apply_specs(mesh, self.tparams, tspecs)
+        draft = {k: v for k, v in self.dparams.items() if not (aliased and k == "embed")}
+        if self.dparams.get("layer"):
+            draft = sharding.apply_specs(mesh, draft,
+                                         sharding.quantized_draft_specs(self.dcfg, draft))
+        self.dparams = {**draft, **({"embed": self.tparams["embed"]} if aliased else {})}
+        # cut only the caches that exist: an engine-only model never
+        # allocates the single-request pair
+        if self._target_cache is not None:
+            self._target_cache = sharding.shard_cache(mesh, self._target_cache, pp=pp)
+        if self._draft_cache is not None:
+            self._draft_cache = sharding.shard_cache(mesh, self._draft_cache)
+        self.mesh, self._pp, self._sp = mesh, pp, sp
 
     def _cache_slack(self) -> int:
         """Rows of headroom beyond prompt + generated tokens: the verify tree
@@ -328,9 +397,9 @@ class SpecModel:
         video_max_pixels: int = 768 * 28 * 28,
         quantize_draft=False,  # False | True/"int8" | "int4" | "int4_head" | "mixed" | "auto"
         quantize_kv: bool = False,
-        mesh=None,  # multi-device placement: not in the port yet
-        pp: bool = False,
-        sp: bool = False,
+        mesh=None,  # parallel.mesh.Mesh: shard_over() the loaded model
+        pp: bool = False,  # with mesh: layer-stage placement of the target
+        sp: bool = False,  # with mesh: sequence-parallel prompt prefill
         device="cuda",
     ) -> "SpecModel":
         """Load an HF checkpoint directory (``config.json`` and its
@@ -345,13 +414,13 @@ class SpecModel:
         in ``dtype`` tensor by tensor.  ``total_token=-1`` picks the verify
         tree's width with ``autotune_total_token``.  ``threshold`` is
         accepted and unused, as in the reference.  ``mesh`` (with ``pp`` /
-        ``sp``) is refused: multi-device placement is not ported yet."""
-        del threshold, pp, sp
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-device placement (shard_over) is not in the port yet "
-                "(ROADMAP Queue 1 item 21, parallelism)")
+        ``sp``) shards the loaded model with ``shard_over``: every rank reads
+        the checkpoint onto the mesh's device and keeps its shard."""
+        del threshold
         from ..convert import hf
+
+        if mesh is not None:
+            device = mesh.device
 
         with open(os.path.join(base_model_path, "config.json")) as f:
             hf_cfg = json.load(f)
@@ -421,6 +490,8 @@ class SpecModel:
                 dparams = hf.convert_draft(dsd, dcfg, dtype, embed_fallback=tparams["embed"],
                                            device=device)
         model = cls(tcfg, dcfg, spec_cfg, tparams, dparams, **kw)
+        if mesh is not None:
+            model.shard_over(mesh, pp=pp, sp=sp)
         if autotune:
             model.autotune_total_token()
         return model
@@ -473,12 +544,14 @@ class SpecModel:
         for length, weight in zip(cans, weights):
             ids = np.random.default_rng(0).integers(0, max(2, self.tcfg.vocab_size - 200),
                                                     length)
-            embeds = llama.embed(self.tparams, torch.as_tensor(ids, device=self.device))
+            embeds = llama.embed(self.tparams, torch.as_tensor(ids, device=self.device),
+                                 self.mesh)
             mask = causal_mask(length, cache.max_len, 0, self.device)
             pos = torch.arange(length, dtype=torch.int32, device=self.device)
 
             def forward():
-                spec_loop.target_forward(self.tparams, self.tcfg, embeds, pos, cache, mask)
+                spec_loop.target_forward(self.tparams, self.tcfg, embeds, pos, cache, mask,
+                                         mesh=self.mesh)
 
             forward()  # warm-up
             if cuda:
@@ -605,8 +678,8 @@ class SpecModel:
         images, sizes = _as_image_list(pixel_values, image_size)
         video = pixel_values_videos
         if not images and video is None:
-            return PaddedPrompt(padded_text_embeds(self.tparams, ids, pad_len, self.device),
-                                None, None, 0, None)
+            return PaddedPrompt(padded_text_embeds(self.tparams, ids, pad_len, self.device,
+                                                   self.mesh), None, None, 0, None)
         if video is not None and (self.qwen_cfg is None or self.vparams is None):
             raise ValueError("pixel_values_videos given to a model without a Qwen2.5-VL "
                              "vision tower (construct it with qwen_cfg and vparams)")
@@ -629,7 +702,7 @@ class SpecModel:
         # the vision rows are overwritten: look them up as id 0, so that an
         # image_token_index past the vocab cannot fault (JAX's take fills them)
         embeds = padded_text_embeds(self.tparams, np.where(image_mask, 0, ids), pad_len,
-                                    self.device)
+                                    self.device, self.mesh)
         embeds = llava.merge_image_embeds(embeds, feats,
                                           torch.as_tensor(positions, device=self.device))
         shifted = image_mask[1:]
@@ -725,7 +798,8 @@ class SpecModel:
             if self.mparams is not None:
                 state = spec_loop.medusa_prefill(
                     self.tparams, self.mparams, self.tcfg, self.spec, sampling,
-                    prompt.embeds, l, kv.reset(self.target_cache), max_out, key=key)
+                    prompt.embeds, l, kv.reset(self.target_cache), max_out, key=key,
+                    mesh=self.mesh)
             else:
                 plan, max_span = plan_prompt(self.dcfg, prompt.shifted, prompt.n_spans,
                                              l, pad_len, self.device)
@@ -733,7 +807,7 @@ class SpecModel:
                     self.tparams, self.dparams, self.tcfg, self.dcfg, self.spec, plan,
                     sampling, prompt.embeds, kv.reset(self.target_cache),
                     kv.reset(self.draft_cache), max_out, max_span, key=key, seen=seen,
-                    rope=prompt.rope, keep_hiddens=snapshots_on)
+                    rope=prompt.rope, keep_hiddens=snapshots_on, mesh=self.mesh)
 
         # cap rounds so the cache cannot overflow
         budget = min(max_new_tokens, self.max_len - l - self._cache_slack())
@@ -841,7 +915,7 @@ class SpecModel:
         rides along."""
         suffix = np.asarray(input_ids, np.int64)[plen:]
         s_embeds = padded_text_embeds(self.tparams, suffix, _bucket(len(suffix)),
-                                      self.device)
+                                      self.device, self.mesh)
         psnap = spec_loop.PrefixSnapshot(
             t_k=snap.t_k, t_v=snap.t_v, d_k=snap.d_k, d_v=snap.d_v,
             prefix_len=torch.tensor(plen, dtype=torch.int32, device=self.device),
@@ -851,15 +925,16 @@ class SpecModel:
             self.tparams, self.dparams, self.tcfg, self.dcfg, self.spec, sampling, psnap,
             s_embeds, torch.tensor(len(suffix), dtype=torch.int32, device=self.device),
             kv.reset(self.target_cache), kv.reset(self.draft_cache), max_out, key=key,
-            seen=seen, keep_hiddens=keep_hiddens)
+            seen=seen, keep_hiddens=keep_hiddens, mesh=self.mesh)
 
     def _round(self, sampling, state, eos, cap):
         """One decode round of this model's drafter."""
         if self.mparams is not None:
             return spec_loop.medusa_decode_round(self.tparams, self.mparams, self.tcfg,
-                                                 self.spec, sampling, state, eos, cap)
+                                                 self.spec, sampling, state, eos, cap,
+                                                 self.mesh)
         return spec_loop.decode_round(self.tparams, self.dparams, self.tcfg, self.dcfg,
-                                      self.spec, sampling, state, eos, cap)
+                                      self.spec, sampling, state, eos, cap, self.mesh)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -896,7 +971,7 @@ class SpecModel:
         tok, cache, key, seen, delta = spec_loop.ar_prefill(
             self.tparams, self.tcfg, sampling, prompt.embeds, l,
             kv.reset(self.target_cache), key=self._key(sampling, seed), seen=seen,
-            rope=prompt.rope)
+            rope=prompt.rope, mesh=self.mesh)
         t0 = time.perf_counter()
         out = [int(tok)]
         chunk = self.chunk_rounds
@@ -930,7 +1005,7 @@ class SpecModel:
             for _ in range(n):
                 tok, cache, key, seen = spec_loop.ar_step(
                     self.tparams, self.tcfg, sampling, tok, cache, key=key, seen=seen,
-                    rope_delta=delta)
+                    rope_delta=delta, mesh=self.mesh)
                 toks.append(tok)
             dispatched += n
             batch = _Readback(torch.stack(toks))
@@ -986,13 +1061,15 @@ class SpecModel:
         states = batch_mod.batched_prefill(
             self.tparams, self.dparams, self.tcfg, self.dcfg, self.spec, sampling, reqs,
             self.max_len, max_out, self.dtype, seed, cache_pool=self._batch_pool,
-            mparams=self.mparams, quantize_kv=self.quantize_kv, device=self.device)
+            mparams=self.mparams, quantize_kv=self.quantize_kv, device=self.device,
+            mesh=self.mesh)
         # decode_time excludes prefill, as in specgenerate
         t0 = time.perf_counter()
         budget = min(max_new_tokens, self.max_len - max(len(p) for p in prompts) - slack)
         states, accepts, dispatched = batch_mod.drain_batch(
             self.tparams, self.dparams, self.tcfg, self.dcfg, self.spec, sampling, states,
-            budget, self.eos_token_id, self.chunk_rounds, mparams=self.mparams)
+            budget, self.eos_token_id, self.chunk_rounds, mparams=self.mparams,
+            mesh=self.mesh)
         outs = batch_mod.finished_outputs(states, self.eos_token_id)
         decode_time = time.perf_counter() - t0
         return [GenerationResult(
@@ -1005,8 +1082,14 @@ class SpecModel:
     # ------------------------------------------------------------------
     def serving_engine(self, batch_size: int, **kw):
         """Continuous-batching engine over this model (``spec/serving.py``):
-        fixed decode slots, queued requests admitted as slots free up."""
+        fixed decode slots, queued requests admitted as slots free up.  Not
+        on a sharded model: the engine is not threaded with a mesh."""
         from .serving import ServingEngine
+
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "serving_engine on a sharded model (shard_over): the engine takes no "
+                "mesh yet (ROADMAP Queue 1 item 21b)")
 
         return ServingEngine(self, batch_size, **kw)
 

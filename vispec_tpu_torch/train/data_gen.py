@@ -32,7 +32,7 @@ from ..spec.loop import _take, target_forward
 
 
 def _prefill_with_hidden(tparams, tcfg, embeds, real_len: int, cache,
-                         position_ids=None):
+                         position_ids=None, mesh=None):
     """(hidden [pad_len, D], first token [] int32, cache advanced to
     ``real_len``).  ``position_ids`` ``[3, pad_len]`` are M-RoPE ids; the
     dynamic-NTK stretch takes the real prompt length, as the inference
@@ -44,34 +44,38 @@ def _prefill_with_hidden(tparams, tcfg, embeds, real_len: int, cache,
     mask = causal_mask(pad_len, cache.max_len, 0, device)
     real = torch.tensor(real_len, dtype=torch.int32, device=device)
     hidden, cache = target_forward(tparams, tcfg, embeds, pos, cache, mask, seq_len=real,
-                                   mrope_ids=mrope)
+                                   mrope_ids=mrope, mesh=mesh)
     cache = kv.advance(cache, real)
-    logits = llama.lm_head(tparams, _take(hidden, real - 1))
+    logits = llama.lm_head(tparams, _take(hidden, real - 1), mesh)
     return hidden, torch.argmax(logits).to(torch.int32), cache
 
 
-def _step_with_hidden(tparams, tcfg, token, embeds, cache, rope_delta: int = 0):
+def _step_with_hidden(tparams, tcfg, token, embeds, cache, rope_delta: int = 0,
+                      mesh=None):
     """One greedy AR step of ``token`` (its embedding ``embeds [1, D]``):
     (hidden [D], next token, cache).  The position is the cache row +
     ``rope_delta``; attention goes through the verify kernel's region."""
     pos = cache.length.reshape(1) + rope_delta
     ones = torch.ones((1, 1), dtype=torch.bool, device=embeds.device)
     hidden, cache = target_forward(tparams, tcfg, embeds, pos, cache, None,
-                                   region=(cache.length, ones), seq_len=cache.length + 1)
+                                   region=(cache.length, ones), seq_len=cache.length + 1,
+                                   mesh=mesh)
     cache = kv.advance(cache, 1)
-    logits = llama.lm_head(tparams, hidden[0])
+    logits = llama.lm_head(tparams, hidden[0], mesh)
     return hidden[0], torch.argmax(logits).to(torch.int32), cache
 
 
-def _scan_steps_with_hidden(tparams, tcfg, token, cache, chunk: int, rope_delta: int):
+def _scan_steps_with_hidden(tparams, tcfg, token, cache, chunk: int, rope_delta: int,
+                            mesh=None):
     """``chunk`` greedy AR steps queued without a host read.  Each step
     records its INPUT token, that token's embedding and the hidden state it
     produced.  Returns (next token, cache, tokens [chunk], embeds [chunk,
     D], hiddens [chunk, D])."""
     toks, embs, hids = [], [], []
     for _ in range(chunk):
-        embeds = llama.embed(tparams, token.reshape(1))
-        h, nxt, cache = _step_with_hidden(tparams, tcfg, token, embeds, cache, rope_delta)
+        embeds = llama.embed(tparams, token.reshape(1), mesh)
+        h, nxt, cache = _step_with_hidden(tparams, tcfg, token, embeds, cache, rope_delta,
+                                          mesh)
         toks.append(token)
         embs.append(embeds[0])
         hids.append(h)
@@ -99,6 +103,7 @@ def generate_sample(
     rope_delta: int = 0,
     chunk: int = 16,
     pipelined: bool = True,
+    mesh=None,  # parallel.mesh.Mesh when tparams and cache are one rank's shards
 ) -> Tuple[Dict[str, np.ndarray], kv.KVCache]:
     """One training sample: prompt + greedy continuation with hiddens.
 
@@ -113,7 +118,8 @@ def generate_sample(
 
     cache = kv.reset(cache)
     hidden_prefix, token, cache = _prefill_with_hidden(
-        tparams, tcfg, prompt_embeds, prompt_len, cache, position_ids=position_ids)
+        tparams, tcfg, prompt_embeds, prompt_len, cache, position_ids=position_ids,
+        mesh=mesh)
     delta = int(rope_delta)
 
     if not pipelined:
@@ -125,8 +131,8 @@ def generate_sample(
             gen_ids.append(tid)
             if tid == eos_token_id:
                 break
-            e = llama.embed(tparams, token.reshape(1))
-            h, token, cache = _step_with_hidden(tparams, tcfg, token, e, cache, delta)
+            e = llama.embed(tparams, token.reshape(1), mesh)
+            h, token, cache = _step_with_hidden(tparams, tcfg, token, e, cache, delta, mesh)
             hiddens.append(_host(h)[None])
             embeds.append(_host(e))
         hidden_state = np.concatenate(hiddens, axis=0)
@@ -160,7 +166,7 @@ def generate_sample(
         done = max_new_tokens <= 0
         while not done:
             token, cache, toks, embs, hids = _scan_steps_with_hidden(
-                tparams, tcfg, token, cache, chunk, delta)
+                tparams, tcfg, token, cache, chunk, delta, mesh)
             big.append((embs, hids))
             batch = _Readback(toks)
             if pending is not None:
@@ -230,7 +236,7 @@ def generate_vlm_sample(
         model.tparams, model.tcfg, prompt.embeds, l, prompt.image_mask,
         kv.reset(model.target_cache), max_new_tokens=budget,
         eos_token_id=model.eos_token_id, position_ids=position_ids,
-        rope_delta=rope_delta, chunk=chunk, pipelined=pipelined)
+        rope_delta=rope_delta, chunk=chunk, pipelined=pipelined, mesh=model.mesh)
     model.target_cache = kv.reset(cache)
     s = sample["hidden_state"].shape[0]
     merged_ids = sample["input_ids"].copy()

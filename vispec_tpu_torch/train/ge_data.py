@@ -13,9 +13,11 @@
   the image-token span.
 
 Each process handles indices ``[start + shard_id :: num_shards]``.  The
-flags are the JAX package's, in its order, plus the port's ``--device``;
-``--tp`` above 1 is refused until the parallel layer lands (ROADMAP Queue
-1 item 21).  The tokenizer comes from ``transformers`` and the images from
+flags are the JAX package's, in its order, plus the port's ``--device``.
+``--tp N`` shards the generating target over a world of N ranks
+(``torchrun --nproc-per-node N -m vispec_tpu_torch.train.ge_data ... --tp
+N``); every rank generates the same samples and rank 0 alone writes them.
+The tokenizer comes from ``transformers`` and the images from
 ``PIL``, both imported only when used.
 """
 
@@ -98,9 +100,13 @@ def main():
     p.add_argument("--device", default="cuda")
     args = p.parse_args()
 
-    from .main_mtp import refuse_parallel
+    from ..parallel.mesh import mesh_from_args
 
-    refuse_parallel(p, args, ("tp",))
+    try:
+        mesh = mesh_from_args(tp=args.tp, device=args.device)
+    except ValueError as e:
+        p.error(str(e))
+    writer = mesh is None or mesh.rank == 0
 
     import numpy as np
     import torch
@@ -114,7 +120,7 @@ def main():
     # a target-only load: the full architecture dispatch with its vision
     # tower, no draft
     model = SpecModel.from_pretrained(args.basepath, None, max_len=max_len,
-                                      dtype=torch.bfloat16, device=args.device)
+                                      dtype=torch.bfloat16, device=args.device, mesh=mesh)
     tokenizer = AutoTokenizer.from_pretrained(args.basepath, use_fast=True)
 
     with open(args.data_file) as f:
@@ -131,11 +137,12 @@ def main():
             if mask.sum() == 0:
                 continue
             pad = ((len(ids) + 127) // 128) * 128
-            embeds = padded_text_embeds(model.tparams, ids, pad, model.device)
+            embeds = padded_text_embeds(model.tparams, ids, pad, model.device, mesh)
             # teacher-forced forward only (no generation): capture hiddens
             sample, cache = generate_sample(
                 model.tparams, model.tcfg, embeds, len(ids), None,
-                kv.reset(model.target_cache), max_new_tokens=1, eos_token_id=eos)
+                kv.reset(model.target_cache), max_new_tokens=1, eos_token_id=eos,
+                mesh=mesh)
             model.target_cache = kv.reset(cache)
             sample["input_ids"] = ids
             sample["loss_mask"] = np.concatenate(
@@ -165,7 +172,8 @@ def main():
             sample = generate_vlm_sample(model, ids, pixel_values=pixel_values,
                                          image_size=image_size,
                                          max_new_tokens=args.max_new_tokens)
-        save_sample(args.outdir, idx, sample)
+        if writer:
+            save_sample(args.outdir, idx, sample)
     print("[ge_data] done")
 
 

@@ -8,7 +8,7 @@ its order, plus the port's own ``--device``:
 Stage 1 distills the EAGLE-style draft on text data with SmoothL1 on the
 hiddens, soft cross-entropy and the ranking loss (v_w 1.0, p_w 0.1); its
 checkpoint warm-starts stage 2 (``main_mtp --loadpath``).  Mesh flags above
-1 and ``--ckpt-backend orbax`` are refused (ROADMAP Queue 1 item 21).
+1 and ``--ckpt-backend orbax`` are refused (ROADMAP Queue 1 item 21b).
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ plus the port's own ``--device``:
   python -m vispec_tpu_torch.train.main_medusa --basepath <target> \
       --tmpdir <npz data dir> --cpdir <ckpts> [--lr 3e-5] [--device cuda]
 
-``--dp`` / ``--sp`` above 1 are refused (ROADMAP Queue 1 item 21).
+``--dp`` / ``--sp`` above 1 are refused (ROADMAP Queue 1 item 21b).
 """
 
 from __future__ import annotations

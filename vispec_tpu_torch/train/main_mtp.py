@@ -10,14 +10,15 @@ with the JAX package's flags in its order, plus the port's own
 Only the target's ``lm_head`` (or its tied embedding) is read from the
 checkpoint; the full target never enters the trainer's memory.  The mesh
 flags (``--dp``, ``--tp``, ``--sp``) above 1 and ``--ckpt-backend orbax``
-are refused until the parallel layer lands (ROADMAP Queue 1 item 21).
+are refused until parallel training lands (ROADMAP Queue 1 item 21b).
 """
 
 from __future__ import annotations
 
 import argparse
 
-NO_MESH = "is not in the PyTorch port yet (ROADMAP Queue 1 item 21, parallelism)"
+NO_MESH = ("is not in the PyTorch port's training yet (ROADMAP Queue 1 item 21b, "
+           "parallel training)")
 
 
 def refuse_parallel(p: argparse.ArgumentParser, args, flags) -> None:

@@ -35,9 +35,9 @@ from ..ops.kv_cache import init_cache
 from ..ops.quant import qdot
 from .step import AdamState, TrainBatch, make_optimizer, train_step
 
-# the parallel layer (ROADMAP item 21) has no counterpart yet
-_NO_MESH = ("a device mesh is not in the PyTorch port yet (ROADMAP Queue 1 item 21, "
-            "parallelism); train on one device")
+# parallel training (ROADMAP item 21b) has no counterpart yet
+_NO_MESH = ("a device mesh is not in the PyTorch port's training yet (ROADMAP Queue 1 "
+            "item 21b, parallel training); train on one device")
 
 
 @dataclass
@@ -55,7 +55,7 @@ class TrainConfig:
     max_span_bucket: int = 64
     save_freq: int = 1  # epochs
     bf16: bool = False  # bf16 products, f32 master weights, losses and state
-    ckpt_backend: str = "pickle"  # "pickle" only ("orbax" waits for item 21)
+    ckpt_backend: str = "pickle"  # "pickle" only ("orbax" waits for item 21b)
 
 
 def prepare_example(
@@ -315,8 +315,8 @@ def _numpy_tree(tree):
 def _check_backend(backend: str) -> None:
     if backend != "pickle":
         raise NotImplementedError(
-            f"ckpt_backend={backend!r}: the orbax backend waits for the parallel layer "
-            "(ROADMAP Queue 1 item 21); use 'pickle'")
+            f"ckpt_backend={backend!r}: a sharded checkpoint backend waits for parallel "
+            "training (ROADMAP Queue 1 item 21b); use 'pickle'")
 
 
 def save_state(cpdir: str, epoch: int, dparams: dict, opt_state: AdamState,
