@@ -49,9 +49,18 @@ draft over int8 KV and Mixtral at ep 2, 2 layers in float32, token-equal
 to one process; Vicuna-7B at 32 layers and Mixtral at 8 of 32 layers in
 bfloat16 over tp / ep 2 (tok/s, launches and collectives per round, idle
 share, peak memory per rank: on one card these measure the collectives'
-cost, not a speed-up); and kernel rows at the shard shapes (16 heads over
-16 or 4 KV heads, a pp stage's cache, kernel 2 at N / 2).  Prints one JSON
-line per phase, a
+cost, not a speed-up).  Then parallel draft training and the engine on a
+sharded model: the toy float32 draft's steps at dp 2 x sp 2 (an image span
+across the sp boundary) and dp 2 x tp 2 in a world of four ranks against
+one process's, with an orbax (torch.distributed.checkpoint) save and
+reload of the shards; the Vicuna-7B-width draft's bf16 steps at dp 2 and
+tp 2 over two ranks (step ms, collectives, peak memory, getkacc at tp 2);
+the engine at tp 2 against the unsharded engine, exactly at 2 layers in
+float32 and at 32 layers in bfloat16 (ranks agree; launches a round), each
+plain and quantized; the serving examples on the card.  Last, kernel rows
+at the shard shapes (16 heads over 16 or 4 KV heads, a pp stage's cache,
+the tp 2 engine's batched rounds, getkacc's rollout at tp 2, kernel 2 at
+N / 2).  Prints one JSON line per phase, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failed phase raises and
 the script exits non-zero without that line; so does a machine without a
@@ -97,15 +106,21 @@ SOURCES = ("verify_attention", "q4_matmul")
 # magnitude; against the same math in float32 (summation order only)
 Q4_TOL, Q4_EXACT_TOL = 2e-2, 1e-5
 # new tokens of each run under torch.profiler (16 until the training and
-# eval phases needed the time)
-PROFILE_TOKENS = 8
+# eval phases needed the time, 8 until slice 14's)
+PROFILE_TOKENS = 4
+# rounds of the engine chunk under torch.profiler (8 until slice 14's phases)
+PROFILE_CHUNK_ROUNDS = 4
 # new tokens of each sampled / drafter run of sampling_full_depth and of
-# each mixtral_full_depth run (128 until then)
-DEPTH_TOKENS = 64
+# each mixtral_full_depth run (128 until slice 12's phases, 64 until slice 14's)
+DEPTH_TOKENS = 32
 # requests of serving_full_depth also run one at a time for the serial rate
 SERIAL_REQUESTS = 4
-# MT-bench questions of eval_full_depth (2 before slice 13's phases)
+# MT-bench questions of eval_full_depth (2 before slice 13's phases) and
+# new tokens a turn (128 before slice 14's)
 EVAL_QUESTIONS = 1
+EVAL_TOKENS = 64
+# new tokens of each arrival_full_depth request (64 before slice 14's phases)
+ARRIVAL_TOKENS = 32
 # the 1c kernel row at getkacc's shape: 16 slots' committed rows
 KACC_STARTS = tuple(int(x) for x in np.random.default_rng(70).integers(256, 511, 16))
 
@@ -1088,10 +1103,11 @@ def _serve(model, reqs, pad_bucket=(128, 256, 512), **kw):
 
 
 def _profile_engine_chunk(model, batch_size):
-    """torch.profiler over one engine step (a full chunk of 8 rounds and its
-    readback) after the admission step; launches per round."""
+    """torch.profiler over one engine step (a full chunk of
+    PROFILE_CHUNK_ROUNDS rounds and its readback) after the admission step;
+    launches per round."""
     eng = model.serving_engine(batch_size=batch_size, pad_bucket=(128, 256, 512),
-                               chunk_rounds=8)
+                               chunk_rounds=PROFILE_CHUNK_ROUNDS)
     eng.start_session()
     for p, _ in _serving_requests(batch_size, seed=2):
         eng.submit(p, max_new_tokens=64)
@@ -1170,7 +1186,7 @@ def phase_serving_quant_full_depth(dev, qmodel):
     the bf16 draft cache and 40 int4 products (kernel 2: the draft's
     products take the B * K rows of all slots at once); per prefill, 3 of
     1a and 31 of kernel 2, as in the single-request mode.  Then
-    torch.profiler over one chunk of 8 rounds at B = 4
+    torch.profiler over one chunk of PROFILE_CHUNK_ROUNDS rounds at B = 4
     (``profile_serving_quant_chunk``), per round: kernel 2's launches and
     device ms, and those of the int8-cache attention's partial kernel and
     of every attention call's combine launch (the bf16 draft cache's calls
@@ -3058,18 +3074,19 @@ def phase_eval_exact(dev):
 def phase_eval_full_depth(dev, model, serving_row):
     """The harness at Vicuna-7B, 32 layers, bfloat16 (the
     ``full_width_depth`` model): ``run_eval`` spec and baseline over the
-    first ``EVAL_QUESTIONS`` MT-bench questions, both turns, 128 new tokens a turn; tok/s of
-    each (``speed.speedup_report``, wall time closed on the device), the
-    mean acceptance length, the speed-up and kernel 1a's launches per turn.
-    Then ``bench_batch.arrival_bench`` on the B = 4 engine: 8 requests of 64
-    new tokens, Poisson arrivals at half the saturated request rate that
-    ``serving_full_depth`` measured in this run (0.5 x its tok/s / 64
-    requests a second); its rate, throughput and latency percentiles
+    first ``EVAL_QUESTIONS`` MT-bench questions, both turns,
+    ``EVAL_TOKENS`` new tokens a turn; tok/s of each
+    (``speed.speedup_report``, wall time closed on the device), the mean
+    acceptance length, the speed-up and kernel 1a's launches per turn.
+    Then ``bench_batch.arrival_bench`` on the B = 4 engine: 8 requests of
+    ``ARRIVAL_TOKENS`` new tokens, Poisson arrivals at half the saturated
+    request rate that ``serving_full_depth`` measured in this run (0.5 x
+    its tok/s / ARRIVAL_TOKENS requests a second); its rate, throughput and latency percentiles
     (completion minus scheduled arrival), and kernel 1c's launches."""
     from vispec_tpu_torch.evaluation import bench_batch, speed
 
     qs, tok = _mt_bench(EVAL_QUESTIONS)
-    recs, paths, counts = _run_eval_pair(model, qs, tok, 128, "full_depth")
+    recs, paths, counts = _run_eval_pair(model, qs, tok, EVAL_TOKENS, "full_depth")
     rep = speed.speedup_report(paths["spec"], paths["baseline"])
     turns = sum(len(r["turns"]) for r in recs["spec"])
     agree = []  # words (tokens) in common at the start of each turn's answers
@@ -3079,7 +3096,7 @@ def phase_eval_full_depth(dev, model, serving_row):
             n = min(len(a), len(b))
             agree.append(int(np.argmin(np.append(np.array(a[:n]) == np.array(b[:n]), False))))
     row = {"phase": "eval_full_depth", "layers": 32, "dtype": "bfloat16",
-           "questions": len(qs), "turns": turns, "max_new_tokens": 128, **rep,
+           "questions": len(qs), "turns": turns, "max_new_tokens": EVAL_TOKENS, **rep,
            "new_tokens_spec": [r["new_tokens"] for r in recs["spec"]],
            "new_tokens_baseline": [r["new_tokens"] for r in recs["baseline"]],
            "wall_time_spec": [r["wall_time"] for r in recs["spec"]],
@@ -3092,15 +3109,16 @@ def phase_eval_full_depth(dev, model, serving_row):
     emit(row)
     assert row["ok"], row
 
-    rate = 0.5 * serving_row["tok_per_s"] / 64
+    rate = 0.5 * serving_row["tok_per_s"] / ARRIVAL_TOKENS
     _zero_launch_counts()
-    arr = bench_batch.arrival_bench(model, 4, 64, rate, 8, seed=0, vocab=32000)
+    arr = bench_batch.arrival_bench(model, 4, ARRIVAL_TOKENS, rate, 8, seed=0, vocab=32000)
     launches = _launch_counts()
     toks = arr.pop("tokens")
     row = {"phase": "arrival_full_depth", "layers": 32, "dtype": "bfloat16",
            "saturated_tok_per_s": serving_row["tok_per_s"], **arr,
            "request_tokens": [len(t) for t in toks], "launches_1c": launches["1c"]}
-    row["ok"] = (all(len(t) == 64 or (t and t[-1] == model.eos_token_id) for t in toks)
+    row["ok"] = (all(len(t) == ARRIVAL_TOKENS or (t and t[-1] == model.eos_token_id)
+                     for t in toks)
                  and launches["1c"] > 0 and launches["1c"] % 36 == 0)
     emit(row)
     assert row["ok"], row
@@ -3454,8 +3472,11 @@ PARALLEL_WORLD_FULL = 2
 PARALLEL_MIXTRAL_LAYERS = 8  # of 32: two ranks' bf16 shards and one full copy at a time
 PARALLEL_BATCH = (40, 90, 130)  # specgenerate_batch prompts of the tp2 case
 # new tokens of each full-width parallel run: two ranks on one card decode
-# at 4-19 tok/s, held back by ~2 ms of host a collective
-PARALLEL_TOKENS = 32
+# at 4-19 tok/s, held back by ~2 ms of host a collective (32 before slice
+# 14's phases)
+PARALLEL_TOKENS = 16
+# new tokens of each parallel_exact run (64 before slice 14's phases)
+PARALLEL_EXACT_TOKENS = 32
 
 
 def _parallel_model(dev, opts):
@@ -3502,13 +3523,14 @@ def _rank_exact(dev):
         _zero_launch_counts()
         sharding.COLLECTIVES.reset()
         try:
-            spec = model.specgenerate(prompt, max_new_tokens=64)
+            spec = model.specgenerate(prompt, max_new_tokens=PARALLEL_EXACT_TOKENS)
             spec_counts, spec_coll = _launch_counts(), dict(sharding.COLLECTIVES.calls)
-            ar = model.ar_generate(prompt, max_new_tokens=64)
+            ar = model.ar_generate(prompt, max_new_tokens=PARALLEL_EXACT_TOKENS)
         finally:
             undo()
-        row = {"mesh": mesh.describe(), "spec": spec.sequences[:164].tolist(),
-               "ar": ar.sequences[:164].tolist(), "dispatched": spec.dispatched,
+        n = len(prompt) + PARALLEL_EXACT_TOKENS
+        row = {"mesh": mesh.describe(), "spec": spec.sequences[:n].tolist(),
+               "ar": ar.sequences[:n].tolist(), "dispatched": spec.dispatched,
                "launches_spec": spec_counts, "launches_all": _launch_counts(),
                "collectives_spec": spec_coll,
                "local_wq": list(model.tparams["layers"]["wq"].shape),
@@ -3592,7 +3614,10 @@ def parallel_rank(rank, world, init_file, job, out_path):
     dev = torch.device("cuda", rank % torch.cuda.device_count())
     multihost.init_distributed(init_method="file://" + init_file, num_processes=world,
                                process_id=rank)
-    result = {"exact": _rank_exact, "full": _rank_full}[job](dev)
+    result = {"exact": _rank_exact, "full": _rank_full, "train_exact": _rank_train_exact,
+              "train_full": _rank_train_full,
+              "serve_exact": lambda d: _rank_serve(d, 2, torch.float32),
+              "serve_full": lambda d: _rank_serve(d, 32, torch.bfloat16)}[job](dev)
     with open(out_path, "w") as f:
         json.dump(result, f)
 
@@ -3641,7 +3666,8 @@ def phase_parallel_exact(dev):
     """Multi-device inference against one process: each mode of
     PARALLEL_EXACT (2 layers, float32, Vicuna-7B or Mixtral-8x7B widths) in
     a world of four ranks sharing the card over gloo gives, on every rank,
-    the single-process spec and AR tokens (64 new tokens; spec == AR too);
+    the single-process spec and AR tokens (PARALLEL_EXACT_TOKENS new
+    tokens; spec == AR too);
     the tp2 model's ``specgenerate_batch`` equals its per-request runs.
     Returns the (K, N, M) the int4 draft sent kernel 2."""
     refs = {}
@@ -3649,8 +3675,9 @@ def phase_parallel_exact(dev):
         key = "mixtral" if opts.get("mixtral") else str(sorted(opts.items()))
         if key not in refs:
             model, prompt = _parallel_model(dev, opts)
-            refs[key] = (model.specgenerate(prompt, max_new_tokens=64).sequences[:164].tolist(),
-                         model.ar_generate(prompt, max_new_tokens=64).sequences[:164].tolist())
+            n, tokens = len(prompt) + PARALLEL_EXACT_TOKENS, PARALLEL_EXACT_TOKENS
+            refs[key] = (model.specgenerate(prompt, max_new_tokens=tokens).sequences[:n].tolist(),
+                         model.ar_generate(prompt, max_new_tokens=tokens).sequences[:n].tolist())
             del model
             gc.collect()
             torch.cuda.empty_cache()
@@ -3745,14 +3772,457 @@ def phase_parallel_full_width():
               note + f"; {PARALLEL_MIXTRAL_LAYERS} of Mixtral's 32 layers")
 
 
+# ---------------------------------------------------------------------------
+# Parallel draft training and the engine on a sharded model (slice 14)
+# ---------------------------------------------------------------------------
+
+# the dp x sp training oracle's toy draft (float32) and its two meshes
+PTRAIN_DRAFT = dict(vocab_size=64, hidden_size=32, intermediate_size=64,
+                    num_attention_heads=4, num_key_value_heads=4,
+                    max_position_embeddings=64, num_q=2)
+PTRAIN_MESHES = (("dp2_sp2", {"dp": 2, "sp": 2}), ("dp2_tp2", {"dp": 2, "tp": 2}))
+# the JAX oracle's optimizer (make_optimizer()'s defaults), two steps
+PTRAIN_OPT = dict(lr=3e-5, warmup_steps=2000, total_steps=800_000, grad_clip=0.5)
+# the Vicuna-7B-width draft: two meshes of two ranks, steps of bs 2 at 1,024 rows
+PTRAIN_FULL_MESHES = (("dp2", {"dp": 2}), ("tp2", {"tp": 2}))
+PTRAIN_FULL_STEPS = 3
+PTRAIN_FULL_LEN = 1024
+PTRAIN_FULL_SPAN = (100, 676)  # LLaVA-1.5's 576 image rows
+# the engine on a tp 2 7B: requests, new tokens each, slots
+SERVE_PARALLEL = (8, 16, 4)
+SERVE_MODES = (("plain", {}), ("int8_kv_int4_draft", {"quantize_kv": True,
+                                                     "quantize_draft": "int4"}))
+
+
+def _ptrain_batch(dev, dcfg, rows, seeds, span):
+    """A batch of one prepared example per seed (``rows`` + 1 record rows,
+    the image span ``span``), built alike on every rank."""
+    from vispec_tpu_torch.train import trainer
+
+    cfg = trainer.TrainConfig(max_len=rows, max_images=1, max_span_bucket=64)
+    exs = [trainer.prepare_example(_train_sample(seed, rows + 1, dcfg.hidden_size, span=span),
+                                   cfg, dcfg, np.random.default_rng(seed)) for seed in seeds]
+    return trainer.batch_examples(exs, dev)
+
+
+def _ptrain_exact_run(dev, mesh):
+    """Two steps of the toy draft from one state (an image span at rows 4-9,
+    across the sp 2 boundary at row 8) on ``mesh`` (None: one process).
+    Returns (losses, whole params, mu, nu, the local state, specs)."""
+    from vispec_tpu_torch.configs import DraftConfig
+    from vispec_tpu_torch.models import draft as draft_mod
+    from vispec_tpu_torch.parallel import sharding
+    from vispec_tpu_torch.train import step as tstep
+
+    dcfg = DraftConfig(**PTRAIN_DRAFT)
+    batch, span = _ptrain_batch(dev, dcfg, 16, (21, 22), (4, 10))
+    params = draft_mod.init_params(dcfg, torch.Generator(device=dev).manual_seed(23), dev,
+                                   torch.float32)
+    params["img_fc_w"] += 0.05 * torch.randn(params["img_fc_w"].shape, device=dev,
+                                             generator=torch.Generator(dev).manual_seed(24))
+    head = 0.1 * torch.randn((dcfg.hidden_size, dcfg.vocab_size), device=dev,
+                             generator=torch.Generator(dev).manual_seed(25))
+    specs = sharding.quantized_draft_specs(dcfg, params)
+    if mesh is not None:
+        params = sharding.apply_specs(mesh, params, specs)
+        head = sharding.local_part(head, (None, "tp"), mesh.shape, mesh.coords).contiguous()
+        batch = sharding.shard_train_batch(mesh, batch)
+    opt = tstep.make_optimizer(**PTRAIN_OPT)
+    state = opt.init(params)
+    losses, collectives = [], []
+    for _ in range(2):
+        sharding.COLLECTIVES.reset()
+        params, state, metrics = tstep.train_step(params, state, dcfg, head, batch, opt,
+                                                  mtp_steps=1, max_span=span, mesh=mesh)
+        losses.append(float(metrics["loss"]))
+        collectives.append(sharding.COLLECTIVES.total_calls)
+    whole = [sharding.gather_params(mesh, t, specs) for t in (params, state.mu, state.nu)]
+    return losses, collectives, whole, (params, state), specs
+
+
+def _rel_close(a, b, rtol, atol):
+    """max over leaves of max(|a - b| - atol - rtol * |b|) <= 0, and that
+    excess."""
+    from vispec_tpu_torch.train.step import leaves
+
+    worst = max(((x.float() - y.float()).abs() - atol - rtol * y.float().abs()).max().item()
+                for (_, x), (_, y) in zip(leaves(a), leaves(b)))
+    return worst <= 0, worst
+
+
+def _rank_train_exact(dev):
+    """One rank of parallel_train_exact: for each mesh, the one-process
+    steps and the sharded steps, compared on this rank; then an orbax save
+    of the rank's shards and its reload, bit for bit."""
+    from vispec_tpu_torch.parallel import mesh as meshmod
+    from vispec_tpu_torch.train import trainer
+
+    ref_losses, _, ref_whole, _, _ = _ptrain_exact_run(dev, None)
+    out = {}
+    for name, axes in PTRAIN_MESHES:
+        mesh = meshmod.make_mesh(device="cuda", **axes)
+        losses, coll, whole, (local, state), specs = _ptrain_exact_run(dev, mesh)
+        row = {"mesh": mesh.describe(), "losses": losses, "ref_losses": ref_losses,
+               "collectives_per_step": coll,
+               "loss_ok": all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(losses, ref_losses))}
+        for part, got, want in zip(("params", "mu", "nu"), whole, ref_whole):
+            row[f"{part}_ok"], row[f"{part}_excess"] = _rel_close(got, want, 1e-4, 1e-6)
+        cpdir = os.path.join(ROOT, "build", "parallel", f"ptrain_{name}")
+        path = trainer.save_state(cpdir, 0, local, state, backend="orbax", mesh=mesh,
+                                  specs=specs)
+        epoch, params2, state2 = trainer.load_state(path, mesh=mesh)
+        row["orbax_round_trip"] = (epoch == 0 and state2.count == state.count
+                                   and _trees_equal(params2, local)
+                                   and _trees_equal(state2.mu, state.mu)
+                                   and _trees_equal(state2.nu, state.nu))
+        row["orbax_files"] = len(os.listdir(path))
+        out[name] = row
+    return out
+
+
+def phase_parallel_train_exact():
+    """Parallel draft training against one process: the toy float32 draft
+    (hidden 32, 4 heads) of the CPU oracle, two steps from one state, in a
+    world of four ranks sharing the card, at dp 2 x sp 2 (an image span
+    across the sp boundary) and dp 2 x tp 2: every rank's loss within 1e-5
+    (relative) of one process's, every updated leaf and both Adam moments
+    within rtol 1e-4 / atol 1e-6; an orbax (torch.distributed.checkpoint)
+    save of each rank's shards reloads bit for bit."""
+    t0 = time.perf_counter()
+    ranks = run_world("train_exact", PARALLEL_WORLD_EXACT)
+    world_s = time.perf_counter() - t0
+    for name, _ in PTRAIN_MESHES:
+        per = [r[name] for r in ranks]
+        row = {"phase": "parallel_train_exact", "case": name, "mesh": per[0]["mesh"],
+               "dtype": "float32", "hidden": PTRAIN_DRAFT["hidden_size"], "world_s": world_s,
+               "losses": [p["losses"] for p in per], "one_process_losses": per[0]["ref_losses"],
+               "collectives_per_step": per[0]["collectives_per_step"],
+               "excess_over_tol": {part: max(p[f"{part}_excess"] for p in per)
+                                   for part in ("params", "mu", "nu")},
+               "orbax_round_trip": [p["orbax_round_trip"] for p in per],
+               "orbax_files": per[0]["orbax_files"]}
+        row["ok"] = all(p["loss_ok"] and p["params_ok"] and p["mu_ok"] and p["nu_ok"]
+                        and p["orbax_round_trip"] for p in per)
+        emit(row)
+        assert row["ok"], row
+
+
+def _ptrain_full_setup(dev, mesh):
+    """The Vicuna-7B-width draft (DraftConfig(): hidden 4,096, MLP 11,008, 32
+    heads, vocab 32,000), a frozen head, a batch of two 1,024-row samples
+    (each with a 576-row image span) and Adam, on ``mesh`` (None: one
+    process)."""
+    from vispec_tpu_torch.configs import DraftConfig
+    from vispec_tpu_torch.models import draft as draft_mod
+    from vispec_tpu_torch.parallel import sharding
+    from vispec_tpu_torch.train import step as tstep
+
+    dcfg = DraftConfig()
+    params = draft_mod.init_params(dcfg, torch.Generator(device=dev).manual_seed(31), dev,
+                                   torch.float32)
+    head = 0.02 * torch.randn((dcfg.hidden_size, dcfg.vocab_size), device=dev,
+                              generator=torch.Generator(dev).manual_seed(32))
+    batch, _ = _ptrain_batch(dev, dcfg, PTRAIN_FULL_LEN, (33, 34), PTRAIN_FULL_SPAN)
+    specs = sharding.quantized_draft_specs(dcfg, params)
+    if mesh is not None:
+        params = sharding.apply_specs(mesh, params, specs)
+        head = sharding.local_part(head, (None, "tp"), mesh.shape, mesh.coords).contiguous()
+        batch = sharding.shard_train_batch(mesh, batch)
+    opt = tstep.make_optimizer(1e-5, 0, 800_000, 0.5)
+    return dcfg, params, head, batch, opt, specs
+
+
+def _ptrain_full_steps(dev, mesh):
+    """PTRAIN_FULL_STEPS bf16 steps (mtp_steps 2): losses, ms, collectives
+    and their host ms each step, peak memory; with tp, getkacc on the
+    rank's shards (kernel 1c in float32 at the rank's heads)."""
+    from vispec_tpu_torch.parallel import sharding
+    from vispec_tpu_torch.train import step as tstep
+    from vispec_tpu_torch.train import trainer
+
+    dcfg, params, head, batch, opt, _ = _ptrain_full_setup(dev, mesh)
+    state = opt.init(params)
+    span = PTRAIN_FULL_SPAN[1] - PTRAIN_FULL_SPAN[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    row = {"losses": [], "step_ms": [], "collectives": [], "collective_host_ms": []}
+    for _ in range(PTRAIN_FULL_STEPS):
+        sharding.COLLECTIVES.reset()
+        t0 = time.perf_counter()
+        params, state, metrics = tstep.train_step(params, state, dcfg, head, batch, opt,
+                                                  mtp_steps=2, max_span=span, bf16=True,
+                                                  mesh=mesh)
+        row["losses"].append(float(metrics["loss"]))  # a readback: the step is done
+        row["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        row["collectives"].append(sharding.COLLECTIVES.total_calls)
+        row["collective_host_ms"].append(sharding.COLLECTIVES.total_seconds * 1e3)
+    row["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    row["local_rows"] = list(batch.hidden_states.shape)
+    row["local_wq"] = list(params["layer"]["wq"].shape)
+    if mesh is not None and mesh.shape["tp"] > 1:
+        del state
+        torch.cuda.empty_cache()
+        sample = _train_sample(33, 513, dcfg.hidden_size, gen_from=256)
+        trainer.getkacc(params, dcfg, head, sample, max_length=5, max_prefixes=16,
+                        max_len=512, max_span=64, mesh=mesh)  # warm-up
+        torch.cuda.synchronize()
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        row["getkacc"] = trainer.getkacc(params, dcfg, head, sample, max_length=5,
+                                         max_prefixes=16, max_len=512, max_span=64, mesh=mesh)
+        torch.cuda.synchronize()
+        row["getkacc_s"] = time.perf_counter() - t0
+        row["getkacc_launches"] = _launch_counts()
+    return row
+
+
+def _rank_train_full(dev):
+    """One rank of parallel_train_full_width: each mesh of PTRAIN_FULL_MESHES
+    in turn."""
+    from vispec_tpu_torch.parallel import mesh as meshmod
+
+    out = {}
+    for name, axes in PTRAIN_FULL_MESHES:
+        mesh = meshmod.make_mesh(device="cuda", **axes)
+        out[name] = {"mesh": mesh.describe(), **_ptrain_full_steps(dev, mesh)}
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_parallel_train_full_width(dev):
+    """Draft training at Vicuna-7B width (float32 master weights, bf16
+    products, mtp_steps 2, bs 2 of 1,024 rows) over two ranks: dp 2, then
+    tp 2 (each on the one card over gloo, or a card each over NCCL).  Per
+    mesh: step ms a rank, collectives a step and their host ms, peak
+    memory a rank, the losses against one process's steps on the same
+    batch (within 2e-2: bf16 products summed in another order), and at tp 2
+    ``getkacc`` on the rank's shards with kernel 1c's launches (5 a call)."""
+    single = _ptrain_full_steps(dev, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = run_world("train_full", PARALLEL_WORLD_FULL, timeout_s=900)
+    for name, axes in PTRAIN_FULL_MESHES:
+        per = [r[name] for r in ranks]
+        rel = max(abs(a - b) / abs(b) for p in per for a, b in zip(p["losses"],
+                                                                     single["losses"]))
+        row = {"phase": "parallel_train_full_width", "case": name, "mesh": per[0]["mesh"],
+               "hidden": 4096, "mlp": 11008, "vocab": 32000, "rows": PTRAIN_FULL_LEN,
+               "bs": 2, "mtp_steps": 2, "steps": PTRAIN_FULL_STEPS,
+               "step_ms_per_rank": [p["step_ms"] for p in per],
+               "step_ms_median_after_first": [float(np.median(p["step_ms"][1:])) for p in per],
+               "one_process_step_ms": single["step_ms"],
+               "collectives_per_step": per[0]["collectives"],
+               "collective_host_ms_per_step": [p["collective_host_ms"] for p in per],
+               "peak_mem_gb_per_rank": [p["peak_mem_gb"] for p in per],
+               "one_process_peak_mem_gb": single["peak_mem_gb"],
+               "losses": [p["losses"] for p in per], "one_process_losses": single["losses"],
+               "loss_rel_diff_max": rel, "local_rows": per[0]["local_rows"],
+               "local_wq": per[0]["local_wq"]}
+        ok = rel <= 2e-2 and all(np.isfinite(p["losses"]).all() for p in per)
+        if "getkacc" in per[0]:
+            row.update(getkacc=[p["getkacc"] for p in per],
+                       getkacc_s=[p["getkacc_s"] for p in per],
+                       getkacc_launches=per[0]["getkacc_launches"])
+            ok &= (all(p["getkacc_launches"]["1c"] == 5 for p in per)
+                   and all(p["getkacc"] == per[0]["getkacc"] for p in per))
+        row["ok"] = ok
+        emit(row)
+        assert row["ok"], row
+    return ranks
+
+
+def _serve_run(model):
+    """The engine over SERVE_PARALLEL's requests after a warm-up: tokens,
+    rounds, kernel launches, collectives, wall seconds."""
+    from vispec_tpu_torch.parallel import sharding
+
+    n, tokens, slots = SERVE_PARALLEL
+    prompts = [p for p, _ in _serving_requests(n, seed=3)]
+    model.serving_engine(batch_size=slots, max_new_tokens=4,
+                         pad_bucket=(128, 256, 512)).run_all(prompts[:slots])  # warm-up
+    eng = model.serving_engine(batch_size=slots, max_new_tokens=tokens,
+                               pad_bucket=(128, 256, 512))
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    sharding.COLLECTIVES.reset()
+    t0 = time.perf_counter()
+    outs = eng.run_all(prompts)
+    torch.cuda.synchronize()
+    return {"tokens": [o.tolist() for o in outs], "rounds": eng.stats["rounds"],
+            "launches": _launch_counts(), "collectives": sharding.COLLECTIVES.total_calls,
+            "collective_host_ms": sharding.COLLECTIVES.total_seconds * 1e3,
+            "wall_s": time.perf_counter() - t0}
+
+
+def _serve_model(dev, layers, dtype, quant):
+    model = _full_width_model(dev, layers, dtype, 0, quantize_kv=quant.get("quantize_kv", False))
+    if quant.get("quantize_draft"):
+        model.quantize_draft_inplace(quant["quantize_draft"])
+    return model
+
+
+def _rank_serve(dev, layers, dtype):
+    """One rank of a serving_parallel world: the model over tp 2 in each
+    mode of SERVE_MODES (each rank builds the whole model in turn,
+    quantizes, keeps its shard), and the (K, N, M) the quantized mode sent
+    kernel 2."""
+    from vispec_tpu_torch.parallel import mesh as meshmod
+
+    mesh = meshmod.make_mesh(tp=2, device="cuda")
+    out = {"mesh": mesh.describe()}
+    for mode, quant in SERVE_MODES:
+        model = _staggered_shard(mesh, lambda: _serve_model(dev, layers, dtype, quant),
+                                 False, False)
+        shapes, undo = _recording_q4_dispatch()
+        try:
+            out[mode] = _serve_run(model)
+        finally:
+            undo()
+        out[mode]["q4_shapes"] = sorted(shapes)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _agreeing_prefix(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def _serving_parallel(dev, phase, job, layers, dtype):
+    """The engine over the Vicuna-7B widths at ``layers`` layers in
+    ``dtype`` at tp 2 (two ranks) and unsharded, in each mode of
+    SERVE_MODES: 8 requests (prompts 64-448) of 16 new tokens in 4 slots,
+    every rank submitting the same requests in order.  Returns a row a
+    mode (tokens against the unsharded engine's, and the unsharded
+    engine's against one ``specgenerate`` a request; kernel launches and
+    collectives a round) and the (K, N, M) kernel 2 ran at."""
+    singles = {}
+    for mode, quant in SERVE_MODES:
+        model = _serve_model(dev, layers, dtype, quant)
+        singles[mode] = _serve_run(model)
+        n, tokens, _ = SERVE_PARALLEL
+        singles[mode]["specgenerate"] = [
+            model.specgenerate(p, max_new_tokens=tokens).sequences[len(p):].tolist()
+            for p, _ in _serving_requests(n, seed=3)]
+        model.target_cache = model.draft_cache = None
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    ranks = run_world(job, PARALLEL_WORLD_FULL, timeout_s=900)
+    rows, shapes = [], set()
+    for mode, _ in SERVE_MODES:
+        per, single = [r[mode] for r in ranks], singles[mode]
+        rounds = per[0]["rounds"]
+        row = {"phase": phase, "case": mode, "mesh": ranks[0]["mesh"], "layers": layers,
+               "dtype": str(dtype).replace("torch.", ""), "requests": SERVE_PARALLEL[0],
+               "new_tokens": SERVE_PARALLEL[1], "slots": SERVE_PARALLEL[2],
+               "tokens_equal_unsharded": [p["tokens"] == single["tokens"] for p in per],
+               "agreeing_prefix_per_request": [
+                   _agreeing_prefix(a, b) for a, b in zip(per[0]["tokens"], single["tokens"])],
+               "unsharded_engine_vs_specgenerate_prefix": [
+                   _agreeing_prefix(a, b) for a, b in zip(single["tokens"],
+                                                          single["specgenerate"])],
+               "ranks_agree": all(p["tokens"] == per[0]["tokens"] for p in per),
+               "rounds": [p["rounds"] for p in per], "unsharded_rounds": single["rounds"],
+               "launches_per_round": {k: v / rounds for k, v in per[0]["launches"].items()},
+               "unsharded_launches_per_round": {k: v / single["rounds"]
+                                                for k, v in single["launches"].items()},
+               "collectives_per_round": [p["collectives"] / p["rounds"] for p in per],
+               "collective_host_ms_each": [p["collective_host_ms"] / max(1, p["collectives"])
+                                           for p in per],
+               "wall_s": [p["wall_s"] for p in per], "unsharded_wall_s": single["wall_s"]}
+        for p in per:
+            shapes.update(tuple(x) for x in p["q4_shapes"])
+        rows.append(row)
+    return rows, sorted(shapes)
+
+
+def phase_serving_parallel_exact(dev):
+    """The engine on a sharded model against the unsharded engine, exactly:
+    Vicuna-7B widths at 2 layers in float32 (TF32 off), tp 2, plain and
+    int8 KV with an int4 draft.  Gates: every rank's tokens equal the
+    unsharded engine's; kernel 1c (float32 q; over the int8 cache in the
+    quantized mode) and kernel 2 launched."""
+    rows, shapes = _serving_parallel(dev, "serving_parallel_exact", "serve_exact", 2,
+                                     torch.float32)
+    for row in rows:
+        quantized = row["case"] != "plain"
+        launches = row["launches_per_round"]
+        row["ok"] = (all(row["tokens_equal_unsharded"])
+                     and launches["1c_int8" if quantized else "1c"] > 0
+                     and (not quantized or launches["2"] > 0))
+        emit(row)
+        assert row["ok"], row
+    return shapes
+
+
+def phase_serving_parallel_full_depth(dev):
+    """The same at full depth: Vicuna-7B at 32 layers in bfloat16, tp 2, plain
+    and quantized.  Gates: the ranks agree token for token, and each round
+    launches what one device's round launches (1c 36; quantized: 1c over
+    the int8 cache 32, over the bf16 draft cache 4, kernel 2 40).  The
+    tokens against the unsharded engine's are reported (agreeing prefix per
+    request): the tp sums run in another order, and bf16 rounding turns a
+    few of those differences into another argmax at a near-tie."""
+    rows, shapes = _serving_parallel(dev, "serving_parallel_full_depth", "serve_full", 32,
+                                     torch.bfloat16)
+    for row in rows:
+        # the rounds' kernels (prefills launch 1a and kernel 2 as well)
+        rounds = ("1c", "1c_int8") if row["case"] != "plain" else ("1c",)
+        row["ok"] = (row["ranks_agree"]
+                     and all(row["launches_per_round"][k]
+                             == row["unsharded_launches_per_round"][k] > 0 for k in rounds)
+                     and (row["case"] == "plain" or row["launches_per_round"]["2"] > 0))
+        emit(row)
+        assert row["ok"], row
+    return shapes
+
+
+def _example(name, *args, timeout=300):
+    env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", f"vispec_tpu_torch.examples.{name}", *args],
+                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
+    return r, time.perf_counter() - t0
+
+
+def phase_examples_device():
+    """The serving examples on the card (their default device): ``serving``
+    (12 requests on 4 slots, bf16, prefix-cached) and ``serve_http
+    --selftest`` (6 concurrent HTTP clients on 127.0.0.1, each response equal
+    to specgenerate's)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    runs = {"serving": (_example("serving"), "served 12 requests"),
+            "serve_http": (_example("serve_http", "--selftest", "--port", str(port),
+                                    "--batch", "2"), "6/6 concurrent HTTP requests match")}
+    row = {"phase": "examples_device"}
+    for name, ((r, secs), line) in runs.items():
+        lines = r.stdout.strip().splitlines()
+        row[name] = {"rc": r.returncode, "s": secs, "printed": lines[-2:],
+                     "ok": r.returncode == 0 and line in r.stdout}
+        if not row[name]["ok"]:
+            row[name]["stderr"] = r.stderr[-2000:]
+    row["ok"] = all(row[name]["ok"] for name in runs)
+    emit(row)
+    assert row["ok"], row
+
+
 def phase_kernel_shards(dev, q4_shapes):
     """Kernels 1a, 1b, 1c and 2 against their plain versions at the shapes
     that the parallel phases give them: 16 heads over 16 KV heads (Vicuna-7B
     and its draft at tp 2), 16 over 4 (Mixtral-8x7B and its draft at ep 2),
     a pp stage's one layer of a 2-layer cache, the int8 cache at tp 2 with
-    float32 q (the quantized parallel_exact mode), the batched verify at
-    tp 2, and every (K, N, M) the int4 draft sent kernel 2 at tp 2.
-    Returns the rows by kernel."""
+    float32 q (the quantized parallel_exact mode), the batched verify and
+    expansion at tp 2 (float32 B = 3; the tp 2 engine's bf16 and int8 B =
+    4), getkacc's rollout at tp 2 (float32, B = 16, S = 1), and every
+    (K, N, M) the int4 draft sent kernel 2 at tp 2.  Returns the rows by
+    kernel."""
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(13)
     tree = torch.tril(torch.rand((30, 30), generator=g) < 0.3)
@@ -3800,15 +4270,37 @@ def phase_kernel_shards(dev, q4_shapes):
     expand_b[:, :, :16] = torch.rand((b, 8, 16), generator=g) < 0.3
     expand_b[:, torch.arange(8), 16 + torch.arange(8)] = True
     tree_b, expand_b = tree_b.to(dev).contiguous(), expand_b.to(dev).contiguous()
+    # the tp 2 engine's rounds (serving_parallel_exact, B = 4 at 7B starts and
+    # layers) and getkacc at tp 2 (parallel_train_full_width: 16 prefixes, one
+    # query row each, over the float32 draft cache of 519 rows)
+    starts4, layers4 = (301, 129, 777, 1500), (0, 5, 17, 31)
+    tree4 = torch.tril(torch.rand((4, 30, 30), generator=g) < 0.3)
+    tree4 |= torch.eye(30, dtype=torch.bool)
+    tree4[:, :, 0] = True
+    expand4 = torch.zeros((4, 8, 24), dtype=torch.bool)
+    expand4[:, :, :16] = torch.rand((4, 8, 16), generator=g) < 0.3
+    expand4[:, torch.arange(8), 16 + torch.arange(8)] = True
+    tree4, expand4 = tree4.to(dev).contiguous(), expand4.to(dev).contiguous()
+    ones16 = torch.ones((16, 1, 1), dtype=torch.bool, device=dev)
     rows_1c = [
         kernel_case_batched("tp2_batched_target_verify_f32", 93, dev, f32, 16, 16, 30, 30,
                             starts, layers, tree_b, flush, n_layers=2),
         kernel_case_batched("tp2_batched_draft_expand_f32", 94, dev, f32, 16, 16, 8, 24,
                             starts, None, expand_b, flush),
+        kernel_case_batched("tp2_batched_target_verify", 95, dev, bf16, 16, 16, 30, 30,
+                            starts4, layers4, tree4, flush),
+        kernel_case_batched("tp2_batched_draft_expand", 96, dev, bf16, 16, 16, 8, 24,
+                            starts4, None, expand4, flush),
+        kernel_case_batched("tp2_batched_getkacc_f32_b16", 97, dev, f32, 16, 16, 1, 1,
+                            KACC_STARTS, None, ones16, flush, max_len=519),
+    ]
+    rows_1c_int8 = [
+        kernel_case_batched("tp2_batched_target_verify_int8", 98, dev, bf16, 16, 16, 30, 30,
+                            starts4, layers4, tree4, flush, int8=True),
     ]
     rows_2 = [q4_case(dev, k, n, m, flush, prefix="tp2_q4") for k, n, m in q4_shapes]
     torch.cuda.empty_cache()
-    return rows_1a, rows_1b, rows_1c, rows_2
+    return rows_1a, rows_1b, rows_1c, rows_1c_int8, rows_2
 
 
 def main():
@@ -3832,6 +4324,8 @@ def main():
         phase_build()
         phase_parallel_exact(dev)
         phase_parallel_full_width()
+        phase_parallel_train_exact()
+        phase_parallel_train_full_width(dev)
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              check=True, timeout=60).stdout.strip(), flush=True)
@@ -3897,7 +4391,13 @@ def main():
     torch.cuda.empty_cache()
     q4_tp2_shapes = phase_parallel_exact(dev)
     phase_parallel_full_width()
-    shard_1a, shard_1b, shard_1c, shard_2 = phase_kernel_shards(dev, q4_tp2_shapes)
+    phase_parallel_train_exact()
+    phase_parallel_train_full_width(dev)
+    q4_tp2_shapes = sorted(set(q4_tp2_shapes) | set(phase_serving_parallel_exact(dev))
+                           | set(phase_serving_parallel_full_depth(dev)))
+    phase_examples_device()
+    shard_1a, shard_1b, shard_1c, shard_1c_int8, shard_2 = phase_kernel_shards(
+        dev, q4_tp2_shapes)
 
     def entry(name, source, replaces, launches, case_rows, main_row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3928,7 +4428,7 @@ def main():
               rows_1c + shard_1c, rows_1c[0]),
         entry("verify_attention_batched_int8", "vispec_tpu_torch/csrc/verify_attention.cu",
               "vispec_tpu/ops/pallas_attention.py:32", serving_quant_counts["1c_int8"],
-              rows_1c_int8, rows_1c_int8[0]),
+              rows_1c_int8 + shard_1c_int8, rows_1c_int8[0]),
     ]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

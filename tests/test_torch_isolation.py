@@ -1,6 +1,7 @@
-"""The port stands alone: no file of vispec_tpu_torch/, and not chip_smoke.py,
-imports jax, vispec_tpu, safetensors or optax; importing the package loads none of
-them; its entry points default to the GPU."""
+"""The port stands alone: no file of vispec_tpu_torch/ (its examples
+included), and not chip_smoke.py, imports jax, vispec_tpu, safetensors or
+optax; importing the package loads none of them; its entry points and
+examples default to the GPU."""
 
 import ast
 import inspect
@@ -67,6 +68,27 @@ def test_entry_points_default_to_the_gpu():
                mixtral.convert_mixtral, hf.convert_llama, hf.convert_draft,
                hf.convert_clip_and_projector, hf.convert_qwen_vision,
                trainer.batch_examples, trainer.data_iterator, trainer.load_state,
+               trainer.load_params,
                main_mtp.load_head_only):
         default = inspect.signature(fn).parameters["device"].default
         assert torch.device(default).type == "cuda", fn.__qualname__
+
+
+EXAMPLES = ("quickstart", "serving", "serve_http", "multichip")
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_stand_alone_and_default_to_the_gpu(name):
+    """Each example of vispec_tpu_torch/examples/ is among the files the
+    import checks above walk, runs as a module (``python -m``) and takes
+    ``--device`` with cuda as its default."""
+    path = ROOT / "vispec_tpu_torch" / "examples" / f"{name}.py"
+    assert path in PORT_FILES
+    tree = ast.parse(path.read_text(), str(path))
+    devices = [call for call in ast.walk(tree) if isinstance(call, ast.Call)
+               and getattr(call.func, "attr", None) == "add_argument"
+               and call.args and getattr(call.args[0], "value", None) == "--device"]
+    assert len(devices) == 1, name
+    default = next(k.value.value for k in devices[0].keywords if k.arg == "default")
+    assert default == "cuda", name
+    assert 'if __name__ == "__main__":' in path.read_text()

@@ -17,8 +17,8 @@ float32 on the CPU unless a test says otherwise:
     hiddens <= 1e-5;
   - ``prepare_example`` / ``batch_examples`` bit-equal; ``getkacc`` equal;
   - ``train`` for 2 epochs with a resume: the losses <= 1e-4 of JAX's;
-  - the CLIs end to end on fabricated checkpoints, and the refusals of a
-    mesh and of the orbax backend.
+  - the CLIs end to end on fabricated checkpoints, a mesh flag without a
+    world (a usage error) and the orbax backend through the stage-2 CLI.
 Every test compiles JAX graphs, so the module runs in a child process
 (``tests/torch_parity.in_fresh_interpreter``)."""
 
@@ -525,46 +525,10 @@ def test_train_two_epochs_with_resume_matches_jax(tmp_path):
         assert torch.equal(_at(opt.nu, path), _at(opt2.nu, path))
 
 
-@in_fresh_interpreter
-def test_refusals_of_the_parallel_layer(tmp_path, monkeypatch):
-    _, th = _head()
-    with pytest.raises(NotImplementedError, match="item 21b"):
-        ttrainer.train(str(tmp_path), str(tmp_path / "cp"), T_DCFG, th,
-                       ttrainer.TrainConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 21b"):
-        ttrainer.train(str(tmp_path), str(tmp_path / "cp"), T_DCFG, th,
-                       ttrainer.TrainConfig(ckpt_backend="orbax"))
-    from vispec_tpu_torch.train import ge_data, main, main_medusa, main_mtp
-
-    # the training CLIs refuse a mesh (item 21b); ge_data's --tp runs under
-    # torchrun (tests/test_torch_parallel.py) and is a usage error in one process
-    for mod, flag in ((main_mtp, "--dp"), (main_mtp, "--tp"), (main, "--sp"),
-                      (main_medusa, "--dp"), (ge_data, "--tp")):
-        argv = ["x", "--basepath", "b", "--configpath", "c", flag, "2"]
-        if mod is main_medusa:
-            argv = ["x", "--basepath", "b", flag, "2"]
-        if mod is ge_data:
-            argv = ["x", "--basepath", "b", "--dataset", "sharegpt", "--data-file", "f",
-                    "--outdir", "o", flag, "2"]
-        monkeypatch.setattr(sys, "argv", argv)
-        with pytest.raises(SystemExit):
-            mod.main()
-    monkeypatch.setattr(sys, "argv", ["x", "--basepath", "b", "--configpath", "c",
-                                      "--ckpt-backend", "orbax"])
-    with pytest.raises(SystemExit):
-        main_mtp.main()
-
-
-# ---------------------------------------------------------------------------
-# The CLIs on fabricated checkpoints
-# ---------------------------------------------------------------------------
-
-
-@in_fresh_interpreter
-def test_training_clis_write_states(tmp_path, monkeypatch):
-    pytest.importorskip("safetensors.numpy")
+def _cli_inputs(tmp_path):
+    """A fabricated target checkpoint, a draft config and two samples: the
+    training CLIs' inputs.  Returns (target dir, draft config path)."""
     from tests.test_from_pretrained import H, V, write_llama_ckpt
-    from vispec_tpu_torch.train import main, main_medusa, main_mtp
 
     tdir = str(tmp_path / "t")
     write_llama_ckpt(tdir)
@@ -582,8 +546,69 @@ def test_training_clis_write_states(tmp_path, monkeypatch):
             "hidden_state": rng.normal(0, 1, (s, H)).astype(np.float32),
             "inputs_embeds": rng.normal(0, 1, (s, H)).astype(np.float32),
             "loss_mask": mask, "image_mask": np.zeros(s, bool)})
-    common = ["--tmpdir", str(tmp_path / "data"), "--max-len", "32", "--num-epochs", "1",
-              "--device", "cpu"]
+    return tdir, cfg_path
+
+
+CLI_COMMON = ["--max-len", "32", "--num-epochs", "1", "--device", "cpu"]
+
+
+@in_fresh_interpreter
+def test_refusals_of_the_parallel_layer(tmp_path, monkeypatch, capsys):
+    """What the parallel layer refuses in one process, and what it takes:
+    a mesh flag above 1 without a world of that many ranks is a usage error
+    of every training CLI (``mesh_from_args``' world check; ``torchrun``
+    runs them, ``tests/test_torch_parallel_train.py``), as is ``ge_data --tp
+    2``; ``train`` refuses an unknown checkpoint backend; ``--ckpt-backend
+    orbax`` is accepted: stage 2 writes ``state_0.orbax``, which
+    ``load_state`` reads and ``--loadpath`` warm-starts from."""
+    pytest.importorskip("safetensors.numpy")
+    _, th = _head()
+    with pytest.raises(ValueError, match="ckpt_backend"):
+        ttrainer.train(str(tmp_path), str(tmp_path / "cp"), T_DCFG, th,
+                       ttrainer.TrainConfig(ckpt_backend="tensorstore"))
+    from vispec_tpu_torch.train import ge_data, main, main_medusa, main_mtp
+
+    for mod, flag in ((main_mtp, "--dp"), (main_mtp, "--tp"), (main, "--sp"),
+                      (main_medusa, "--dp"), (ge_data, "--tp")):
+        argv = ["x", "--basepath", "b", "--configpath", "c", "--bs", "2", flag, "2"]
+        if mod is main_medusa:
+            argv = ["x", "--basepath", "b", "--bs", "2", flag, "2"]
+        if mod is ge_data:
+            argv = ["x", "--basepath", "b", "--dataset", "sharegpt", "--data-file", "f",
+                    "--outdir", "o", flag, "2"]
+        monkeypatch.setattr(sys, "argv", argv)
+        with pytest.raises(SystemExit):
+            mod.main()
+        if mod is not ge_data:
+            assert "the world has 1" in capsys.readouterr().err
+    tdir, cfg_path = _cli_inputs(tmp_path)
+    base = ["x", "--basepath", tdir, "--configpath", cfg_path, "--mtp-steps", "1",
+            "--tmpdir", str(tmp_path / "data"), "--ckpt-backend", "orbax"] + CLI_COMMON
+    monkeypatch.setattr(sys, "argv", base + ["--cpdir", str(tmp_path / "orbax")])
+    main_mtp.main()
+    state = str(tmp_path / "orbax" / "state_0.orbax")
+    assert ttrainer.latest_state(str(tmp_path / "orbax")) == state
+    epoch, params, opt = ttrainer.load_state(state, device=CPU)
+    assert epoch == 0 and opt.count == 2
+    assert ttrainer.load_params(state, device=CPU).keys() == params.keys()
+    monkeypatch.setattr(sys, "argv", base + ["--cpdir", str(tmp_path / "warm"),
+                                             "--loadpath", state])
+    main_mtp.main()
+    assert os.path.isdir(tmp_path / "warm" / "state_0.orbax")
+
+
+# ---------------------------------------------------------------------------
+# The CLIs on fabricated checkpoints
+# ---------------------------------------------------------------------------
+
+
+@in_fresh_interpreter
+def test_training_clis_write_states(tmp_path, monkeypatch):
+    pytest.importorskip("safetensors.numpy")
+    from vispec_tpu_torch.train import main, main_medusa, main_mtp
+
+    tdir, cfg_path = _cli_inputs(tmp_path)
+    common = ["--tmpdir", str(tmp_path / "data")] + CLI_COMMON
     for mod, extra, cp in ((main, ["--configpath", cfg_path], "s1"),
                            (main_mtp, ["--configpath", cfg_path, "--mtp-steps", "1"], "s2"),
                            (main_medusa, [], "med")):

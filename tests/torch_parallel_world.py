@@ -1,13 +1,18 @@
-"""The processes behind tests/test_torch_parallel.py.
+"""The processes behind tests/test_torch_parallel.py and
+tests/test_torch_parallel_train.py.
 
 ``python tests/torch_parallel_world.py jax <inputs.pkl> <out.pkl>`` runs the
-JAX package's single-device reference of every case; ``python
-tests/torch_parallel_world.py rank <rank> <world> <init file> <inputs.pkl>
-<out.pkl> [cli]`` is one rank of a gloo world of the port (no JAX in these
-processes): the model cases in a world of four ranks, the CLI cases
-(``gen_answer --tp 2``, ``ge_data --tp 2``, ``mesh_from_args``) in a world
-of two.  The inputs (numpy weights in the JAX package's layout, made from
-seeds, and the paths of fabricated checkpoints) come from the test module.
+JAX package's single-device reference of every inference case (``jax-train``:
+of the training step and the engine); ``python tests/torch_parallel_world.py
+rank <rank> <world> <init file> <inputs.pkl> <out.pkl> [cli|train|medusa]``
+is one rank of a gloo world of the port (no JAX in these processes): the
+model cases in a world of four ranks, the CLI cases (``gen_answer --tp 2``,
+``ge_data --tp 2``, ``mesh_from_args``) in a world of two; the training
+cases (dp x sp and dp x tp steps, ``train()``, the stage-1 CLI, the orbax
+backend, the engine at tp 2) in a world of four, the Medusa CLI at dp 2 in
+a world of two.  The inputs (numpy weights in the JAX package's layout, made
+from seeds, and the paths of fabricated checkpoints and data) come from the
+test modules.
 """
 
 import os
@@ -81,11 +86,10 @@ def target_tree(seed: int, bias: bool = False, mixtral: bool = False) -> dict:
             "lm_head": w(d, v)}
 
 
-def draft_tree(seed: int, bias: bool = False, vision: bool = True) -> dict:
+def draft_tree(seed: int, bias: bool = False, vision: bool = True, c: dict = DRAFT) -> dict:
     """A ViSpec draft in the JAX layout (adaptor and img_fc with vision),
-    random fuse weights and biases."""
+    random fuse weights and biases, at the geometry ``c``."""
     rng = np.random.default_rng(seed)
-    c = DRAFT
     d, i, v, h = c["hidden_size"], c["intermediate_size"], c["vocab_size"], \
         c["num_attention_heads"]
     hd = d // h
@@ -371,8 +375,285 @@ def _cli_cases(rank: int, inputs: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Parallel training and the sharded engine (tests/test_torch_parallel_train.py)
+# ---------------------------------------------------------------------------
+
+# tests/test_tp_inference.py's dp x sp step geometry, and tests/test_training.py's
+# for the train() loop
+STEP_DRAFT = dict(vocab_size=64, hidden_size=32, intermediate_size=64, num_attention_heads=4,
+                  num_key_value_heads=4, max_position_embeddings=64, num_q=2)
+LOOP_DRAFT = dict(vocab_size=96, hidden_size=32, intermediate_size=64, num_attention_heads=4,
+                  num_key_value_heads=2, max_position_embeddings=256, num_q=2)
+LOOP_CFG = dict(lr=2e-3, bs=2, num_epochs=1, max_len=64, mtp_steps=1, warmup_steps=2,
+                total_steps=1000, max_images=1, max_span_bucket=8)
+# the JAX oracle's optimizer (make_optimizer()'s defaults): at a learning
+# rate of 2e-3 the port's one-process step already differs from JAX's by
+# 5.3e-6 in one adaptor/wk element after the second step (Adam's update of a
+# gradient near zero turns float32 rounding into its sign)
+STEP_OPT = dict(lr=3e-5, warmup_steps=2000, total_steps=800_000, grad_clip=0.5)
+STEPS = 2
+ENGINE_PROMPTS = [list(range(10, 34)), list(range(40, 61)), list(range(5, 29))]
+ENGINE_MODES = {"plain": {}, "int8_kv_int4_draft": {"quantize_kv": True,
+                                                      "quantize_draft": "int4"}}
+
+
+def step_inputs() -> dict:
+    """The dp x sp step's inputs in numpy: a draft (every leaf random), a
+    batch of 2 x 16 rows whose image span (rows 4-9) crosses the sp 2
+    boundary at row 8, a frozen head."""
+    rng = np.random.default_rng(40)
+    b, s, d = 2, 16, STEP_DRAFT["hidden_size"]
+    image_mask = np.zeros(s, bool)
+    image_mask[4:10] = True
+    return {"draft": draft_tree(41, c=STEP_DRAFT), "image_mask": image_mask,
+            "hidden_states": rng.normal(0, 1, (b, s, d)).astype(np.float32),
+            "embeds": rng.normal(0, 1, (b, s, d)).astype(np.float32),
+            "target": rng.normal(0, 1, (b, s, d)).astype(np.float32),
+            "loss_mask": (rng.uniform(0, 1, (b, s)) < 0.8).astype(np.float32),
+            "head": (rng.normal(0, 0.02, (d, STEP_DRAFT["vocab_size"])) * 5).astype(
+                np.float32)}
+
+
+def loop_head() -> np.ndarray:
+    return np.random.default_rng(42).normal(0, 0.05, (LOOP_DRAFT["hidden_size"],
+                                                      LOOP_DRAFT["vocab_size"])).astype(
+        np.float32)
+
+
+def quantized_trees() -> tuple:
+    """The tp 2 orbax save's contents, from seeds: an int4-quantized draft at
+    LOOP_DRAFT and two trees of its structure in the moments' place (random
+    float leaves quantized alike)."""
+    import torch
+
+    from vispec_tpu_torch.convert.params import from_numpy
+    from vispec_tpu_torch.ops.quant import quantize_draft_params
+
+    head = torch.from_numpy(loop_head())
+    return tuple(quantize_draft_params(from_numpy(draft_tree(seed, c=LOOP_DRAFT), "cpu"), head,
+                                       mode="int4") for seed in (44, 45, 46))
+
+
+def engine_model(torch_side: bool, opts: dict):
+    """The engine cases' model (the MODEL_CASES weights of index 0), on the
+    port (CPU) or in the JAX package, quantized as ``opts`` says."""
+    t, d, _ = case_weights(0, {})
+    if torch_side:
+        import torch
+
+        from vispec_tpu_torch.configs import DraftConfig, LlamaConfig, SpecConfig
+        from vispec_tpu_torch.convert.params import from_numpy
+        from vispec_tpu_torch.spec.spec_model import SpecModel
+
+        tp, dp = from_numpy(t, "cpu"), from_numpy(d, "cpu")
+        extra = {"dtype": torch.float32, "device": "cpu"}
+    else:
+        import jax
+        import jax.numpy as jnp
+
+        from vispec_tpu.configs import DraftConfig, LlamaConfig, SpecConfig
+        from vispec_tpu.spec.spec_model import SpecModel
+
+        tp, dp = jax.tree.map(jnp.asarray, t), jax.tree.map(jnp.asarray, d)
+        extra = {"dtype": jnp.float32}
+    dp["embed"] = tp["embed"]
+    model = SpecModel(LlamaConfig(**TARGET), DraftConfig(**DRAFT), SpecConfig(**SPEC), tp, dp,
+                      max_len=512, eos_token_id=NEVER,
+                      quantize_kv=opts.get("quantize_kv", False), **extra)
+    if opts.get("quantize_draft"):
+        model.quantize_draft_inplace(opts["quantize_draft"])
+    return model
+
+
+def engine_tokens(model) -> list:
+    outs = model.serving_engine(batch_size=2, max_new_tokens=16, chunk_rounds=4).run_all(
+        ENGINE_PROMPTS)
+    return [np.asarray(o).tolist() for o in outs]
+
+
+def jax_train_main(inputs_path: str, out_path: str) -> None:
+    """The JAX package's unsharded training step (STEPS steps from one
+    state) and its engine in both modes."""
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_default_matmul_precision", "highest")
+    from vispec_tpu.configs import DraftConfig
+    from vispec_tpu.models import draft as draft_mod
+    from vispec_tpu.train.step import TrainBatch, make_optimizer, train_step
+
+    x = step_inputs()
+    dcfg = DraftConfig(**STEP_DRAFT)
+    s = x["hidden_states"].shape[1]
+    plan, max_span = draft_mod.make_prefill_plan(x["image_mask"], s, dcfg.num_q, s,
+                                                 max_images=1, max_span=8)
+    b = x["hidden_states"].shape[0]
+    batch = TrainBatch(hidden_states=jnp.asarray(x["hidden_states"]),
+                       embeds=jnp.asarray(x["embeds"]), target=jnp.asarray(x["target"]),
+                       loss_mask=jnp.asarray(x["loss_mask"]),
+                       plans=jax.tree.map(lambda a: jnp.broadcast_to(a, (b,) + a.shape), plan))
+    params = jax.tree.map(jnp.asarray, x["draft"])
+    opt = make_optimizer(**STEP_OPT)
+    state = opt.init(params)
+    steps = []
+    for _ in range(STEPS):
+        params, state, metrics = train_step(params, state, dcfg, jnp.asarray(x["head"]), batch,
+                                            opt, mtp_steps=1, max_span=max_span)
+        adam = state[1]
+        steps.append({"loss": float(metrics["loss"]),
+                      "params": jax.tree.map(np.array, params),
+                      "mu": jax.tree.map(np.array, adam.mu),
+                      "nu": jax.tree.map(np.array, adam.nu)})
+    out = {"steps": steps, "engine": {name: engine_tokens(engine_model(False, opts))
+                                      for name, opts in ENGINE_MODES.items()}}
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def _numpy(tree):
+    from vispec_tpu_torch.ops.quant import Q4Tensor, QTensor
+
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (QTensor, Q4Tensor)):
+        return {f: _numpy(getattr(tree, f)) for f in tree.__dataclass_fields__}
+    return tree.detach().cpu().numpy().copy()  # not a view of a tensor updated in place
+
+
+def _step_case(mesh) -> list:
+    """STEPS dp x sp steps of the port from step_inputs(); each step's
+    metrics and the (whole) params and moments."""
+    import torch
+
+    from vispec_tpu_torch.configs import DraftConfig
+    from vispec_tpu_torch.convert.params import from_numpy
+    from vispec_tpu_torch.models import draft as draft_mod
+    from vispec_tpu_torch.parallel import sharding
+    from vispec_tpu_torch.train.step import TrainBatch, make_optimizer, train_step
+
+    x = step_inputs()
+    dcfg = DraftConfig(**STEP_DRAFT)
+    s = x["hidden_states"].shape[1]
+    plan, max_span = draft_mod.make_prefill_plan(x["image_mask"], s, dcfg.num_q, s,
+                                                 max_images=1, max_span=8, device="cpu")
+    b = x["hidden_states"].shape[0]
+    batch = TrainBatch(*(torch.from_numpy(x[k]) for k in ("hidden_states", "embeds", "target",
+                                                          "loss_mask")),
+                       plans=draft_mod.PrefillPlan(*(torch.stack([f] * b) for f in plan)))
+    params = from_numpy(x["draft"], "cpu")
+    specs = sharding.quantized_draft_specs(dcfg, params)
+    params = sharding.apply_specs(mesh, params, specs)
+    head = sharding.local_part(torch.from_numpy(x["head"]), (None, "tp"), mesh.shape,
+                               mesh.coords).contiguous()
+    opt = make_optimizer(**STEP_OPT)
+    state = opt.init(params)
+    batch = sharding.shard_train_batch(mesh, batch)
+    steps = []
+    for _ in range(STEPS):
+        sharding.COLLECTIVES.reset()
+        params, state, metrics = train_step(params, state, dcfg, head, batch, opt,
+                                            mtp_steps=1, max_span=max_span, mesh=mesh)
+        steps.append({"metrics": {k: float(v) for k, v in metrics.items()},
+                      "collectives": dict(sharding.COLLECTIVES.calls),
+                      "params": _numpy(sharding.gather_params(mesh, params, specs)),
+                      "mu": _numpy(sharding.gather_params(mesh, state.mu, specs)),
+                      "nu": _numpy(sharding.gather_params(mesh, state.nu, specs)),
+                      "local_rows": tuple(batch.hidden_states.shape)})
+    return steps
+
+
+def _orbax_tp2(mesh, cpdir: str) -> dict:
+    """A tp 2 orbax save of an int4-quantized draft with its specs and
+    moments, reloaded into the rank's shards: equal bit for bit."""
+    import torch
+
+    from vispec_tpu_torch.configs import DraftConfig
+    from vispec_tpu_torch.parallel import sharding
+    from vispec_tpu_torch.train import trainer
+    from vispec_tpu_torch.train.step import AdamState, leaves
+
+    dcfg = DraftConfig(**LOOP_DRAFT)
+    q, mu, nu = quantized_trees()
+    qspecs = sharding.quantized_draft_specs(dcfg, q)
+    local = sharding.apply_specs(mesh, q, qspecs)
+    opt = AdamState(3, sharding.apply_specs(mesh, mu, qspecs),
+                    sharding.apply_specs(mesh, nu, qspecs))
+    path = trainer.save_state(cpdir, 7, local, opt, backend="orbax", mesh=mesh, specs=qspecs)
+    epoch, got, got_opt = trainer.load_state(path, device="cpu", mesh=mesh)
+
+    def same(a, b):
+        fa, fb = dict(trainer._items(a)), dict(trainer._items(b))
+        return fa.keys() == fb.keys() and all(torch.equal(fa[k], fb[k]) for k in fa)
+
+    return {"path": path, "epoch": epoch, "count": got_opt.count,
+            "params_equal": same(local, got), "mu_equal": same(opt.mu, got_opt.mu),
+            "nu_equal": same(opt.nu, got_opt.nu),
+            "local_leaves": {k: tuple(v.shape) for k, v in trainer._items(got)},
+            "n_leaves": len(leaves(local))}
+
+
+def _train_cases(rank: int, inputs: dict) -> dict:
+    """The four-rank training world: the dp 2 x sp 2 step, the dp 2 x tp 2
+    train() loop (pickle), then two runs with the orbax backend (epoch 0,
+    then a resume to epoch 1), the tp 2 orbax save of a quantized draft,
+    the stage-1 CLI at --dp 2 --sp 2, the engine at tp 2 in both modes."""
+    import torch
+
+    from vispec_tpu_torch.configs import DraftConfig
+    from vispec_tpu_torch.parallel import mesh as meshmod
+    from vispec_tpu_torch.train import main as stage1_cli
+    from vispec_tpu_torch.train import trainer
+
+    out = {}
+    mesh = meshmod.make_mesh(dp=2, sp=2, device="cpu")
+    out["step_dp2_sp2"] = _step_case(mesh)
+    mesh = meshmod.make_mesh(dp=2, tp=2, device="cpu")
+    out["mesh_dp2_tp2"] = mesh.describe()
+    c = inputs["train"]
+    dcfg, head = DraftConfig(**LOOP_DRAFT), torch.from_numpy(loop_head())
+    out["loop_pickle"] = _numpy(trainer.train(c["data"], c["world_pickle"], dcfg, head,
+                                              trainer.TrainConfig(**LOOP_CFG), log_every=1,
+                                              mesh=mesh))
+    runs = []
+    for epochs in (1, 2):
+        cfg = trainer.TrainConfig(**dict(LOOP_CFG, num_epochs=epochs, ckpt_backend="orbax"))
+        runs.append(_numpy(trainer.train(c["data"], c["world_orbax"], dcfg, head, cfg,
+                                         log_every=1, mesh=mesh)))
+    out["loop_orbax"] = runs
+    out["orbax_tp2"] = _orbax_tp2(mesh, c["world_quant"])
+    cli = inputs["cli"]
+    sys.argv = ["main", "--basepath", cli["target"], "--configpath", cli["draft_cfg"],
+                "--tmpdir", cli["data"], "--cpdir", cli["world_stage1"], "--bs", "2",
+                "--max-len", "64", "--num-epochs", "1", "--device", "cpu",
+                "--dp", "2", "--sp", "2"]
+    stage1_cli.main()
+    engine = {}
+    mesh = meshmod.make_mesh(tp=2, device="cpu")
+    for name, opts in ENGINE_MODES.items():
+        model = engine_model(True, opts)
+        model.shard_over(mesh)
+        engine[name] = {"tokens": engine_tokens(model),
+                        "cache_heads": model.serving_engine(2)._cache_dims()}
+    out["engine"] = engine
+    return out
+
+
+def _medusa_case(inputs: dict) -> dict:
+    from vispec_tpu_torch.train import main_medusa
+
+    cli = inputs["cli"]
+    sys.argv = ["main_medusa", "--basepath", cli["target"], "--tmpdir", cli["data"],
+                "--cpdir", cli["world_medusa"], "--bs", "2", "--max-len", "64",
+                "--num-epochs", "1", "--device", "cpu", "--dp", "2"]
+    main_medusa.main()
+    return {}
+
+
 def rank_main(rank: int, world: int, init_file: str, inputs_path: str, out_path: str,
-              cli: bool) -> None:
+              job: str) -> None:
     import torch
 
     torch.set_num_threads(1)
@@ -383,8 +664,12 @@ def rank_main(rank: int, world: int, init_file: str, inputs_path: str, out_path:
         inputs = pickle.load(f)
     assert multihost.init_distributed(init_method="file://" + init_file,
                                       num_processes=world, process_id=rank) == rank
-    if cli:
+    if job == "cli":
         out = _cli_cases(rank, inputs)
+    elif job == "train":
+        out = _train_cases(rank, inputs)
+    elif job == "medusa":
+        out = _medusa_case(inputs)
     else:
         def mesh_for(tp, pp, sp):
             return meshmod.make_mesh(tp=tp, pp=pp, sp=sp, device="cpu")
@@ -402,6 +687,8 @@ if __name__ == "__main__":
     sys.path.insert(0, ROOT)
     if sys.argv[1] == "jax":
         jax_main(sys.argv[2], sys.argv[3])
+    elif sys.argv[1] == "jax-train":
+        jax_train_main(sys.argv[2], sys.argv[3])
     else:
         rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6],
-                  len(sys.argv) > 7 and sys.argv[7] == "cli")
+                  sys.argv[7] if len(sys.argv) > 7 else "model")

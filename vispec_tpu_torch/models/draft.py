@@ -170,8 +170,8 @@ def img_adaptor(params: dict, cfg: DraftConfig, span_embeds: torch.Tensor,
     a = params["adaptor"]
     d = cfg.head_dim
     h = a["wk"].shape[-1] // d
-    k = qdot(span_embeds, a["wk"]).to(span_embeds.dtype)
-    v = qdot(span_embeds, a["wv"]).to(span_embeds.dtype)
+    k = sharding.col_dot(span_embeds, a["wk"], mesh).to(span_embeds.dtype)
+    v = sharding.col_dot(span_embeds, a["wv"], mesh).to(span_embeds.dtype)
     if cfg.qkv_bias:
         k = k + a["bk"].to(k.dtype)
         v = v + a["bv"].to(v.dtype)
@@ -272,7 +272,7 @@ def _fuse_img_only(params: dict, hidden: torch.Tensor,
     if "img_fc_w" not in params:
         return hidden
     img_in = torch.cat([hidden, last_img_per_tok.to(hidden.dtype)], dim=-1)
-    fused = qdot(img_in, params["img_fc_w"])
+    fused = sharding.col_dot(img_in, params["img_fc_w"], mesh)
     if "img_fc_b" in params:
         fused = fused + params["img_fc_b"].float()
     return _join_cols(fused.to(hidden.dtype), hidden.shape[-1], mesh)
@@ -280,7 +280,7 @@ def _fuse_img_only(params: dict, hidden: torch.Tensor,
 
 def _fc(params: dict, embeds: torch.Tensor, fused: torch.Tensor, mesh=None) -> torch.Tensor:
     fc_in = torch.cat([embeds.to(fused.dtype), fused], dim=-1)
-    out = qdot(fc_in, params["fc_w"])
+    out = sharding.col_dot(fc_in, params["fc_w"], mesh)
     if "fc_b" in params:
         out = out + params["fc_b"].float()
     return _join_cols(out.to(fused.dtype), fused.shape[-1], mesh)
@@ -346,9 +346,11 @@ def compress_inputs(
     mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Compressed-sequence assembly: adaptor over image spans, img_fc/fc text
-    fusion, adapted-slot substitution.  Returns (x [pad_len, hidden],
-    last_img_table [max_images+1, hidden])."""
-    pad_len = plan.gather_src.shape[0]
+    fusion, adapted-slot substitution.  Returns (x [slots, hidden],
+    last_img_table [max_images+1, hidden]), one row per slot of the plan's
+    slot fields (a sequence-parallel rank passes its rows of them; the
+    inputs are the whole sequence)."""
+    pad_len = target_hidden.shape[0]
     max_images = plan.span_start.shape[0]
     dtype, device = target_hidden.dtype, target_hidden.device
     embeds = embeds.to(dtype)
@@ -394,21 +396,27 @@ def compress_inputs(
 def layer_forward_nocache(
     params: dict,
     cfg: DraftConfig,
-    x: torch.Tensor,  # [S, hidden] — already fc-fused
+    x: torch.Tensor,  # [S, hidden] — already fc-fused (this rank's rows under sp)
     position_ids: torch.Tensor,  # [S]
-    attn_mask: torch.Tensor,  # [S, S] bool
+    attn_mask: torch.Tensor,  # [S, S_all] bool
+    mesh=None,
 ) -> torch.Tensor:
     """Cache-less decoder layer for training: the full sequence through the
-    plain masked ``attend``, every op differentiable."""
+    plain masked ``attend``, every op differentiable.  Under a mesh the
+    layer holds this rank's heads and MLP columns (tp), and with sp > 1
+    ``x`` holds this rank's rows: their keys and values are gathered over
+    sp for the causal attention."""
     lp = params["layer"]
     cos, sin = rope_ops.cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
     cos, sin = cos.unsqueeze(-3), sin.unsqueeze(-3)
     s = x.shape[0]
-    h, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    d = cfg.head_dim
+    h, hkv = lp["wq"].shape[-1] // d, lp["wk"].shape[-1] // d
 
-    q = qdot(x, lp["wq"]).to(x.dtype)
-    k = qdot(x, lp["wk"]).to(x.dtype)
-    v = qdot(x, lp["wv"]).to(x.dtype)
+    x_in = sharding.tp_copy(x, mesh)
+    q = qdot(x_in, lp["wq"]).to(x.dtype)
+    k = qdot(x_in, lp["wk"]).to(x.dtype)
+    v = qdot(x_in, lp["wv"]).to(x.dtype)
     if cfg.qkv_bias:
         q = q + lp["bq"].to(q.dtype)
         k = k + lp["bk"].to(k.dtype)
@@ -417,11 +425,13 @@ def layer_forward_nocache(
     k = k.reshape(s, hkv, d).transpose(0, 1)
     v = v.reshape(s, hkv, d).transpose(0, 1)
     q, k = rope_ops.apply_rope(q, k, cos, sin)
+    k = sharding.gather_seq(k, mesh, dim=1)
+    v = sharding.gather_seq(v, mesh, dim=1)
     attn = attend(q, k, v, attn_mask)
     attn = attn.transpose(0, 1).reshape(s, h * d)
-    hidden = x + qdot(attn, lp["wo"]).to(x.dtype)
+    hidden = x + sharding.row_dot(attn, lp["wo"], mesh).to(x.dtype)
     normed = rms_norm(hidden, lp["post_norm"], cfg.rms_norm_eps)
-    return hidden + swiglu_mlp(normed, lp["w_gate"], lp["w_up"], lp["w_down"])
+    return hidden + swiglu_mlp(normed, lp["w_gate"], lp["w_up"], lp["w_down"], mesh)
 
 
 def forward_train(
@@ -431,23 +441,38 @@ def forward_train(
     embeds: torch.Tensor,  # [pad_len, hidden] — input embeds (vision-merged)
     plan: PrefillPlan,
     max_span: int = 1,
+    mesh=None,
 ) -> torch.Tensor:
     """Training-time full-sequence forward with compression and re-scatter:
     compressed slot s writes to original position ``plan.pos_ids[s]``;
-    dropped image positions stay zero.  Returns [pad_len, hidden]."""
+    dropped image positions stay zero.  Returns [pad_len, hidden].
+
+    Under a mesh tp splits heads, the MLP and the fuse columns as the
+    decode forwards do.  With sp > 1 ``target_hidden`` / ``embeds`` and
+    the result are this rank's rows of the sequence (``sharding.seq_rows``)
+    and the plan is whole: image spans and text slots gather from anywhere
+    in the sequence and slots scatter back to any position, so the inputs
+    and the layer's output rows are gathered over sp, and each rank builds
+    and runs the compressed slots of its own rows."""
+    target_hidden = sharding.gather_seq(target_hidden, mesh)
+    embeds = sharding.gather_seq(embeds, mesh)
     pad_len = plan.gather_src.shape[0]
-    x, _ = compress_inputs(params, cfg, target_hidden, embeds, plan, max_span)
+    mine = sharding.seq_rows(mesh, pad_len)
+    slots = plan._replace(**{f: getattr(plan, f)[mine] for f in (
+        "gather_src", "pos_ids", "is_adapted", "adapt_src", "seg_id")})
+    x, _ = compress_inputs(params, cfg, target_hidden, embeds, slots, max_span, mesh)
 
     rows = torch.arange(pad_len, dtype=torch.int32, device=x.device)
     valid = rows < plan.comp_len
-    attn_mask = (rows[None, :] <= rows[:, None]) & valid[None, :]
-    hidden = layer_forward_nocache(params, cfg, x, plan.pos_ids, attn_mask)
+    attn_mask = (rows[None, :] <= rows[mine, None]) & valid[None, :]
+    hidden = layer_forward_nocache(params, cfg, x, slots.pos_ids, attn_mask, mesh)
+    hidden = sharding.gather_seq(hidden, mesh)
 
     # the re-scatter: slot s -> original position pos_ids[s]; the invalid
     # slots add zeros at the last row
     scatter_pos = torch.where(valid, plan.pos_ids, pad_len - 1).to(torch.int64)
     contrib = torch.where(valid[:, None], hidden, torch.zeros_like(hidden))
-    return torch.zeros_like(hidden).index_add(0, scatter_pos, contrib)
+    return torch.zeros_like(hidden).index_add(0, scatter_pos, contrib)[mine]
 
 
 # ---------------------------------------------------------------------------

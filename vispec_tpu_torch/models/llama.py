@@ -54,8 +54,9 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 def swiglu_mlp(x: torch.Tensor, w_gate, w_up, w_down, mesh=None) -> torch.Tensor:
     """SwiGLU over this rank's MLP columns; the down projection's float32
     partial is summed over tp before the cast (``sharding.row_dot``)."""
-    gate = qdot(x, w_gate)
-    up = qdot(x, w_up)
+    x_in = sharding.tp_copy(x, mesh)
+    gate = qdot(x_in, w_gate)
+    up = qdot(x_in, w_up)
     inter = (F.silu(gate) * up).to(x.dtype)
     return sharding.row_dot(inter, w_down, mesh).to(x.dtype)
 

@@ -22,11 +22,24 @@ sharded output joined (Megatron-LM's column- and row-parallel layers):
   the ids in its own vocab range, zeros elsewhere, then an all-reduce);
 - ``stage_handoff``: the pp stage hand-off of the hidden state;
 - ``sp_shard_prefill`` / ``gather_rows``: the sequence-parallel prefill's
-  rows and their gather.
+  rows and their gather;
+- ``shard_train_batch`` / ``seq_rows`` / ``gather_seq``: a training
+  batch's rows over dp x sp and the sequence gathers of the training
+  forward; ``col_dot`` / ``tp_copy``: the input of a column-parallel
+  product under autograd; ``sum_over_data`` / ``sum_grads``: the loss
+  terms and the gradients of leaves replicated over dp and sp.
+
+Training differentiates through the collectives (Megatron-LM's pairs):
+``all_reduce`` passes its gradient through unchanged, since every rank of
+the axis goes on with the same sum; ``tp_copy`` is the identity whose
+gradient is summed over tp; ``all_gather``'s gradient is this rank's part
+of the gathered one: as it is over tp, where every rank computes the same
+function of the gathered tensor, and summed over the axis first over sp,
+where each rank goes on with its own rows.
 
 Only ``all_reduce``, ``all_gather`` and ``broadcast`` are used, the three
 ops that gloo implements for CUDA tensors as well as CPU ones.  Each call is
-counted, with its host time, in ``COLLECTIVES``.
+counted, with its host time, in ``COLLECTIVES``, in a backward pass too.
 """
 
 from __future__ import annotations
@@ -34,6 +47,8 @@ from __future__ import annotations
 import time
 import warnings
 from dataclasses import dataclass, field, fields
+from typing import Optional
+
 import torch
 import torch.distributed as dist
 
@@ -353,16 +368,18 @@ def _active(mesh, axis: str) -> bool:
     return mesh is not None and mesh.shape[axis] > 1
 
 
+def axis_size(mesh, axis: str) -> int:
+    """The size of a mesh axis (1 without a mesh)."""
+    return 1 if mesh is None else mesh.shape[axis]
+
+
 def _wire(x: torch.Tensor) -> torch.Tensor:
     """A 2-byte float tensor as bytes for data-moving collectives (the same
     bits; gloo has no 2-byte integer type and no bfloat16 on every build)."""
     return x.view(torch.uint8) if x.dtype in (torch.bfloat16, torch.float16) else x
 
 
-def all_reduce(x: torch.Tensor, mesh, axis: str = "tp") -> torch.Tensor:
-    """Sum of ``x`` over the mesh axis (returns a new tensor)."""
-    if not _active(mesh, axis):
-        return x
+def _sum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     t0 = time.perf_counter()
     out = x.contiguous().clone()
     dist.all_reduce(out, group=mesh.groups[axis])
@@ -370,10 +387,7 @@ def all_reduce(x: torch.Tensor, mesh, axis: str = "tp") -> torch.Tensor:
     return out
 
 
-def all_gather(x: torch.Tensor, mesh, axis: str = "tp", dim: int = -1) -> torch.Tensor:
-    """The axis members' ``x`` concatenated along ``dim`` in axis order."""
-    if not _active(mesh, axis):
-        return x
+def _gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     t0 = time.perf_counter()
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
@@ -381,6 +395,76 @@ def all_gather(x: torch.Tensor, mesh, axis: str = "tp", dim: int = -1) -> torch.
     out = torch.cat(parts, dim=dim)
     COLLECTIVES.add("all_gather", time.perf_counter() - t0)
     return out
+
+
+def _my_part(g: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    return g.chunk(mesh.shape[axis], dim=dim)[mesh.coords[axis]].contiguous()
+
+
+class _SumFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _sum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.mesh, "tp"), None
+
+
+class _GatherFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.axis != "tp":
+            g = _sum(g, ctx.mesh, ctx.axis)
+        return _my_part(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+def all_reduce(x: torch.Tensor, mesh, axis: str = "tp") -> torch.Tensor:
+    """Sum of ``x`` over the mesh axis (returns a new tensor; its gradient
+    passes through unchanged)."""
+    if not _active(mesh, axis):
+        return x
+    return _SumFn.apply(x, mesh, axis)
+
+
+def all_gather(x: torch.Tensor, mesh, axis: str = "tp", dim: int = -1) -> torch.Tensor:
+    """The axis members' ``x`` concatenated along ``dim`` in axis order (the
+    gradient: this rank's part, summed over the axis first unless it is
+    tp)."""
+    if not _active(mesh, axis):
+        return x
+    return _GatherFn.apply(x, mesh, axis, dim)
+
+
+def tp_copy(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` itself, with its gradient summed over tp: the input of a
+    column-parallel product, whose local columns give each rank only a
+    part of the input's gradient."""
+    if _active(mesh, "tp") and torch.is_grad_enabled() and x.requires_grad:
+        return _CopyFn.apply(x, mesh)
+    return x
+
+
+def col_dot(x: torch.Tensor, w, mesh) -> torch.Tensor:
+    """float32 ``x @ w`` of a column-parallel weight (this rank's output
+    columns)."""
+    return qdot(tp_copy(x, mesh), w)
 
 
 def broadcast(x: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:
@@ -413,8 +497,9 @@ def gather_cols(y: torch.Tensor, mesh) -> torch.Tensor:
 
 def vocab_logits(x: torch.Tensor, w, mesh) -> torch.Tensor:
     """float32 logits ``x @ w`` of a vocab-sharded head, gathered over tp so
-    that every rank ranks and draws over the whole vocab."""
-    return gather_cols(qdot(x, w), mesh)
+    that every rank ranks, draws and takes its softmax over the whole
+    vocab."""
+    return gather_cols(col_dot(x, w, mesh), mesh)
 
 
 def embed_rows(table: torch.Tensor, ids: torch.Tensor, mesh) -> torch.Tensor:
@@ -442,3 +527,92 @@ def stage_handoff(x: torch.Tensor, mesh, stage: int) -> torch.Tensor:
     stage; the last stage's reaches every rank)."""
     return broadcast(x, mesh, "pp", stage)
 
+
+# ---------------------------------------------------------------------------
+# Training: the batch over dp x sp, sequence gathers, data-axis sums
+# ---------------------------------------------------------------------------
+
+
+def shard_train_batch(mesh, batch):
+    """This rank's part of a ``train.step.TrainBatch``: the batch axis over
+    dp and the sequence axis of ``hidden_states`` / ``embeds`` / ``target``
+    / ``loss_mask`` over sp; the compression plans split over dp and
+    replicate over sp (the training forward gathers across the whole
+    sequence for them, ``models/draft.forward_train``)."""
+    def part(x, *spec):
+        spec = spec + (None,) * (x.dim() - len(spec))
+        return local_part(x, spec, mesh.shape, mesh.coords).contiguous().to(mesh.device)
+
+    return batch._replace(
+        hidden_states=part(batch.hidden_states, "dp", "sp"),
+        embeds=part(batch.embeds, "dp", "sp"),
+        target=part(batch.target, "dp", "sp"),
+        loss_mask=part(batch.loss_mask, "dp", "sp"),
+        plans=type(batch.plans)(*(part(f, "dp") for f in batch.plans)))
+
+
+def seq_rows(mesh, total: int) -> slice:
+    """The rows of a ``total``-row sequence that this rank holds over sp."""
+    if not _active(mesh, "sp"):
+        return slice(0, total)
+    n, i = mesh.shape["sp"], mesh.coords["sp"]
+    if total % n:
+        raise ValueError(f"a sequence of {total} rows does not split over sp={n}")
+    return slice(i * (total // n), (i + 1) * (total // n))
+
+
+def gather_seq(x: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
+    """The whole sequence from every sp rank's rows along ``dim``."""
+    return all_gather(x, mesh, "sp", dim=dim)
+
+
+DATA_AXES = ("dp", "sp")
+
+
+def sum_over_data(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over dp and sp, without a gradient: a loss's mask count,
+    or a metric's masked sum."""
+    with torch.no_grad():
+        for axis in DATA_AXES:
+            if _active(mesh, axis):
+                x = _sum(x, mesh, axis)
+    return x
+
+
+def sum_grads(grads, mesh) -> list:
+    """Gradients of leaves replicated over dp and sp summed over both (each
+    rank's loss holds its rows' part of the global loss), one all-reduce a
+    dtype and axis over the flattened gradients."""
+    grads = list(grads)
+    if not any(_active(mesh, a) for a in DATA_AXES):
+        return grads
+    for dtype in sorted({g.dtype for g in grads}, key=str):  # the same order on every rank
+        idx = [i for i, g in enumerate(grads) if g.dtype == dtype]
+        flat = sum_over_data(torch.cat([grads[i].reshape(-1) for i in idx]), mesh)
+        for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
+            grads[i] = part.view_as(grads[i])
+    return grads
+
+
+def split_dim(spec) -> Optional[int]:
+    """The dim that a spec splits over tp, or None."""
+    return next((d for d, ax in enumerate(spec) if ax == "tp"), None)
+
+
+def gather_params(mesh, params: dict, specs: Optional[dict]) -> dict:
+    """The whole parameter tree on every rank from this rank's shards
+    (``apply_specs``' inverse; quantized leaves field by field)."""
+    if not _active(mesh, "tp") or specs is None:
+        return params
+
+    def whole(x, s):
+        if isinstance(x, dict):
+            return {k: whole(v, s[k]) for k, v in x.items()}
+        if isinstance(x, (QTensor, Q4Tensor)):
+            return type(x)(**{f.name: whole(getattr(x, f.name), getattr(s, f.name))
+                              for f in fields(x)})
+        d = split_dim(s)
+        return x if d is None else _gather(x, mesh, "tp", d)
+
+    with torch.no_grad():
+        return whole(params, specs)

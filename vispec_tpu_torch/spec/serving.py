@@ -34,7 +34,16 @@ round mixes greedy and sampled slots.  A Medusa model's admissions run
 ``medusa_prefill`` with a tiny dummy draft cache; Medusa refuses a prefix
 cache and a repetition penalty, with the JAX package's messages.
 
-Not ported yet: tensor-parallel models and conversation snapshots.
+A sharded model (``SpecModel.shard_over``, ``from_pretrained(mesh=)``)
+serves as one process per rank: every rank builds the engine over its
+shards and submits the same requests in the same order, and then every
+rank admits, decodes and finishes alike (SPMD).  Its slot caches hold the
+rank's heads (and layers under pp); the prefills and the rounds take the
+model's mesh.  Every decision the engine or a round makes from the device
+reads values that all ranks hold equal: the logits are gathered over tp
+before any top-k, acceptance or draw, and the host reads the same
+counters, lengths and outputs on every rank.  A request that only some
+ranks submit would leave the others waiting in a collective.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from ..models import draft as draft_mod
 from ..ops import kv_cache as kv
 from ..ops import rng
 from ..ops.sampling import seen_mask
+from ..parallel import sharding
 from . import batch as batch_mod
 from . import loop as spec_loop
 from .spec_model import _bucket, _Readback, output_rows, padded_text_embeds
@@ -170,27 +180,34 @@ class ServingEngine:
         if self._prefix is not None:
             with torch.no_grad():
                 tc, dc = self._fresh_caches(self.buckets[-1])
-                pembeds = padded_text_embeds(model.tparams, self._prefix, ppad, model.device)
+                pembeds = padded_text_embeds(model.tparams, self._prefix, ppad, model.device,
+                                             model.mesh)
                 self._snap = spec_loop.make_prefix_snapshot(
                     model.tparams, model.dparams, model.tcfg, model.dcfg, pembeds,
-                    torch.tensor(plen, dtype=torch.int32, device=model.device), tc, dc)
+                    torch.tensor(plen, dtype=torch.int32, device=model.device), tc, dc,
+                    mesh=model.mesh)
 
     # ------------------------------------------------------------------
+    def _cache_dims(self):
+        """((layers, KV heads) of the target cache, KV heads of the draft
+        cache) on this rank: the whole model's, or a sharded model's part
+        (``sharding.local_cache_dims``)."""
+        m = self.m
+        target = sharding.local_cache_dims(m.mesh, m.tcfg.num_hidden_layers,
+                                           m.tcfg.num_key_value_heads, pp=m._pp)
+        return target, sharding.local_cache_dims(m.mesh, 1, m.dcfg.num_key_value_heads)[1]
+
     def _fresh_caches(self, bucket: int):
         """A new zero cache pair of the bucket's admission rows (a Medusa
         model's draft entry is None)."""
         m = self.m
+        (layers, heads), d_heads = self._cache_dims()
+        target = kv.init_cache(layers, heads, self._t_rows[bucket], m.tcfg.head_dim,
+                               m.dtype, m.device, quantized=m.quantize_kv)
         if m.mparams is not None:
-            return (kv.init_cache(m.tcfg.num_hidden_layers, m.tcfg.num_key_value_heads,
-                                  self._t_rows[bucket], m.tcfg.head_dim, m.dtype,
-                                  m.device, quantized=m.quantize_kv), None)
-        return (
-            kv.init_cache(m.tcfg.num_hidden_layers, m.tcfg.num_key_value_heads,
-                          self._t_rows[bucket], m.tcfg.head_dim, m.dtype, m.device,
-                          quantized=m.quantize_kv),
-            kv.init_cache(1, m.dcfg.num_key_value_heads, self._d_rows[bucket],
-                          m.dcfg.head_dim, m.dtype, m.device),
-        )
+            return target, None
+        return target, kv.init_cache(1, d_heads, self._d_rows[bucket], m.dcfg.head_dim,
+                                     m.dtype, m.device)
 
     def _bucket_for(self, length: int) -> int:
         """Smallest admission bucket that fits ``length`` prompt tokens."""
@@ -209,16 +226,15 @@ class ServingEngine:
         Medusa state's tiny dummy draft cache is stacked as it is."""
         m, b = self.m, self.b
         medusa = m.mparams is not None
+        (layers, heads), d_heads = self._cache_dims()
         st = spec_loop.stack_states(
             [template._replace(target_cache=None,
                                draft_cache=template.draft_cache if medusa else None)] * b)
         return st._replace(
-            target_cache=kv.init_cache(
-                m.tcfg.num_hidden_layers, m.tcfg.num_key_value_heads, m.max_len,
-                m.tcfg.head_dim, m.dtype, m.device, quantized=m.quantize_kv, slots=b),
+            target_cache=kv.init_cache(layers, heads, m.max_len, m.tcfg.head_dim, m.dtype,
+                                       m.device, quantized=m.quantize_kv, slots=b),
             draft_cache=st.draft_cache if medusa else kv.init_cache(
-                1, m.dcfg.num_key_value_heads, m.max_len, m.dcfg.head_dim, m.dtype,
-                m.device, slots=b),
+                1, d_heads, m.max_len, m.dcfg.head_dim, m.dtype, m.device, slots=b),
             done=torch.ones((b,), dtype=torch.bool, device=m.device))
 
     def _draws(self, rid, ids):
@@ -256,14 +272,14 @@ class ServingEngine:
             if 0 < sl < self.suffix_bucket and np.array_equal(ids[:plen], self._prefix):
                 # an over-long suffix falls through to the full prefill below
                 sembeds = padded_text_embeds(m.tparams, ids[plen:], self.suffix_bucket,
-                                             m.device)
+                                             m.device, m.mesh)
                 tc, dc = self._fresh_caches(self.buckets[-1])
                 key, seen, samp = self._draws(rid, ids)
                 return spec_loop.spec_prefill_continue(
                     m.tparams, m.dparams, m.tcfg, m.dcfg, m.spec, self.sampling,
                     self._snap, sembeds,
                     torch.tensor(sl, dtype=torch.int32, device=m.device), tc, dc,
-                    self.max_out, key=key, seen=seen, samp=samp)
+                    self.max_out, key=key, seen=seen, samp=samp, mesh=m.mesh)
         l = len(ids)
         bucket = self._bucket_for(l)
         prompt = m._padded_prompt(ids, bucket, req.get("pixel_values"),
@@ -275,7 +291,7 @@ class ServingEngine:
             key, _, samp = self._draws(rid, ids)
             return spec_loop.medusa_prefill(m.tparams, m.mparams, m.tcfg, m.spec,
                                             self.sampling, prompt.embeds, l, tc,
-                                            self.max_out, key=key, samp=samp)
+                                            self.max_out, key=key, samp=samp, mesh=m.mesh)
         plan, ms = draft_mod.make_prefill_plan(
             prompt.shifted, l, m.dcfg.num_q, bucket, max_images=self.max_images,
             max_span=self.max_span, device=m.device)
@@ -288,7 +304,7 @@ class ServingEngine:
         return spec_loop.spec_prefill(
             m.tparams, m.dparams, m.tcfg, m.dcfg, m.spec, plan, self.sampling,
             prompt.embeds, tc, dc, self.max_out, self.max_span, key=key, seen=seen,
-            samp=samp, rope=prompt.rope)
+            samp=samp, rope=prompt.rope, mesh=m.mesh)
 
     # ------------------------------------------------------------------
     # Online serving API: submit() requests at any time, step() one decode
@@ -505,11 +521,11 @@ class ServingEngine:
         if m.mparams is not None:
             states, counts = batch_mod.batched_medusa_rounds_chunk(
                 m.tparams, m.mparams, m.tcfg, m.spec, self.sampling, self._states,
-                m.eos_token_id, self._caps, n_rounds=chunk)
+                m.eos_token_id, self._caps, n_rounds=chunk, mesh=m.mesh)
         else:
             states, counts = batch_mod.batched_decode_rounds_chunk(
                 m.tparams, m.dparams, m.tcfg, m.dcfg, m.spec, self.sampling,
-                self._states, m.eos_token_id, self._caps, n_rounds=chunk)
+                self._states, m.eos_token_id, self._caps, n_rounds=chunk, mesh=m.mesh)
         self._states = states
         for slot in self._active:
             self._slot_rounds[slot] += chunk

@@ -1082,14 +1082,10 @@ class SpecModel:
     # ------------------------------------------------------------------
     def serving_engine(self, batch_size: int, **kw):
         """Continuous-batching engine over this model (``spec/serving.py``):
-        fixed decode slots, queued requests admitted as slots free up.  Not
-        on a sharded model: the engine is not threaded with a mesh."""
+        fixed decode slots, queued requests admitted as slots free up.  On a
+        sharded model every rank builds it and submits the same requests in
+        the same order (the engine's docstring)."""
         from .serving import ServingEngine
-
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "serving_engine on a sharded model (shard_over): the engine takes no "
-                "mesh yet (ROADMAP Queue 1 item 21b)")
 
         return ServingEngine(self, batch_size, **kw)
 

@@ -6,7 +6,11 @@ SmoothL1).
   loss  = 10 * ploss + 0.1 * rloss
 
 Everything is float32 and differentiable; the top-k indices take the JAX
-package's tie order (lowest index first, ``ops.topk``).
+package's tie order (lowest index first, ``ops.topk``).  Under a mesh
+(``mesh=``) the rows are this rank's part over dp and sp and every
+denominator is the global mask count: a loss or metric is then this
+rank's term of the global value, which the step sums over dp and sp.  The
+logits hold the whole vocab (gathered over tp).
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Tuple
 import torch
 
 from ..ops.topk import top_k
+from ..parallel.sharding import sum_over_data
 
 
 def _plackett_luce_loglik(student_logits: torch.Tensor, target_p: torch.Tensor,
@@ -45,9 +50,10 @@ def draft_loss(
     target_p: torch.Tensor,  # [N, S, V] target softmax probabilities
     loss_mask: torch.Tensor,  # [N, S] bool/float
     topk: int = 10,
+    mesh=None,
 ) -> Tuple[torch.Tensor, dict]:
     mask = loss_mask.float()
-    denom = torch.clamp_min(mask.sum(), 1.0)
+    denom = torch.clamp_min(sum_over_data(mask.sum(), mesh), 1.0)
 
     student_p = torch.softmax(student_logits, dim=-1)
     l1 = torch.abs(student_p - target_p).sum(-1)  # [N, S]
@@ -75,12 +81,13 @@ def stage1_loss(
     v_w: float = 1.0,
     p_w: float = 0.1,
     topk: int = 10,
+    mesh=None,
 ):
     """Stage-1 text-only distillation loss: SmoothL1 on hidden states +
     soft cross-entropy to the target's probabilities + top-k
     Plackett-Luce."""
     mask = loss_mask.float()
-    denom = torch.clamp_min(mask.sum(), 1.0)
+    denom = torch.clamp_min(sum_over_data(mask.sum(), mesh), 1.0)
 
     vloss = (smooth_l1(predict_hidden.float(), target_hidden.float()).mean(-1)
              * mask).sum() / denom

@@ -3,12 +3,12 @@ its order, plus the port's own ``--device``:
 
   python -m vispec_tpu_torch.train.main --basepath <target> \
       --configpath <draft cfg> --tmpdir <npz data dir> --cpdir <ckpts> \
-      [--lr 3e-5] [--num-q 2] [--device cuda]
+      [--lr 3e-5] [--num-q 2] [--ckpt-backend pickle|orbax] [--device cuda]
 
 Stage 1 distills the EAGLE-style draft on text data with SmoothL1 on the
 hiddens, soft cross-entropy and the ranking loss (v_w 1.0, p_w 0.1); its
-checkpoint warm-starts stage 2 (``main_mtp --loadpath``).  Mesh flags above
-1 and ``--ckpt-backend orbax`` are refused (ROADMAP Queue 1 item 21b).
+checkpoint warm-starts stage 2 (``main_mtp --loadpath``).  ``--dp`` /
+``--tp`` / ``--sp`` run the step of ``main_mtp`` under ``torchrun``.
 """
 
 from __future__ import annotations
@@ -36,9 +36,9 @@ def main():
     p.add_argument("--device", default="cuda")
     args = p.parse_args()
 
-    from .main_mtp import load_head_only, refuse_parallel
+    from .main_mtp import load_head_only, mesh_or_usage_error
 
-    refuse_parallel(p, args, ("dp", "tp", "sp"))
+    mesh = mesh_or_usage_error(p, args, dp=args.dp, tp=args.tp, sp=args.sp)
 
     import torch
 
@@ -46,11 +46,12 @@ def main():
     from .trainer import TrainConfig, train
 
     dcfg = DraftConfig.from_json(args.configpath, num_q=args.num_q)
-    head_w = load_head_only(args.basepath, torch.float32, args.device)
+    head_w = load_head_only(args.basepath, torch.float32,
+                            args.device if mesh is None else mesh.device)
     cfg = TrainConfig(lr=args.lr, bs=args.bs, num_epochs=args.num_epochs,
                       max_len=args.max_len, mtp_steps=0, ckpt_backend=args.ckpt_backend,
                       bf16=args.bf16)
-    train(args.tmpdir, args.cpdir, dcfg, head_w, cfg, stage1=True)
+    train(args.tmpdir, args.cpdir, dcfg, head_w, cfg, stage1=True, mesh=mesh)
 
 
 if __name__ == "__main__":

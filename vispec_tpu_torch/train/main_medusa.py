@@ -4,7 +4,9 @@ plus the port's own ``--device``:
   python -m vispec_tpu_torch.train.main_medusa --basepath <target> \
       --tmpdir <npz data dir> --cpdir <ckpts> [--lr 3e-5] [--device cuda]
 
-``--dp`` / ``--sp`` above 1 are refused (ROADMAP Queue 1 item 21b).
+``--dp`` / ``--sp`` split the batch and the sequence under ``torchrun``;
+the heads are small and replicate on every rank, and rank 0 writes the
+state.
 """
 
 from __future__ import annotations
@@ -28,18 +30,20 @@ def main():
     p.add_argument("--device", default="cuda")
     args = p.parse_args()
 
-    from .main_mtp import load_head_only, refuse_parallel
+    from .main_mtp import load_head_only, mesh_or_usage_error
 
-    refuse_parallel(p, args, ("dp", "sp"))
+    mesh = mesh_or_usage_error(p, args, dp=args.dp, sp=args.sp)
 
     import torch
 
     from ..configs import DraftConfig
     from ..models import medusa as medusa_mod
+    from ..parallel.sharding import shard_train_batch
     from .step import make_optimizer, train_step_medusa
     from .trainer import TrainConfig, data_iterator, latest_state, load_state, save_state
 
-    head_w = load_head_only(args.basepath, torch.float32, args.device)
+    device = args.device if mesh is None else mesh.device
+    head_w = load_head_only(args.basepath, torch.float32, device)
     d = head_w.shape[0]
     dcfg = DraftConfig(hidden_size=d, vocab_size=head_w.shape[1])
     cfg = TrainConfig(lr=args.lr, bs=args.bs, num_epochs=args.num_epochs,
@@ -49,24 +53,25 @@ def main():
     begin = 0
     resume = latest_state(args.cpdir)
     if resume:
-        begin, mparams, opt_state = load_state(resume, device=args.device)
+        begin, mparams, opt_state = load_state(resume, device=device)
         begin += 1
     else:
-        mparams = medusa_mod.init_params(d, args.device, torch.float32)
+        mparams = medusa_mod.init_params(d, device, torch.float32)
         opt_state = optimizer.init(mparams)
 
     step = 0
     for epoch in range(begin, cfg.num_epochs):
-        for batch, _ in data_iterator(args.tmpdir, cfg, dcfg, seed=epoch,
-                                      device=args.device):
+        for batch, _ in data_iterator(args.tmpdir, cfg, dcfg, seed=epoch, device=device):
+            if mesh is not None:
+                batch = shard_train_batch(mesh, batch)
             mparams, opt_state, metrics = train_step_medusa(
-                mparams, opt_state, head_w, batch, optimizer, bf16=args.bf16)
-            if step % 20 == 0:
+                mparams, opt_state, head_w, batch, optimizer, bf16=args.bf16, mesh=mesh)
+            if step % 20 == 0 and (mesh is None or mesh.rank == 0):
                 print(f"[medusa] epoch {epoch} step {step} "
                       f"loss={float(metrics['loss']):.4f} "
                       f"acc={float(metrics['acc']):.4f}")
             step += 1
-        save_state(args.cpdir, epoch, mparams, opt_state)
+        save_state(args.cpdir, epoch, mparams, opt_state, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -4,30 +4,33 @@ with the JAX package's flags in its order, plus the port's own
 
   python -m vispec_tpu_torch.train.main_mtp --basepath <target ckpt> \
       --configpath <draft config.json> --tmpdir <npz data dir> --cpdir <ckpts> \
-      [--loadpath state_N.pkl] [--lr 3e-5] [--mtp-steps 2] [--num-q 2] \
-      [--device cuda]
+      [--loadpath state_N.pkl|state_N.orbax] [--lr 3e-5] [--mtp-steps 2] \
+      [--num-q 2] [--ckpt-backend pickle|orbax] [--device cuda]
 
 Only the target's ``lm_head`` (or its tied embedding) is read from the
 checkpoint; the full target never enters the trainer's memory.  The mesh
-flags (``--dp``, ``--tp``, ``--sp``) above 1 and ``--ckpt-backend orbax``
-are refused until parallel training lands (ROADMAP Queue 1 item 21b).
+flags run the dp x sp x tp step under ``torchrun`` (one process per rank;
+``--bs`` must divide over ``--dp`` and ``--max-len`` over ``--sp``):
+
+  torchrun --nproc-per-node 4 -m vispec_tpu_torch.train.main_mtp ... \
+      --dp 2 --tp 2 [--device cpu]
 """
 
 from __future__ import annotations
 
 import argparse
 
-NO_MESH = ("is not in the PyTorch port's training yet (ROADMAP Queue 1 item 21b, "
-           "parallel training)")
 
+def mesh_or_usage_error(p: argparse.ArgumentParser, args, **axes):
+    """The mesh of the mesh flags (``parallel/mesh.mesh_from_args``: None
+    when every axis is 1), or ``parser.error`` with its complaint (an
+    indivisible ``--bs`` / ``--max-len``, a world of another size)."""
+    from ..parallel.mesh import mesh_from_args
 
-def refuse_parallel(p: argparse.ArgumentParser, args, flags) -> None:
-    """``parser.error`` for a mesh flag above 1 or the orbax backend."""
-    for flag in flags:
-        if getattr(args, flag) > 1:
-            p.error(f"--{flag} {getattr(args, flag)}: a device mesh {NO_MESH}")
-    if getattr(args, "ckpt_backend", "pickle") != "pickle":
-        p.error(f"--ckpt-backend {args.ckpt_backend} {NO_MESH}; use pickle")
+    try:
+        return mesh_from_args(bs=args.bs, max_len=args.max_len, device=args.device, **axes)
+    except ValueError as e:
+        p.error(str(e))
 
 
 def load_head_only(basepath: str, dtype, device="cuda"):
@@ -66,30 +69,28 @@ def main():
     p.add_argument("--sp", type=int, default=1)
     p.add_argument("--device", default="cuda")
     args = p.parse_args()
-    refuse_parallel(p, args, ("dp", "tp", "sp"))
-
-    import pickle
+    mesh = mesh_or_usage_error(p, args, dp=args.dp, tp=args.tp, sp=args.sp)
 
     import torch
 
     from ..configs import DraftConfig
-    from ..convert.params import from_numpy
-    from .trainer import TrainConfig, train
+    from .trainer import TrainConfig, load_params, train
 
+    device = args.device if mesh is None else mesh.device
     dcfg = DraftConfig.from_json(args.configpath, num_q=args.num_q)
-    head_w = load_head_only(args.basepath, torch.float32, args.device)
+    head_w = load_head_only(args.basepath, torch.float32, device)
 
     dparams = None
     if args.loadpath:
-        with open(args.loadpath, "rb") as f:
-            blob = pickle.load(f)
-        dparams = from_numpy(blob["params"], args.device)
+        # the params only (a stage-1 state of either backend), whole: train()
+        # cuts each rank's shard
+        dparams = load_params(args.loadpath, device)
         print(f"[main_mtp] warm-started from {args.loadpath}")
 
     cfg = TrainConfig(lr=args.lr, bs=args.bs, num_epochs=args.num_epochs,
                       max_len=args.max_len, mtp_steps=args.mtp_steps,
                       ckpt_backend=args.ckpt_backend, bf16=args.bf16)
-    train(args.tmpdir, args.cpdir, dcfg, head_w, cfg, dparams=dparams)
+    train(args.tmpdir, args.cpdir, dcfg, head_w, cfg, dparams=dparams, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -15,6 +15,15 @@ master weights and the batch to bfloat16 for the forward and backward;
 logits, losses, gradients on the master weights and the optimizer state
 stay float32.  The frozen ``embed`` of a draft gets a zero gradient; the
 target's ``head_w`` is an input, never trained.
+
+Under a mesh (``mesh=``, ``parallel/mesh.py``) each rank holds its shard of
+the parameters and of Adam's moments (tp: heads, MLP and fuse columns,
+``sharding.quantized_draft_specs``), its vocab columns of ``head_w``, and
+its part of the batch (``sharding.shard_train_batch``: rows over dp, the
+sequence over sp).  Its loss is its rows' term of the global loss, the
+gradients of the leaves (replicated over dp and sp) are summed over both,
+and the reported loss and metrics are the global ones.  The clip is
+elementwise, so the update needs no other collective.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ import torch
 
 from ..configs import DraftConfig
 from ..models import draft as draft_mod
-from ..ops.quant import qdot
+from ..parallel import sharding
 from .losses import draft_loss, smooth_l1, stage1_loss
 
 
@@ -173,10 +182,10 @@ def plan_at(plans: draft_mod.PrefillPlan, b: int) -> draft_mod.PrefillPlan:
     return draft_mod.PrefillPlan(*(f[b] for f in plans))
 
 
-def _forward_batch(p, dcfg, hidden, embeds, plans, max_span):
+def _forward_batch(p, dcfg, hidden, embeds, plans, max_span, mesh=None):
     """``forward_train`` of every example (the JAX step's ``vmap``)."""
     return torch.stack([draft_mod.forward_train(p, dcfg, hidden[b], embeds[b],
-                                                plan_at(plans, b), max_span)
+                                                plan_at(plans, b), max_span, mesh)
                         for b in range(hidden.shape[0])])
 
 
@@ -187,42 +196,53 @@ def mtp_forward(
     batch: TrainBatch,
     mtp_steps: int,
     max_span: int,
+    mesh=None,
 ) -> Tuple[torch.Tensor, dict]:
     """Stacked multi-token-prediction forward and loss: step m feeds step
-    m-1's predictions (shifted one right, the first hidden kept) back in."""
+    m-1's predictions (shifted one right, the first hidden kept) back in.
+    Under sp the shift crosses the ranks' boundaries: the predictions are
+    gathered over sp, shifted, and each rank keeps its rows."""
     predict = _forward_batch(dparams, dcfg, batch.hidden_states, batch.embeds,
-                             batch.plans, max_span)
+                             batch.plans, max_span, mesh)
     predicts = [predict]
     cur = predict
+    first = sharding.broadcast(batch.hidden_states[:, :1], mesh, "sp", 0)
     for _ in range(mtp_steps):
-        cur = torch.cat([batch.hidden_states[:, :1], cur[:, :-1]], dim=1)
-        cur = _forward_batch(dparams, dcfg, cur, batch.embeds, batch.plans, max_span)
+        whole = sharding.gather_seq(cur, mesh, dim=1)
+        cur = torch.cat([first, whole[:, :-1]], dim=1)[:, sharding.seq_rows(
+            mesh, whole.shape[1])]
+        cur = _forward_batch(dparams, dcfg, cur, batch.embeds, batch.plans, max_span, mesh)
         predicts.append(cur)
     stacked = torch.cat(predicts, dim=0)  # [(m+1)*B, S, D]
 
     n = mtp_steps + 1
     with torch.no_grad():
-        target_p = torch.softmax(qdot(batch.target, head_w), dim=-1).repeat(n, 1, 1)
+        target_p = torch.softmax(sharding.vocab_logits(batch.target, head_w, mesh),
+                                 dim=-1).repeat(n, 1, 1)
     mask = batch.loss_mask.repeat(n, 1)
-    student_logits = qdot(stacked, head_w)
-    return draft_loss(student_logits, target_p, mask)
+    student_logits = sharding.vocab_logits(stacked, head_w, mesh)
+    return draft_loss(student_logits, target_p, mask, mesh=mesh)
 
 
-def _grad_step(params: dict, frozen: Tuple[str, ...], loss_fn, opt_state, optimizer):
-    """Gradients of ``loss_fn(p)`` for every leaf but ``frozen`` ones, then
-    the optimizer's in-place update.  Returns (params, state, metrics with
-    ``loss``), the metrics as device scalars."""
+def _grad_step(params: dict, frozen: Tuple[str, ...], loss_fn, opt_state, optimizer,
+               mesh=None):
+    """Gradients of ``loss_fn(p)`` for every leaf but ``frozen`` ones (summed
+    over dp and sp under a mesh), then the optimizer's in-place update.
+    Returns (params, state, metrics with ``loss``), the metrics as device
+    scalars (global under a mesh)."""
     live = {path: t.detach().requires_grad_(True) for path, t in leaves(params)
             if path not in frozen}
     values = {path: live.get(path, t) for path, t in leaves(params)}
     with torch.enable_grad():
         loss, metrics = loss_fn(_rebuild(params, values))
         grads = torch.autograd.grad(loss, list(live.values()))
-    by_path = dict(zip(live, grads))
+    by_path = dict(zip(live, sharding.sum_grads(grads, mesh)))
     gtree = _rebuild(params, {path: by_path.get(path) for path, _ in leaves(params)})
     params, opt_state = optimizer.update(gtree, opt_state, params)
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    return params, opt_state, dict(metrics, loss=loss.detach())
+    metrics = dict(metrics, loss=loss)
+    reported = sharding.sum_over_data(torch.stack([v.detach() for v in metrics.values()]),
+                                      mesh)
+    return params, opt_state, dict(zip(metrics, reported.unbind(0)))
 
 
 def _compute_cast(bf16: bool, *trees):
@@ -239,14 +259,15 @@ def train_step(
     mtp_steps: int = 2,
     max_span: int = 1,
     bf16: bool = False,
+    mesh=None,
 ):
     """One stage-2 (MTP) optimization step; ``embed`` stays frozen."""
 
     def loss_fn(p):
         p, b, hw = _compute_cast(bf16, p, batch, head_w)
-        return mtp_forward(p, dcfg, hw, b, mtp_steps, max_span)
+        return mtp_forward(p, dcfg, hw, b, mtp_steps, max_span, mesh)
 
-    return _grad_step(dparams, ("embed",), loss_fn, opt_state, optimizer)
+    return _grad_step(dparams, ("embed",), loss_fn, opt_state, optimizer, mesh)
 
 
 def train_step_stage1(
@@ -260,24 +281,26 @@ def train_step_stage1(
     p_w: float = 0.1,
     max_span: int = 1,
     bf16: bool = False,
+    mesh=None,
 ):
     """Stage-1 text-only distillation step: SmoothL1 on predicted hidden
     states + soft cross-entropy + ranking loss."""
 
     def loss_fn(p):
         p, b, hw = _compute_cast(bf16, p, batch, head_w)
-        predict = _forward_batch(p, dcfg, b.hidden_states, b.embeds, b.plans, max_span)
-        student_logits = qdot(predict, hw)
+        predict = _forward_batch(p, dcfg, b.hidden_states, b.embeds, b.plans, max_span,
+                                 mesh)
+        student_logits = sharding.vocab_logits(predict, hw, mesh)
         with torch.no_grad():
-            target_p = torch.softmax(qdot(b.target, hw), dim=-1)
+            target_p = torch.softmax(sharding.vocab_logits(b.target, hw, mesh), dim=-1)
         return stage1_loss(
             predict.reshape(-1, predict.shape[-1]),
             b.target.reshape(-1, b.target.shape[-1]),
             student_logits.reshape(-1, student_logits.shape[-1]),
             target_p.reshape(-1, target_p.shape[-1]),
-            batch.loss_mask.reshape(-1), v_w=v_w, p_w=p_w)
+            batch.loss_mask.reshape(-1), v_w=v_w, p_w=p_w, mesh=mesh)
 
-    return _grad_step(dparams, ("embed",), loss_fn, opt_state, optimizer)
+    return _grad_step(dparams, ("embed",), loss_fn, opt_state, optimizer, mesh)
 
 
 def train_step_medusa(
@@ -289,26 +312,31 @@ def train_step_medusa(
     v_w: float = 1.0,
     p_w: float = 0.1,
     bf16: bool = False,
+    mesh=None,
 ):
     """Medusa heads training: head i's target is the target hidden with its
     first i positions zeroed; loss = v_w * SmoothL1(hidden) + p_w * soft-CE,
-    summed over heads."""
+    summed over heads.  The heads are replicated under a mesh; only the
+    batch splits."""
     from ..models.medusa import NUM_HEADS, heads_forward
 
     def loss_fn(p):
         p, b, hw = _compute_cast(bf16, p, batch, head_w)
         predict = heads_forward(p, b.hidden_states)  # [H, B, S, D]
-        tgt = torch.stack([torch.cat([torch.zeros_like(b.target[:, :i]), b.target[:, i:]],
-                                     dim=1) for i in range(NUM_HEADS)])
+        rows = b.target.shape[1]  # this rank's sequence rows: global pos from start
+        start = sharding.seq_rows(mesh, rows * sharding.axis_size(mesh, "sp")).start
+        pos = torch.arange(start, start + rows, device=b.target.device)[None, :, None]
+        tgt = torch.stack([torch.where(pos >= i, b.target, torch.zeros_like(b.target))
+                           for i in range(NUM_HEADS)])
         mask = batch.loss_mask[None].float()  # [1, B, S]
-        denom = torch.clamp_min(mask.sum() * NUM_HEADS, 1.0)
+        denom = torch.clamp_min(sharding.sum_over_data(mask.sum(), mesh) * NUM_HEADS, 1.0)
         vloss = (smooth_l1(predict.float(), tgt.float()).mean(-1) * mask).sum() / denom
-        s_logits = qdot(predict, hw)
+        s_logits = sharding.vocab_logits(predict, hw, mesh)
         with torch.no_grad():
-            t_p = torch.softmax(qdot(tgt, hw), dim=-1)
+            t_p = torch.softmax(sharding.vocab_logits(tgt, hw, mesh), dim=-1)
         ploss = -((t_p * torch.log_softmax(s_logits, dim=-1)).sum(-1) * mask).sum() / denom
         loss = v_w * vloss + p_w * ploss
         hit = (torch.argmax(s_logits.detach(), -1) == torch.argmax(t_p, -1)).float()
         return loss, {"vloss": vloss, "ploss": ploss, "acc": (hit * mask).sum() / denom}
 
-    return _grad_step(mparams, (), loss_fn, opt_state, optimizer)
+    return _grad_step(mparams, (), loss_fn, opt_state, optimizer, mesh)
