@@ -5,7 +5,10 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (in
 parallel), holds each against its plain PyTorch version at the main paths'
-shapes (Vicuna-7B width), then drives greedy ViSpec decoding end to end: the
+shapes (Vicuna-7B width; and at the parallel phases' shard shapes: 16
+heads over 16 or 4 KV heads, a pp stage's cache, the tp 2 engine's batched
+rounds, getkacc's rollout at tp 2), then drives greedy ViSpec decoding end
+to end: the
 trained toy checkpoint in tests/data/tau_fixture.npz, a 2-layer float32
 Vicuna-7B-width model (speculative output must equal autoregressive), the
 full 32-layer bfloat16 model with random weights from a seed, and the
@@ -57,10 +60,9 @@ reload of the shards; the Vicuna-7B-width draft's bf16 steps at dp 2 and
 tp 2 over two ranks (step ms, collectives, peak memory, getkacc at tp 2);
 the engine at tp 2 against the unsharded engine, exactly at 2 layers in
 float32 and at 32 layers in bfloat16 (ranks agree; launches a round), each
-plain and quantized; the serving examples on the card.  Last, kernel rows
-at the shard shapes (16 heads over 16 or 4 KV heads, a pp stage's cache,
-the tp 2 engine's batched rounds, getkacc's rollout at tp 2, kernel 2 at
-N / 2).  Prints one JSON line per phase, a
+plain and quantized; the serving examples on the card.  Last, kernel 2's
+rows at the (K, N / 2, M) the tp 2 draft sent it.  Prints one JSON line
+per phase, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failed phase raises and
 the script exits non-zero without that line; so does a machine without a
@@ -71,9 +73,10 @@ example: the parent unpacked under build/, this one, this one, the
 parent; this one alone if none is given).  Each checkout runs in a process
 of its own with its own chip_smoke and kernels, its lines tagged with it,
 and neither of the last lines is printed.  ``--end-to-end``: the 32-layer
-bfloat16 decode loop and engine, then the same model quantized, single
-request and through the engine (``full_width_depth``,
-``serving_full_depth``, ``quant_full_depth``,
+bfloat16 decode loop and engine, training at its width with ``getkacc``,
+then the same model quantized, single request and through the engine
+(``full_width_depth``, ``serving_full_depth``, ``train_full_width``,
+``quant_full_depth``,
 ``serving_quant_full_depth`` and their profiles).  ``--attention-times``:
 every attention ``kernel_vs_plain`` line (rows 1a, 1b, 1c).
 ``--q4-times``: kernel 2 alone.  ``--parallel`` runs only the build and
@@ -110,17 +113,26 @@ Q4_TOL, Q4_EXACT_TOL = 2e-2, 1e-5
 PROFILE_TOKENS = 4
 # rounds of the engine chunk under torch.profiler (8 until slice 14's phases)
 PROFILE_CHUNK_ROUNDS = 4
+# torch.profiler sessions tried before one that recorded nothing fails
+PROFILE_ATTEMPTS = 3
 # new tokens of each sampled / drafter run of sampling_full_depth and of
 # each mixtral_full_depth run (128 until slice 12's phases, 64 until slice 14's)
 DEPTH_TOKENS = 32
 # requests of serving_full_depth also run one at a time for the serial rate
-SERIAL_REQUESTS = 4
+# (4 until slice 15's)
+SERIAL_REQUESTS = 2
 # MT-bench questions of eval_full_depth (2 before slice 13's phases) and
-# new tokens a turn (128 before slice 14's)
+# new tokens a turn (128 before slice 14's, 64 before slice 15's)
 EVAL_QUESTIONS = 1
-EVAL_TOKENS = 64
-# new tokens of each arrival_full_depth request (64 before slice 14's phases)
-ARRIVAL_TOKENS = 32
+EVAL_TOKENS = 32
+# new tokens of each arrival_full_depth request (64 before slice 14's
+# phases, 32 before slice 15's)
+ARRIVAL_TOKENS = 16
+# new tokens of each spec and AR run of the 32-layer image prompts
+# (llava_full_depth, qwen_full_depth; 128 before slice 15's) and the CUDA-
+# event calls behind each of their encode and prefill medians (10 before)
+IMAGE_DEPTH_TOKENS = 64
+IMAGE_TIMED_CALLS = 5
 # the 1c kernel row at getkacc's shape: 16 slots' committed rows
 KACC_STARTS = tuple(int(x) for x in np.random.default_rng(70).integers(256, 511, 16))
 
@@ -156,13 +168,13 @@ def timed_ms(fn, flush, n=30):
 
 
 def _kernel_tag(key):
-    """Which of the port's kernels a profiler key names, or None.  The two
-    instantiations of the tensor-core partial kernel are told apart: over an
-    int8 cache it is ``partial_kernel_mma_int8`` (demangled
-    ``partial_kernel_mma<signed char, 128>``, mangled
-    ``partial_kernel_mmaIaLi128E``), over a bf16 cache
-    ``partial_kernel_mma``."""
-    if re.search(r"partial_kernel_mma(<signed char|Ia)", key):
+    """Which of the port's kernels a profiler key names, or None.  The
+    tensor-core attention kernel over an int8 cache is told apart as
+    ``partial_kernel_mma_int8`` (demangled ``partial_kernel_mma<float,
+    signed char, 128>`` or ``<__nv_bfloat16, signed char, 128>``, mangled
+    ``partial_kernel_mmaIfaLi128E`` or ``partial_kernel_mmaI13__nv_bfloat16a``);
+    over a bf16 or float32 cache it is ``partial_kernel_mma``."""
+    if re.search(r"partial_kernel_mma(<[^,<>]+, signed char|I(f|13__nv_bfloat16)a)", key):
         return "partial_kernel_mma_int8"
     for tag in ("q4_mma_kernel", "partial_kernel_mma", "partial_kernel", "combine_kernel"):
         if tag in key:
@@ -171,24 +183,34 @@ def _kernel_tag(key):
 
 
 def kernel_split_ms(fn, flush, n=10):
-    """Device time of the two launches of one attention call, apart: the
-    mean over ``n`` calls after an L2 flush each, by kernel name, from
-    torch.profiler."""
+    """Device time of each kernel one attention call launches (at head dim
+    128 one, ``partial_kernel_mma``; at 16 ``partial_kernel`` and
+    ``combine_kernel``): the mean over ``n`` calls after an L2 flush each, by
+    kernel name, from torch.profiler; and the port's kernel launches a call.
+    A call always launches one, so a session that recorded none of the
+    port's kernels saw nothing (torch.profiler's CUDA activity loses whole
+    sessions on some hosts): it is run again, and after PROFILE_ATTEMPTS
+    such sessions this raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            flush.zero_()
-            fn()
+    for _ in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        tag = _kernel_tag(e.key) if e.device_type == DeviceType.CUDA else None
-        if tag:
-            out[tag + "_ms"] = out.get(tag + "_ms", 0.0) + e.device_time_total / 1e3 / n
-    return out
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        out = {"kernel_launches_per_call": 0.0}
+        for e in prof.key_averages():
+            tag = _kernel_tag(e.key) if e.device_type == DeviceType.CUDA else None
+            if tag:
+                out[tag + "_ms"] = out.get(tag + "_ms", 0.0) + e.device_time_total / 1e3 / n
+                out["kernel_launches_per_call"] += e.count / n
+        if out["kernel_launches_per_call"] > 0:
+            return out
+    raise RuntimeError(f"torch.profiler recorded no kernel of the port in {PROFILE_ATTEMPTS} "
+                       f"sessions of {n} calls that launch one each")
 
 
 def phase_build():
@@ -208,9 +230,10 @@ def phase_build():
         ptxas = _ptxas_by_kernel(so.with_suffix(".log").read_text())
         emit({"phase": "build", "ok": True, "seconds": seconds, "library": so.name,
               "ptxas": [f"{name}: {info}" for name, info in ptxas.items()]})
-        # the tensor-core kernels: both attention instantiations (bf16 and
-        # int8 caches), kernel 2's four; none may spill
-        tag, count = (("partial_kernel_mma", 2) if "verify_attention" in so.name
+        # the tensor-core kernels: the attention's four instantiations (bf16
+        # and float32 q, each over its own and an int8 cache), kernel 2's
+        # four; none may spill
+        tag, count = (("partial_kernel_mma", 4) if "verify_attention" in so.name
                       else ("q4_mma_kernel", 4))
         mma = [info for name, info in ptxas.items() if name.startswith(tag)]
         assert len(mma) == count and all("0 bytes spill stores, 0 bytes spill loads" in info
@@ -299,8 +322,7 @@ def phase_kernel(dev):
     at max_len; and Qwen2.5-VL-7B's at max_len 4096 (groups of 7: the
     verify, the AR step; the draft's expansion at 28 heads).  Starts are
     not 64-row aligned and every region crosses a 64-row tile edge.  The
-    bf16 cases run the tensor-core partial kernel, float32 the CUDA-core
-    one."""
+    bf16 cases run the tensor-core kernel in bf16, float32 in 3xTF32."""
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(0)
     tree = torch.tril(torch.rand((30, 30), generator=g) < 0.3)
@@ -339,13 +361,13 @@ def phase_kernel(dev):
                     max_len=4096),
         kernel_case("qwen_draft_expand", 42, dev, bf16, 28, 28, 8, 24, 1380, None, expand,
                     flush, max_len=4096),
-        # the float32 Qwen model of qwen_exact: the CUDA-core kernel at groups of 7
+        # the float32 Qwen model of qwen_exact: the 3xTF32 kernel at groups of 7
         kernel_case("qwen_target_verify_f32", 44, dev, f32, 28, 4, 30, 30, 1381, 28, tree,
                     flush, max_len=4096),
         # Mixtral-8x7B (32 heads over 8 KV heads; gqa_groups4 holds its
         # verify): the AR step over the 24-layer cache, the draft's append
         # and expansion at 32 over 8, and mixtral_exact's float32 verify over
-        # its 2-layer cache (the CUDA-core kernel at groups of 4)
+        # its 2-layer cache (the 3xTF32 kernel at groups of 4)
         kernel_case("mixtral_ar_step", 60, dev, bf16, 32, 8, 1, 1, 319, 24, ones, flush),
         kernel_case("mixtral_draft_append", 61, dev, bf16, 32, 8, 5, 5, 317, None, tri,
                     flush),
@@ -705,10 +727,12 @@ chip_smoke.phase_kernel(dev)
 chip_smoke.phase_kernel_int8(dev)
 chip_smoke.phase_kernel_batched(dev)
 """,
-    # the 7B decode loop and the engine, bf16 and then quantized
+    # the 7B decode loop and the engine, training with getkacc, then the
+    # quantized decode loop and engine
     "--end-to-end": """
 model, prompt, row = chip_smoke.phase_full_width_depth(dev)
 chip_smoke.phase_serving_full_depth(dev, model)
+chip_smoke.phase_train_full_width(dev, model)
 _, qmodel = chip_smoke.phase_quant_full_depth(dev, model, prompt, row)
 chip_smoke.phase_serving_quant_full_depth(dev, qmodel)
 """,
@@ -937,16 +961,41 @@ def _decode_round_without_host_sync(model, prompt, sampling=None):
 
 def _profile(fn):
     """Wall time of ``fn`` under torch.profiler, the device time of the
-    kernels it ran, the idle share, and the top kernels and host ops."""
+    kernels it ran, the idle share, and the top kernels and host ops.  The
+    profiler's attention launches must equal the wrappers' counts: a
+    session in which they differ (torch.profiler's CUDA activity loses
+    whole sessions on some hosts) runs ``fn`` again, so ``fn`` must be
+    repeatable, and after PROFILE_ATTEMPTS such sessions this fails.  In a
+    rank of a world the ranks decide together, since one rank running ``fn``
+    alone would wait on the others' collectives."""
+    import torch.distributed as dist
+
+    for _ in range(PROFILE_ATTEMPTS):
+        row = _profile_once(fn)
+        failed = [row is None]
+        if dist.is_available() and dist.is_initialized():
+            failed = [None] * dist.get_world_size()
+            dist.all_gather_object(failed, row is None)
+        if not any(failed):
+            return row
+    raise AssertionError(f"torch.profiler's attention launches differed from the wrappers' "
+                         f"counts in {PROFILE_ATTEMPTS} sessions")
+
+
+def _profile_once(fn):
+    """One session of ``_profile``, or None where the profiler's attention
+    launches differ from the wrappers' counts or it recorded no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    before = _attention_launch_count()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    counted = _attention_launch_count() - before
     stats = prof.key_averages()
     kernels = sorted((e for e in stats if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.device_time_total)
@@ -963,7 +1012,20 @@ def _profile(fn):
             port[tag] = (c + e.count, ms + e.device_time_total / 1e3)
     host = sorted((e for e in stats if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)
+    # every profiled model has head dim 128: each attention call is one
+    # launch of partial_kernel_mma, and combine_kernel never runs.  The
+    # launches seen must be those counted, so a profiler that recorded
+    # nothing cannot pass for 0 combine launches.
+    attention = [port.get(t, (0, 0.0)) for t in ("partial_kernel_mma",
+                                                 "partial_kernel_mma_int8")]
+    launched = sum(c for c, _ in attention)
+    if launched != counted or not kernels:
+        return None
+    combine = port.get("combine_kernel", (0, 0.0))[0]
+    assert combine == 0, f"combine_kernel launched {combine} times on a head dim 128 path"
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "attention_launches": launched,
+            "attention_ms": sum(ms for _, ms in attention), "combine_launches": combine,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "nccl_kernel_ms": sum(e.device_time_total for e in comm) / 1e3,
             "kernel_launches": sum(e.count for e in kernels),
@@ -1035,6 +1097,11 @@ def _launch_counts():
             "1c": va.verify_attention_batched.launches,
             "1c_int8": va.verify_attention_batched.launches_int8,
             "2": quant.q4_matmul.launches}
+
+
+def _attention_launch_count():
+    """Launches of the attention kernel counted by its wrappers so far."""
+    return sum(v for k, v in _launch_counts().items() if k != "2")
 
 
 def _zero_launch_counts():
@@ -1112,9 +1179,15 @@ def _profile_engine_chunk(model, batch_size):
     for p, _ in _serving_requests(batch_size, seed=2):
         eng.submit(p, max_new_tokens=64)
     eng.step()
-    before = eng.stats["rounds"]
-    row = _profile(eng.step)
-    rounds = eng.stats["rounds"] - before
+    steps = []  # rounds of each profiled step (a session may be run again)
+
+    def step():
+        before = eng.stats["rounds"]
+        eng.step()
+        steps.append(eng.stats["rounds"] - before)
+
+    row = _profile(step)
+    rounds = steps[-1]
     del eng
     torch.cuda.empty_cache()
     return {"batch_size": batch_size, "rounds": rounds,
@@ -1188,9 +1261,10 @@ def phase_serving_quant_full_depth(dev, qmodel):
     1a and 31 of kernel 2, as in the single-request mode.  Then
     torch.profiler over one chunk of PROFILE_CHUNK_ROUNDS rounds at B = 4
     (``profile_serving_quant_chunk``), per round: kernel 2's launches and
-    device ms, and those of the int8-cache attention's partial kernel and
-    of every attention call's combine launch (the bf16 draft cache's calls
-    and the int8 cache's share that kernel)."""
+    device ms, those of the int8-cache attention, of every attention call
+    (one launch of ``partial_kernel_mma`` each, over the int8 target cache
+    and the bf16 draft cache), and of ``combine_kernel`` (0 at head dim
+    128)."""
     from vispec_tpu_torch.ops import quant
 
     _warm_engine(qmodel, dev)
@@ -1229,11 +1303,14 @@ def phase_serving_quant_full_depth(dev, qmodel):
 
     q4_calls, q4_ms = per_round("q4_mma_kernel")
     int8_calls, int8_ms = per_round("partial_kernel_mma_int8")
+    bf16_calls, bf16_ms = per_round("partial_kernel_mma")
     combine_calls, combine_ms = per_round("combine_kernel")
     emit({"phase": "profile_serving_quant_chunk", **chunk,
           "q4_launches_per_round": q4_calls, "q4_ms_per_round": q4_ms,
           "int8_attention_launches_per_round": int8_calls,
-          "int8_attention_partial_ms_per_round": int8_ms,
+          "int8_attention_ms_per_round": int8_ms,
+          "attention_launches_per_round": int8_calls + bf16_calls,
+          "attention_ms_per_round": int8_ms + bf16_ms,
           "attention_combine_launches_per_round": combine_calls,
           "attention_combine_ms_per_round": combine_ms,
           "device_busy_ms_per_round": chunk["device_busy_ms"] / rounds})
@@ -1476,9 +1553,10 @@ def phase_llava_exact(dev):
 def phase_llava_full_depth(dev, models):
     """LLaVA-1.5 (one 336x336 image, 576 image tokens) and LLaVA-1.6 (one
     480x640 image, 2,340 tokens; one 672x672 image, 2,928) at all 32 layers
-    in bfloat16, max_len 4096, 128 new tokens by spec and by AR.  Per
-    image: the vision encode and the prefill (merge, plan, target and draft
-    prefill, first tree), each the median (and range) of 10 calls timed by
+    in bfloat16, max_len 4096, IMAGE_DEPTH_TOKENS new tokens by spec and by
+    AR.  Per image: the vision encode and the prefill (merge, plan, target
+    and draft prefill, first tree), each the median (and range) of
+    IMAGE_TIMED_CALLS calls timed by
     CUDA events after a warm-up, decode tok/s, kernel 1a's launches against
     the text path's count (36 per dispatched round, 3 at prefill; 32 per AR
     step) and peak memory; then the encode and the prefill under
@@ -1511,17 +1589,17 @@ def phase_llava_full_depth(dev, models):
             return model._encode_image(pixels, size)
 
         with torch.no_grad():
-            _, encode_ms, encode_range = _median_cuda_ms(encode)
-            _, prefill_ms, prefill_range = _median_cuda_ms(prefill)
+            _, encode_ms, encode_range = _median_cuda_ms(encode, IMAGE_TIMED_CALLS)
+            _, prefill_ms, prefill_range = _median_cuda_ms(prefill, IMAGE_TIMED_CALLS)
         model.specgenerate(ids, max_new_tokens=8, pixel_values=pixels, image_size=size)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         _zero_launch_counts()
-        spec = model.specgenerate(ids, max_new_tokens=128, pixel_values=pixels,
+        spec = model.specgenerate(ids, max_new_tokens=IMAGE_DEPTH_TOKENS, pixel_values=pixels,
                                   image_size=size)
         spec_launches = va.verify_attention.launches
         _zero_launch_counts()
-        ar = model.ar_generate(ids, max_new_tokens=128, pixel_values=pixels,
+        ar = model.ar_generate(ids, max_new_tokens=IMAGE_DEPTH_TOKENS, pixel_values=pixels,
                                image_size=size)
         ar_launches = va.verify_attention.launches
         layers, depth = model.tcfg.num_hidden_layers, model.spec.depth
@@ -1547,7 +1625,8 @@ def phase_llava_full_depth(dev, models):
                "launches_ar": ar_launches, "expected_ar": want_ar,
                "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30}
         row["ok"] = (spec_launches == want_spec and ar_launches == want_ar
-                     and spec.new_tokens >= 128 and ar.new_tokens >= 128)
+                     and spec.new_tokens >= IMAGE_DEPTH_TOKENS
+                     and ar.new_tokens >= IMAGE_DEPTH_TOKENS)
         emit(row)
         assert row["ok"], row
         rows.append(row)
@@ -1846,14 +1925,14 @@ QWEN_PROMPTS = (("448x448", dict(images=[(448, 448)])),
 
 def phase_qwen_full_depth(dev, model):
     """Qwen2.5-VL-7B at all 28 target layers and the 32-block tower in
-    bfloat16, max_len 4096, 128 new tokens by spec and by AR after each of
+    bfloat16, max_len 4096, IMAGE_DEPTH_TOKENS new tokens by spec and by AR after each of
     four prompts (~63 text tokens each): a 448x448 image (256 image
     tokens, 1,024 patches in 16 windows), an 896x1120 image (1,280 tokens,
     the pixel budget's ceiling), two 448x448 images, an 8-frame 448x448
     video (4 temporal groups, 1,024 tokens).  Per prompt: the vision encode
     and the prefill (encode, merge, M-RoPE ids, plan, target and draft
-    prefill, first tree), each the median (and range) of 10 calls timed by
-    CUDA events after a warm-up; decode tok/s; kernel 1a's launches (3 +
+    prefill, first tree), each the median (and range) of IMAGE_TIMED_CALLS
+    calls timed by CUDA events after a warm-up; decode tok/s; kernel 1a's launches (3 +
     32 per dispatched spec round: 28 target verifies, the draft append, 3
     expansion levels; 28 per AR step); peak memory; then the encode and
     the prefill under torch.profiler.  spec/AR agreement is reported, not
@@ -1890,18 +1969,18 @@ def phase_qwen_full_depth(dev, model):
             return model._qwen_vision(images, sizes, vis.get("pixel_values_videos"), 1.0)[0]
 
         with torch.no_grad():
-            feats, encode_ms, encode_range = _median_cuda_ms(encode)
-            state, prefill_ms, prefill_range = _median_cuda_ms(prefill)
+            feats, encode_ms, encode_range = _median_cuda_ms(encode, IMAGE_TIMED_CALLS)
+            state, prefill_ms, prefill_range = _median_cuda_ms(prefill, IMAGE_TIMED_CALLS)
         rope_delta = int(state.rope_delta)
         del state
         model.specgenerate(ids, max_new_tokens=8, **vis)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         _zero_launch_counts()
-        spec = model.specgenerate(ids, max_new_tokens=128, **vis)
+        spec = model.specgenerate(ids, max_new_tokens=IMAGE_DEPTH_TOKENS, **vis)
         spec_launches = va.verify_attention.launches
         _zero_launch_counts()
-        ar = model.ar_generate(ids, max_new_tokens=128, **vis)
+        ar = model.ar_generate(ids, max_new_tokens=IMAGE_DEPTH_TOKENS, **vis)
         ar_launches = va.verify_attention.launches
         layers, depth = model.tcfg.num_hidden_layers, model.spec.depth
         want_spec = depth + spec.dispatched * (layers + 1 + depth)
@@ -1926,7 +2005,8 @@ def phase_qwen_full_depth(dev, model):
                "launches_ar": ar_launches, "expected_ar": want_ar,
                "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30}
         row["ok"] = (spec_launches == want_spec and ar_launches == want_ar
-                     and spec.new_tokens >= 128 and ar.new_tokens >= 128)
+                     and spec.new_tokens >= IMAGE_DEPTH_TOKENS
+                     and ar.new_tokens >= IMAGE_DEPTH_TOKENS)
         emit(row)
         assert row["ok"], row
         rows.append(row)
@@ -1941,7 +2021,7 @@ def phase_qwen_full_depth(dev, model):
                 res = []
                 prof = _profile(lambda: res.append(gen(ids, max_new_tokens=PROFILE_TOKENS,
                                                        **vis)))
-                n_rounds = res[0].dispatched
+                n_rounds = res[-1].dispatched
                 emit({"phase": f"profile_qwen_{label}_{PROFILE_TOKENS}_tokens",
                       "prompt_kind": name,
                       "dispatched": n_rounds, "decode_launches_per_round":
@@ -2399,15 +2479,13 @@ def phase_sampling_full_depth(dev, model, prompt):
     row["ok"] = ok
     emit(row)
     assert row["ok"], row
-    _zero_launch_counts()
     res = []
     prof = _profile(lambda: res.append(model.specgenerate(
         prompt, max_new_tokens=PROFILE_TOKENS, temperature=1.0, top_p=0.9, seed=5)))
-    n = res[0].dispatched
-    attn = sum(prof["port_kernels"].get(k, (0, 0.0))[0]
-               for k in ("partial_kernel_mma", "combine_kernel"))
+    n = res[-1].dispatched
+    attn = prof["attention_launches"]
     emit({"phase": f"profile_sampled_spec_{PROFILE_TOKENS}_tokens", "dispatched_rounds": n,
-          "launches_1a": va.verify_attention.launches,
+          "launches_1a": attn,  # a single request's attention calls are all 1a
           "launches_per_round": prof["kernel_launches"] / n,
           "attention_launches_per_round": attn / n,
           "other_launches_per_round": (prof["kernel_launches"] - attn) / n, **prof})
@@ -3473,10 +3551,11 @@ PARALLEL_MIXTRAL_LAYERS = 8  # of 32: two ranks' bf16 shards and one full copy a
 PARALLEL_BATCH = (40, 90, 130)  # specgenerate_batch prompts of the tp2 case
 # new tokens of each full-width parallel run: two ranks on one card decode
 # at 4-19 tok/s, held back by ~2 ms of host a collective (32 before slice
-# 14's phases)
-PARALLEL_TOKENS = 16
-# new tokens of each parallel_exact run (64 before slice 14's phases)
-PARALLEL_EXACT_TOKENS = 32
+# 14's phases, 16 before slice 15's)
+PARALLEL_TOKENS = 8
+# new tokens of each parallel_exact run (64 before slice 14's phases, 32
+# before slice 15's)
+PARALLEL_EXACT_TOKENS = 16
 
 
 def _parallel_model(dev, opts):
@@ -3788,8 +3867,9 @@ PTRAIN_FULL_MESHES = (("dp2", {"dp": 2}), ("tp2", {"tp": 2}))
 PTRAIN_FULL_STEPS = 3
 PTRAIN_FULL_LEN = 1024
 PTRAIN_FULL_SPAN = (100, 676)  # LLaVA-1.5's 576 image rows
-# the engine on a tp 2 7B: requests, new tokens each, slots
-SERVE_PARALLEL = (8, 16, 4)
+# the engine on a tp 2 7B: requests, new tokens each (16 before slice
+# 15's phases), slots
+SERVE_PARALLEL = (8, 8, 4)
 SERVE_MODES = (("plain", {}), ("int8_kv_int4_draft", {"quantize_kv": True,
                                                      "quantize_draft": "int4"}))
 
@@ -4213,16 +4293,18 @@ def phase_examples_device():
     assert row["ok"], row
 
 
-def phase_kernel_shards(dev, q4_shapes):
-    """Kernels 1a, 1b, 1c and 2 against their plain versions at the shapes
+def phase_kernel_shards(dev):
+    """Kernels 1a, 1b and 1c against their plain versions at the shapes
     that the parallel phases give them: 16 heads over 16 KV heads (Vicuna-7B
     and its draft at tp 2), 16 over 4 (Mixtral-8x7B and its draft at ep 2),
     a pp stage's one layer of a 2-layer cache, the int8 cache at tp 2 with
     float32 q (the quantized parallel_exact mode), the batched verify and
     expansion at tp 2 (float32 B = 3; the tp 2 engine's bf16 and int8 B =
-    4), getkacc's rollout at tp 2 (float32, B = 16, S = 1), and every
-    (K, N, M) the int4 draft sent kernel 2 at tp 2.  Returns the rows by
-    kernel."""
+    4), and getkacc's rollout at tp 2 (float32, B = 16, S = 1).  These shapes
+    are fixed by the configurations, so the phase runs with the other kernel
+    phases, before the parallel phases' processes share the card (after them
+    torch.profiler's CUDA activity recorded no kernel in this process).
+    Returns the rows by kernel."""
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(13)
     tree = torch.tril(torch.rand((30, 30), generator=g) < 0.3)
@@ -4298,9 +4380,25 @@ def phase_kernel_shards(dev, q4_shapes):
         kernel_case_batched("tp2_batched_target_verify_int8", 98, dev, bf16, 16, 16, 30, 30,
                             starts4, layers4, tree4, flush, int8=True),
     ]
-    rows_2 = [q4_case(dev, k, n, m, flush, prefix="tp2_q4") for k, n, m in q4_shapes]
     torch.cuda.empty_cache()
-    return rows_1a, rows_1b, rows_1c, rows_1c_int8, rows_2
+    return rows_1a, rows_1b, rows_1c, rows_1c_int8
+
+
+def phase_kernel_shards_q4(dev, q4_shapes):
+    """Kernel 2 against its plain version at every (K, N, M) the int4 draft
+    sent it at tp 2 (the parallel phases return them)."""
+    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
+    rows = [q4_case(dev, k, n, m, flush, prefix="tp2_q4") for k, n, m in q4_shapes]
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _card():
+    """The first card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def main():
@@ -4319,6 +4417,7 @@ def main():
           "python": sys.version.split()[0], "device": torch.cuda.get_device_name(0)})
     if sys.argv[1:2] and sys.argv[1] in CHECKOUT_PHASES:
         checkout_runs(sys.argv[1], sys.argv[2:])
+        print(_card(), flush=True)
         return
     if sys.argv[1:2] == ["--parallel"]:
         phase_build()
@@ -4326,9 +4425,7 @@ def main():
         phase_parallel_full_width()
         phase_parallel_train_exact()
         phase_parallel_train_full_width(dev)
-        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True,
-                             check=True, timeout=60).stdout.strip(), flush=True)
+        print(_card(), flush=True)
         return
 
     phase_build()
@@ -4336,6 +4433,7 @@ def main():
     rows_int8 = phase_kernel_int8(dev)
     rows_1c, rows_1c_int8 = phase_kernel_batched(dev)
     rows_q4 = phase_kernel_q4(dev)
+    shard_1a, shard_1b, shard_1c, shard_1c_int8 = phase_kernel_shards(dev)
     phase_int8_qdot_cost(dev)
     phase_tau_fixture(dev)
     phase_tau_fixture_batch(dev)
@@ -4396,8 +4494,7 @@ def main():
     q4_tp2_shapes = sorted(set(q4_tp2_shapes) | set(phase_serving_parallel_exact(dev))
                            | set(phase_serving_parallel_full_depth(dev)))
     phase_examples_device()
-    shard_1a, shard_1b, shard_1c, shard_1c_int8, shard_2 = phase_kernel_shards(
-        dev, q4_tp2_shapes)
+    shard_2 = phase_kernel_shards_q4(dev, q4_tp2_shapes)
 
     def entry(name, source, replaces, launches, case_rows, main_row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4430,10 +4527,7 @@ def main():
               "vispec_tpu/ops/pallas_attention.py:32", serving_quant_counts["1c_int8"],
               rows_1c_int8 + shard_1c_int8, rows_1c_int8[0]),
     ]})
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(_card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

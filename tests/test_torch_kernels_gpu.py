@@ -150,16 +150,40 @@ def test_verify_attention_batched_mma_kernel_ragged_slots(cuda_device, h, hkv, s
         assert torch.equal(one, out[i])
 
 
+def _attention_kernels(fn):
+    """{kernel: launches} of the attention kernels that ``fn`` runs on the
+    card, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            tag = next((t for t in ("partial_kernel_mma", "combine_kernel", "partial_kernel")
+                        if t in e.key), None)
+            if tag:
+                out[tag] = out.get(tag, 0) + e.count
+    return out
+
+
 @pytest.mark.gpu
 def test_verify_attention_other_instantiations_keep_their_kernel(cuda_device):
-    """float32 q (over float32 or int8 caches) and head_dim 16 (bf16 too) run
-    the CUDA-core partial kernel: the same results within the same limits as
-    before the tensor-core kernel took the bf16 D = 128 instantiations."""
+    """The dispatch: head_dim 128 is one launch of the tensor-core kernel
+    for bf16 and float32 q, over q's own cache and an int8 cache alike (no
+    combine); head_dim 16 runs the CUDA-core partial kernel and the combine.
+    Each within its dtype's limit of the plain version."""
     dev = cuda_device
     for dtype, d, int8, tol in [(torch.float32, 128, False, 1e-4),
+                                (torch.bfloat16, 128, False, 2e-2),
+                                (torch.float32, 128, True, 1e-4),
+                                (torch.bfloat16, 128, True, 2e-2),
                                 (torch.float32, 16, False, 1e-4),
                                 (torch.bfloat16, 16, False, 2e-2),
-                                (torch.float32, 128, True, 1e-4),
+                                (torch.float32, 16, True, 1e-4),
                                 (torch.bfloat16, 16, True, 2e-2)]:
         h, hkv = (4, 2) if d == 16 else (32, 8)
         (q, k, v, st, mask), layer = _case(dev, dtype, h, hkv, 30, 30, 301, 2, d)
@@ -167,11 +191,211 @@ def test_verify_attention_other_instantiations_keep_their_kernel(cuda_device):
         if int8:
             k, ks = kvc.quantize_rows(k)
             v, vs = kvc.quantize_rows(v)
-        out = va.verify_attention(q, k, v, st, mask, layer, ks, vs)
+        outs = []
+        ran = _attention_kernels(
+            lambda: outs.append(va.verify_attention(q, k, v, st, mask, layer, ks, vs)))
+        want = ({"partial_kernel_mma": 1} if d == 128 else
+                {"partial_kernel": 1, "combine_kernel": 1})
+        assert ran == want, (dtype, d, int8, ran)
         ref = va.verify_attention_ref(q, k, v, st, mask, layer, ks, vs)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
+        err = (outs[0].float() - ref.float()).abs().max().item()
         assert err <= tol, (dtype, d, int8, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,h,hkv,s,t_reg,start,layers,max_len", [
+    # float32 q at D = 128: the tensor-core kernel in 3xTF32, at the bf16
+    # kernel's edges (a ragged last query tile, a second pass, the chunk the
+    # region ends in)
+    ("s1", 32, 32, 1, 1, 319, 3, 1024),
+    ("s5", 32, 32, 5, 5, 317, None, 1024),
+    ("s30", 32, 32, 30, 30, 301, 3, 1024),
+    ("gs120", 32, 8, 30, 30, 301, 3, 1024),
+    ("gs64", 8, 4, 32, 32, 100, None, 512),
+    ("gs65", 10, 2, 13, 13, 100, None, 512),
+    ("start0", 32, 32, 30, 30, 0, 2, 512),
+    ("ends_at_max_len", 32, 32, 30, 30, 512 - 30, 2, 512),
+    ("one_column_into_a_chunk", 32, 32, 30, 30, 5 * 64 + 1 - 30, 2, 512),
+    ("region_fills_a_chunk_edge", 32, 32, 30, 30, 4 * 64 - 30, 2, 512),
+    ("qwen_verify_gs210", 28, 4, 30, 30, 1381, 3, 4096),
+    ("getkacc_s1", 32, 32, 1, 1, 400, None, 519),  # max_len not a multiple of 64
+])
+@pytest.mark.parametrize("int8", [False, True], ids=["f32_cache", "int8_cache"])
+def test_verify_attention_f32_mma_kernel_edges(cuda_device, name, h, hkv, s, t_reg, start,
+                                               layers, max_len, int8):
+    dev = cuda_device
+    (q, k, v, st, _), layer = _case(dev, torch.float32, h, hkv, s, t_reg, start, layers, 128,
+                                    max_len=max_len)
+    mask = _edge_mask(dev, s, t_reg, start + s)
+    if int8:
+        clean, poisoned = _int8_poisoned(k, v, start + t_reg)
+        ks, vs = poisoned[2:]
+        out = va.verify_attention(q, *poisoned[:2], st, mask, layer, ks, vs)
+        ref = va.verify_attention_ref(q, *clean[:2], st, mask, layer, *clean[2:])
+    else:
+        k[..., start + t_reg:, :] = float("nan")  # rows past the region are never read
+        v[..., start + t_reg:, :] = float("nan")
+        out = va.verify_attention(q, k, v, st, mask, layer)
+        ref = va.verify_attention_ref(q, k.nan_to_num(), v.nan_to_num(), st, mask, layer)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_verify_attention_f32_mma_kernel_row_with_no_visible_column_in_a_middle_chunk(
+        cuda_device, dtype, tol):
+    """Rows that see nothing of a chunk inside the region, and a row that sees
+    one region column only, over float32 q (and bf16 q over an int8 cache)."""
+    dev, s, t_reg, start, max_len = cuda_device, 8, 200, 40, 512
+    (q, k, v, st, _), _ = _case(dev, dtype, 32, 32, s, t_reg, start, None, 128,
+                                max_len=max_len)
+    mask = _edge_mask(dev, s, t_reg, 7)
+    mask[3, 64 - start:128 - start] = False
+    mask[5, 64 - start:192 - start] = False
+    mask[6] = False
+    mask[6, 150] = True
+    for int8 in (False, True):
+        kk, vv, ks, vs = (k, v, None, None)
+        if int8:
+            (kk, ks), (vv, vs) = kvc.quantize_rows(k), kvc.quantize_rows(v)
+        out = va.verify_attention(q, kk, vv, st, mask, None, ks, vs)
+        ref = va.verify_attention_ref(q, kk, vv, st, mask, None, ks, vs)
+        torch.cuda.synchronize()
+        assert (out.float() - ref.float()).abs().max().item() <= tol, int8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,hkv,s,t_reg", [(32, 32, 30, 30), (32, 8, 30, 30), (32, 32, 1, 1),
+                                           (28, 4, 30, 30)])
+@pytest.mark.parametrize("int8", [False, True], ids=["f32_cache", "int8_cache"])
+def test_verify_attention_batched_f32_mma_kernel_ragged_slots(cuda_device, h, hkv, s, t_reg,
+                                                              int8):
+    """float32 q at B = 4: a slot whose region ends at max_len, one with no
+    committed prefix, one whose region ends one column into a chunk, a short
+    one, each at another layer, rows past each slot's region poisoned.  Each
+    slot equals the single-request kernel on that slot, bit for bit."""
+    dev, b, layers, max_len = cuda_device, 4, 4, 1024
+    starts, layer_of = (max_len - t_reg, 0, 5 * 64 + 1 - t_reg, 77), (0, 3, 1, 2)
+    g = torch.Generator(device=dev).manual_seed(17)
+    q = torch.randn((b, h, s, 128), generator=g, device=dev)
+    k = torch.randn((b, layers, hkv, max_len, 128), generator=g, device=dev)
+    v = torch.randn(k.shape, generator=g, device=dev)
+    mask = torch.stack([_edge_mask(dev, s, t_reg, i) for i in range(b)])
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    layer = torch.tensor(layer_of, dtype=torch.int32, device=dev)
+    if int8:
+        clean, (k8, v8, ks, vs) = _int8_poisoned(k, v, [x + t_reg for x in starts])
+        args, ref_args = (k8, v8, st, mask, layer, ks, vs), (*clean[:2], st, mask, layer,
+                                                              *clean[2:])
+    else:
+        ref_args = (k.clone(), v.clone(), st, mask, layer)
+        for i, x in enumerate(starts):
+            k[i, ..., x + t_reg:, :] = float("nan")
+            v[i, ..., x + t_reg:, :] = float("nan")
+        args = (k, v, st, mask, layer)
+    out = va.verify_attention_batched(q, *args)
+    ref = va.verify_attention_batched_ref(q, *ref_args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-4
+    for i in range(b):
+        one = va.verify_attention(q[i], *(a[i] for a in args))
+        assert torch.equal(one, out[i])
+
+
+# (tree_start, live chunks of 64 rows) at T_reg = 30, max_len 4096: a cluster
+# of 8 with one live chunk (seven blocks with none), 7, exactly 8, 9 (one
+# block walks two), LLaVA-1.6's 47 and the whole 64 (a region that ends at
+# max_len)
+FOLD_CASES = [(10, 1), (370, 7), (470, 8), (520, 9), (2950, 47), (4066, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start,live", FOLD_CASES, ids=[f"live{n}" for _, n in FOLD_CASES])
+@pytest.mark.parametrize("dtype,int8,tol", [(torch.bfloat16, False, 2e-2),
+                                            (torch.bfloat16, True, 2e-2),
+                                            (torch.float32, False, 1e-4),
+                                            (torch.float32, True, 1e-4)],
+                         ids=["bf16", "bf16_int8", "f32", "f32_int8"])
+def test_verify_attention_fold_over_live_chunks(cuda_device, start, live, dtype, int8, tol):
+    """The cluster's reduction at 1 to 64 live chunks, GQA with 4 groups (two
+    passes of query rows), against the plain version; rows past the live end
+    poisoned."""
+    assert -(-(start + 30) // 64) == live
+    dev, max_len = cuda_device, 4096
+    (q, k, v, st, _), _ = _case(dev, dtype, 32, 8, 30, 30, start, None, 128, max_len=max_len)
+    mask = _edge_mask(dev, 30, 30, start)
+    if int8:
+        clean, poisoned = _int8_poisoned(k, v, start + 30)
+        out = va.verify_attention(q, *poisoned[:2], st, mask, None, *poisoned[2:])
+        ref = va.verify_attention_ref(q, *clean[:2], st, mask, None, *clean[2:])
+    else:
+        ref = va.verify_attention_ref(q, k, v, st, mask)
+        k[:, start + 30:] = float("nan")
+        v[:, start + 30:] = float("nan")
+        out = va.verify_attention(q, k, v, st, mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,int8", [(torch.bfloat16, False), (torch.bfloat16, True),
+                                        (torch.float32, False), (torch.float32, True)],
+                         ids=["bf16", "bf16_int8", "f32", "f32_int8"])
+def test_verify_attention_mma_kernel_is_reproducible(cuda_device, dtype, int8):
+    """No atomics and a fixed reduction order: two runs agree bit for bit,
+    single and batched, at 47 live chunks (every block of a cluster of 8
+    walks five or six)."""
+    dev = cuda_device
+    (q, k, v, st, mask), layer = _case(dev, dtype, 32, 8, 30, 30, 2950, 2, 128, max_len=4096)
+    ks = vs = None
+    if int8:
+        k, ks = kvc.quantize_rows(k)
+        v, vs = kvc.quantize_rows(v)
+    a = va.verify_attention(q, k, v, st, mask, layer, ks, vs)
+    b = va.verify_attention(q, k, v, st, mask, layer, ks, vs)
+    batch = [x[None].expand(2, *x.shape).contiguous() for x in (q, k, v, mask)]
+    scales = [None if x is None else x[None].expand(2, *x.shape).contiguous()
+              for x in (ks, vs)]
+    two = torch.stack([st, st])
+    layers = torch.stack([layer, layer])
+    c = va.verify_attention_batched(batch[0], batch[1], batch[2], two, batch[3], layers,
+                                    *scales)
+    d = va.verify_attention_batched(batch[0], batch[1], batch[2], two, batch[3], layers,
+                                    *scales)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(c, d)
+    assert torch.equal(c[0], a) and torch.equal(c[1], a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,int8", [(torch.bfloat16, False), (torch.bfloat16, True),
+                                        (torch.float32, False), (torch.float32, True)],
+                         ids=["bf16", "bf16_int8", "f32", "f32_int8"])
+def test_verify_attention_writes_every_output_element(cuda_device, dtype, int8):
+    """The output buffer is taken from the allocator's cache after a tensor
+    of its size was filled with NaN there: the cluster's reduction writes
+    every element (GQA, two passes of query rows)."""
+    dev = cuda_device
+    (q, k, v, st, mask), layer = _case(dev, dtype, 32, 8, 30, 30, 301, 2, 128)
+    ks = vs = None
+    if int8:
+        k, ks = kvc.quantize_rows(k)
+        v, vs = kvc.quantize_rows(v)
+    ref = va.verify_attention_ref(q, k, v, st, mask, layer, ks, vs)
+    torch.cuda.synchronize()
+    poison = torch.full_like(q, float("nan"))
+    ptr = poison.data_ptr()
+    del poison
+    out = va.verify_attention(q, k, v, st, mask, layer, ks, vs)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == ptr  # the poisoned block came back as the output
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= (1e-4 if dtype == torch.float32
+                                                              else 2e-2)
 
 
 def _int8_poisoned(k, v, live):

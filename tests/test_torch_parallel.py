@@ -29,7 +29,7 @@ from jax.sharding import Mesh as JMesh
 from jax.sharding import NamedSharding
 
 from tests import torch_parallel_world as world
-from tests.torch_parity import CPU
+from tests.torch_parity import CPU, once_per_session
 from vispec_tpu.configs import DraftConfig as JDraftConfig
 from vispec_tpu.configs import LlamaConfig as JLlamaConfig
 from vispec_tpu.ops import quant as jquant
@@ -56,12 +56,17 @@ def _spawn(args, log, env):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Outputs of the JAX reference and of every rank of both worlds, or the
-    failure logs of a process that failed."""
+    failure logs of a process that failed; spawned once per test session
+    (``once_per_session``), whichever worker asks first."""
+    return once_per_session("test_torch_parallel.runs", _spawn_worlds,
+                            lambda: tmp_path_factory.mktemp("parallel"))
+
+
+def _spawn_worlds(tmp):
     from tests.test_from_pretrained import write_draft_ckpt, write_llama_ckpt
     from tests.test_gen_answer_cli import _write_tokenizer
     from tests.vlm_fixtures import IMAGE_TOKEN, write_llava_ckpt, write_vision_draft_ckpt
 
-    tmp = tmp_path_factory.mktemp("parallel")
     vt, vd, pt, pd = (str(tmp / n) for n in ("vt", "vd", "pt", "pd"))
     write_llava_ckpt(vt, anyres=True)
     write_vision_draft_ckpt(vd)

@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from tests import torch_parallel_world as world
-from tests.torch_parity import CPU
+from tests.torch_parity import CPU, once_per_session
 from vispec_tpu_torch.configs import DraftConfig
 from vispec_tpu_torch.train import data_gen, trainer
 from vispec_tpu_torch.train.step import leaves
@@ -92,10 +92,15 @@ def _references(tmp, inputs) -> dict:
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """(results by process, failure logs, the one-process references, the
-    inputs, the tmp dir)."""
+    inputs, the tmp dir); made once per test session (``once_per_session``),
+    whichever worker asks first."""
+    return once_per_session("test_torch_parallel_train.runs", _spawn_worlds,
+                            lambda: tmp_path_factory.mktemp("parallel_train"))
+
+
+def _spawn_worlds(tmp):
     from tests.test_from_pretrained import H, V, write_llama_ckpt
 
-    tmp = tmp_path_factory.mktemp("parallel_train")
     _samples(str(tmp / "loop_data"), world.LOOP_DRAFT["hidden_size"],
              world.LOOP_DRAFT["vocab_size"], 4, seed=0)
     _samples(str(tmp / "cli_data"), H, V, 4, seed=1)

@@ -5,12 +5,20 @@ Qwen2.5-VL variant of that target (M-RoPE, qkv bias) with a toy windowed
 ViT, and the CPU device.  Both sides run in float32 on the CPU unless a test says
 otherwise."""
 
+import fcntl
 import functools
+import glob
 import inspect
+import json
 import os
+import pathlib
+import pickle
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
+import traceback
 import xml.etree.ElementTree as ET
 
 import jax
@@ -221,23 +229,126 @@ def mixtral_models(seed=0):
 # compiler segfaults after enough fresh compiles in one process (pytest.ini,
 # tests/test_vlm_ingestion.subprocess_isolated), so a module whose tests
 # compile many JAX graphs keeps them out of the worker that runs the suite:
-# the worker runs the whole module once in a child pytest process, and each
-# test reports its own outcome from that run.
+# the module runs once in a child pytest process, and each test reports its
+# own outcome from that run.
 _CHILD = "VISPEC_TORCH_PARITY_CHILD"
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CHILD_TIMEOUT = 1200
 
 
-@functools.lru_cache(maxsize=None)
-def _child_run(path: str):
-    """({test name: None if passed, else the failure text}, the run's log
-    tail) of the test module at ``path`` run by a child pytest process."""
+_SESSION_PREFIX = "vispec-torch-session-"
+
+
+def _session_root(uid: str) -> str:
+    """The directory that the workers of xdist session ``uid`` share.  The
+    worker that makes it writes the session's controller process (the
+    workers' parent) into it and removes the directories of sessions whose
+    controller has exited, so only the last session's outlives its run."""
+    base = tempfile.gettempdir()
+    root = os.path.join(base, _SESSION_PREFIX + uid)
+    try:
+        os.mkdir(root)
+    except FileExistsError:
+        return root
+    with open(os.path.join(root, "controller"), "w") as f:
+        f.write(str(os.getppid()))
+    for other in glob.glob(os.path.join(base, _SESSION_PREFIX + "*")):
+        if other != root and _session_ended(other):
+            shutil.rmtree(other, ignore_errors=True)
+    return root
+
+
+def _session_ended(root: str) -> bool:
+    """Whether the controller written in ``root`` has exited (False while it
+    is not written yet)."""
+    try:
+        with open(os.path.join(root, "controller")) as f:
+            os.kill(int(f.read()), 0)
+    except (OSError, ValueError) as e:
+        return isinstance(e, ProcessLookupError)
+    return False
+
+
+def _result_path(root: str, key: str, fmt: str) -> str:
+    return os.path.join(root, re.sub(r"[^\w.-]", "_", key) + "." + fmt)
+
+
+def _compute_once(root: str, key: str, compute, fmt: str, wait: bool) -> bool:
+    """Take ``key``'s lock (waiting for it, or not) and, holding it, run
+    ``compute`` and write its result unless a result is there; False when
+    another worker holds the lock and ``wait`` is False."""
+    result = _result_path(root, key, fmt)
+    with open(result[:-len(fmt)] + "lock", "w") as lock:
+        try:  # the lock goes with the file
+            fcntl.flock(lock, fcntl.LOCK_EX | (0 if wait else fcntl.LOCK_NB))
+        except BlockingIOError:
+            return False
+        if not os.path.exists(result):
+            workdir = pathlib.Path(result[:-len(fmt) - 1])
+            workdir.mkdir(exist_ok=True)
+            try:
+                record = {"value": compute(workdir)}
+            except Exception:
+                record = {"error": traceback.format_exc()}
+            partial = f"{result}.{os.getpid()}.partial"
+            with open(partial, "wb" if fmt == "pickle" else "w") as f:
+                (pickle if fmt == "pickle" else json).dump(record, f)
+            os.replace(partial, result)
+    return True
+
+
+def once_per_session(key: str, compute, local_dir=lambda: None, fmt: str = "pickle"):
+    """``compute(workdir)`` once per pytest session, whatever the xdist
+    distribution, and its result in every worker that asks.
+
+    Under xdist (``PYTEST_XDIST_TESTRUNUID`` set, and not in a child run)
+    the workers of one session share a directory under the temporary
+    directory, keyed by the run uid: the first worker to take the key's
+    ``flock`` runs ``compute`` with ``workdir`` a directory there that every
+    worker can read, and writes the result (``fmt``: "pickle" or "json");
+    the others read it.  While another worker holds the lock, a worker runs
+    a child module that no worker has started (``_CHILD_MODULES``), then
+    waits for the lock.  An exception of ``compute`` is written too, and
+    every worker raises it as a RuntimeError.  With ``--dist load`` the
+    tests of one module are spread over the workers, so a per-worker cache
+    would run the work once per worker.  Without xdist
+    ``compute(local_dir())`` runs in this process."""
+    uid = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    if not uid or os.environ.get(_CHILD) == "1":
+        return compute(local_dir())
+    root = _session_root(uid)
+    result = _result_path(root, key, fmt)
+    while not _compute_once(root, key, compute, fmt, wait=False):
+        idle = [p for p in _CHILD_MODULES
+                if not os.path.exists(_result_path(root, _child_key(p), "json"))]
+        if not any(_compute_once(root, _child_key(p), lambda _, p=p: _run_child(p), "json",
+                                 wait=False) for p in idle):
+            _compute_once(root, key, compute, fmt, wait=True)
+    with open(result, "rb" if fmt == "pickle" else "r") as f:
+        record = (pickle if fmt == "pickle" else json).load(f)
+    if "error" in record:
+        raise RuntimeError(f"{key} failed once in this session:\n{record['error']}")
+    return record["value"]
+
+
+def _run_child(path: str):
+    """[{test name: None if passed, else the failure text}, the run's log
+    tail] of the test module at ``path`` run by a child pytest process; a
+    child that crashed or timed out leaves no results and says so in the
+    log."""
     with tempfile.TemporaryDirectory() as tmp:
         report = os.path.join(tmp, "report.xml")
-        proc = subprocess.run(
-            [sys.executable, "-m", "pytest", path, "-q", "-n", "0", "-p", "no:cacheprovider",
-             "-p", "no:randomly", f"--junitxml={report}"],
-            env={**os.environ, _CHILD: "1"}, cwd=_ROOT, capture_output=True, text=True,
-            timeout=1200)
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-m", "pytest", path, "-q", "-n", "0", "-p",
+                 "no:cacheprovider", "-p", "no:randomly", f"--junitxml={report}"],
+                env={**os.environ, _CHILD: "1"}, cwd=_ROOT, capture_output=True, text=True,
+                timeout=_CHILD_TIMEOUT)
+        except subprocess.TimeoutExpired as e:
+            out = [(s.decode(errors="replace") if isinstance(s, bytes) else s) or ""
+                   for s in (e.stdout, e.stderr)]
+            return [{}, f"the child run timed out after {_CHILD_TIMEOUT} s\n"
+                        f"{out[0][-3000:]}{out[1][-2000:]}"]
         results = {}
         if os.path.exists(report):
             for case in ET.parse(report).iter("testcase"):
@@ -245,7 +356,26 @@ def _child_run(path: str):
                 results[case.get("name")] = (None if not bad else
                                              f"{bad[0].tag}: {bad[0].get('message')}\n"
                                              f"{bad[0].text or ''}")
-    return results, (proc.stdout[-3000:] + proc.stderr[-2000:])
+    log = proc.stdout[-3000:] + proc.stderr[-2000:]
+    if proc.returncode != 0 and not results:
+        log = f"the child run exited with {proc.returncode} and no report\n{log}"
+    return [results, log]
+
+
+# the modules of this session that run in a child process, registered as
+# the workers import them
+_CHILD_MODULES: list = []
+
+
+def _child_key(path: str) -> str:
+    return "child-" + os.path.relpath(path, _ROOT)
+
+
+@functools.lru_cache(maxsize=None)
+def _child_run(path: str):
+    """``_run_child(path)`` once per test session (``once_per_session``)."""
+    results, log = once_per_session(_child_key(path), lambda _: _run_child(path), fmt="json")
+    return results, log
 
 
 def in_fresh_interpreter(test):
@@ -280,11 +410,15 @@ def in_fresh_interpreter(test):
 def in_fresh_interpreter_module(namespace: dict) -> None:
     """``in_fresh_interpreter`` on every test function of a module; call it
     last in the module with ``globals()``.  For the modules whose JAX
-    references compile in the test process: in a driver-style run (six
-    xdist workers, whole files per worker) their compiles, added to the JAX
-    package's own in one worker, brought back pytest.ini's XLA:CPU crash,
-    in a JAX test that passes alone (tests/test_from_pretrained.py's tp 2
-    compile aborted)."""
+    references compile in the test process: in a six-worker xdist run their
+    compiles, added to the JAX package's own in one worker, brought back
+    pytest.ini's XLA:CPU crash, in a JAX test that passes alone
+    (tests/test_from_pretrained.py's tp 2 compile aborted).  The child run
+    happens once per session, however xdist spreads the module's tests
+    (``once_per_session``)."""
     for name, obj in list(namespace.items()):
         if name.startswith("test_") and inspect.isfunction(obj):
             namespace[name] = in_fresh_interpreter(obj)
+            path = inspect.getfile(obj)
+            if os.environ.get(_CHILD) != "1" and path not in _CHILD_MODULES:
+                _CHILD_MODULES.append(path)

@@ -8,9 +8,12 @@ cache with per-row float32 scales, for a single request
 with its own cache, region, tree_start and layer (``verify_attention_batched``,
 row 1c: the batched grid of the JAX package's ``custom_vmap`` rule).  It is
 compiled with ``nvcc`` for ``sm_90a`` at first use (``ops/cuda_build.py``)
-and bound with ``ctypes``.  bf16 q at head_dim 128 runs on tensor cores
-(``partial_kernel_mma``) over a bf16 cache and over an int8 cache alike;
-float32 q and head_dim 16 run the CUDA-core ``partial_kernel``.
+and bound with ``ctypes``.  At head_dim 128 every call is one launch of
+``partial_kernel_mma`` on tensor cores (bf16 q; float32 q in 3xTF32), over
+q's own cache or an int8 cache: a thread-block cluster of 8 blocks per
+(slot x kv head) splits the live chunks and reduces them in its shared
+memory, so no partials reach device memory.  head_dim 16 runs the CUDA-core
+``partial_kernel`` into float32 scratch, then ``combine_kernel``.
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain version
 (``verify_attention_ref``, ``verify_attention_batched_ref``) for CPU tensors;
@@ -29,6 +32,7 @@ from .attention import attend, tree_verify_mask
 from .kv_cache import dequantize_rows
 
 HEAD_DIMS = (16, 128)  # the instantiations in the source
+FOLDED_HEAD_DIM = 128  # one launch, no scratch; head_dim 16 runs partial + combine
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -141,8 +145,9 @@ def _check_operands(name, q, k_cache, v_cache, tree_mask, k_scale, v_scale,
 
 def _launch(q, k_cache, v_cache, k_scale, v_scale, tree_mask, start, layer,
             nslots: int, has_layer: bool) -> torch.Tensor:
-    """One launch pair over ``nslots`` slots (1 for a single request, whose
-    slot strides are then 0).  ``start`` and ``layer`` are int32 [nslots] on
+    """One call over ``nslots`` slots (1 for a single request, whose slot
+    strides are then 0): one launch at head_dim 128, a launch pair over
+    float32 scratch at 16.  ``start`` and ``layer`` are int32 [nslots] on
     the device; the caches' leading dims are (slot,)? + (layer,)?."""
     quantized = k_scale is not None
     h, s, d = q.shape[-3:]
@@ -156,11 +161,13 @@ def _launch(q, k_cache, v_cache, k_scale, v_scale, tree_mask, start, layer,
 
     lib = _library()
     gs = (h // hkv) * s
-    nc = -(-max_len // lib.vispec_verify_attention_tile())
-    part_m = torch.empty((nslots * hkv, nc, gs), dtype=torch.float32, device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((nslots * hkv, nc, gs, d), dtype=torch.float32,
-                           device=q.device)
+    scratch = [None, None, None]
+    if d != FOLDED_HEAD_DIM:
+        nc = -(-max_len // lib.vispec_verify_attention_tile())
+        part_m = torch.empty((nslots * hkv, nc, gs), dtype=torch.float32, device=q.device)
+        scratch = [part_m, torch.empty_like(part_m),
+                   torch.empty((nslots * hkv, nc, gs, d), dtype=torch.float32,
+                               device=q.device)]
     out = torch.empty_like(q)
     err = lib.vispec_verify_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -168,7 +175,7 @@ def _launch(q, k_cache, v_cache, k_scale, v_scale, tree_mask, start, layer,
         v_scale.data_ptr() if quantized else None,
         tree_mask.data_ptr(), start.data_ptr(),
         layer.data_ptr() if has_layer else None,
-        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+        *(t.data_ptr() if t is not None else None for t in scratch),
         out.data_ptr(), nslots, hkv, gs, s, tree_mask.shape[-1], max_len,
         layer_stride, scale_stride, slot_stride, scale_slot_stride,
         mask_slot_stride, d, int(q.dtype == torch.bfloat16), int(quantized),
@@ -290,8 +297,8 @@ def verify_attention_batched(
     row 1c); returns [B, H, S, D] in q's dtype.  Every slot has its own
     cache, mask, start and layer; a cache without the slot dim is refused.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches one kernel
-    pair for the whole batch or raises.  Launches count in
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    once for the whole batch (head_dim 16: a kernel pair) or raises.  Launches count in
     ``verify_attention_batched.launches`` (bf16/f32 cache) and
     ``verify_attention_batched.launches_int8`` (int8 cache)."""
     if q.device.type == "cpu":
