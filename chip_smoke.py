@@ -1,7 +1,8 @@
 """Chip smoke test of the PyTorch + CUDA port (vispec_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py (--end-to-end | --attention-times | --q4-times) [CHECKOUT ...]
+    python3 chip_smoke.py (--end-to-end | --attention-times | --attention-sweep
+                           | --q4-times) [CHECKOUT ...]
 
 Builds the port's CUDA kernels from the sources in this checkout (in
 parallel), holds each against its plain PyTorch version at the main paths'
@@ -11,22 +12,23 @@ rounds, getkacc's rollout at tp 2), then drives greedy ViSpec decoding end
 to end: the
 trained toy checkpoint in tests/data/tau_fixture.npz, a 2-layer float32
 Vicuna-7B-width model (speculative output must equal autoregressive), the
-full 32-layer bfloat16 model with random weights from a seed, and the
+bfloat16 model at 8 of its 32 layers (``DEPTH_LAYERS``, the depth of
+every full-width model below) with random weights from a seed, and the
 quantized serving mode (int8 KV cache, int4 draft, int8 target) at 2 layers
-in float32 (spec == AR) and at 32 layers in bfloat16 (the same model,
+in float32 (spec == AR) and at 8 layers in bfloat16 (the same model,
 quantized in place).  The serving half runs too: batched decoding equal to
 per-request decoding (2 layers, float32, bf16-free and quantized), the
 trained toy checkpoint through the continuous-batching engine, and the
-engine at 32 layers in bfloat16 and quantized, with the batched-grid
+engine at 8 layers in bfloat16 and quantized, with the batched-grid
 kernel's launches counted per round.  Then LLaVA image prompts: the CLIP
 ViT-L tower on the card against the CPU, LLaVA-1.6 and 1.5 at 2 layers in
-float32 (spec == AR, batch == per request, CLIP-L at all 24 layers), at 32
+float32 (spec == AR, batch == per request, CLIP-L at all 24 layers), at 8
 layers in bfloat16 with 576, 2,340 and 2,928 image tokens (vision-encode
 and prefill ms, the kernel's launches per round as on the text path), and
 the engine over image and text requests.  Then Qwen2.5-VL image and video
 prompts: the windowed ViT on the card against the CPU, Qwen2.5-VL-7B widths
 at 2 layers in float32 (spec == AR with one image, two images and a video;
-batch and engine == per request; the quantized mode), at 28 layers in
+batch and engine == per request; the quantized mode), at 8 of 28 layers in
 bfloat16 with a 448x448, an 896x1120, two 448x448 images and an 8-frame
 video (encode and prefill ms, the kernel's launches per round), and the
 engine over image and text requests; the kernel rows include Qwen's GQA
@@ -36,11 +38,11 @@ heads over 8 KV heads) at 2 layers in float32 (spec == AR, batch and engine
 snapshots at 2 layers in float32 (continuation == full prefill), HF
 checkpoints written under build/ and loaded by ``from_pretrained`` onto the
 card (bit-equal, load rate), the snapshot continuation and the tree-width
-autotune on the 32-layer 7B, and Mixtral at 24 of its 32 layers in bfloat16
+autotune on the 8-layer 7B, and Mixtral at 8 of its 32 layers in bfloat16
 (tok/s, launches, idle share, the engine, the autotune); the kernel rows
 include Mixtral's groups of 4.  Then the evaluation harness and draft
 training: ``run_eval`` over vendored MT-bench questions at 2 layers in
-float32 (spec == AR on every turn) and at 32 layers in bfloat16 with
+float32 (spec == AR on every turn) and at 8 layers in bfloat16 with
 ``arrival_bench`` on the engine, training steps on the card against the
 CPU at toy widths, a training sample generated by the 7B and ten
 7B-width steps with the state round trip and ``getkacc``, and a LLaVA-1.5
@@ -49,7 +51,7 @@ image sample with a step through the image adaptor; a 1c kernel row at
 of rank processes of this script (``--parallel-rank``) that share the card
 over gloo with CUDA tensors: tp 2, pp 2, pp 2 x sp 2, tp 2 with an int4
 draft over int8 KV and Mixtral at ep 2, 2 layers in float32, token-equal
-to one process; Vicuna-7B at 32 layers and Mixtral at 8 of 32 layers in
+to one process; Vicuna-7B and Mixtral at 8 of 32 layers in
 bfloat16 over tp / ep 2 (tok/s, launches and collectives per round, idle
 share, peak memory per rank: on one card these measure the collectives'
 cost, not a speed-up).  Then parallel draft training and the engine on a
@@ -59,7 +61,7 @@ one process's, with an orbax (torch.distributed.checkpoint) save and
 reload of the shards; the Vicuna-7B-width draft's bf16 steps at dp 2 and
 tp 2 over two ranks (step ms, collectives, peak memory, getkacc at tp 2);
 the engine at tp 2 against the unsharded engine, exactly at 2 layers in
-float32 and at 32 layers in bfloat16 (ranks agree; launches a round), each
+float32 and at 8 layers in bfloat16 (ranks agree; launches a round), each
 plain and quantized; the serving examples on the card.  Last, kernel 2's
 rows at the (K, N / 2, M) the tp 2 draft sent it.  Prints one JSON line
 per phase, a
@@ -79,11 +81,15 @@ then the same model quantized, single request and through the engine
 ``quant_full_depth``,
 ``serving_quant_full_depth`` and their profiles).  ``--attention-times``:
 every attention ``kernel_vs_plain`` line (rows 1a, 1b, 1c).
+``--attention-sweep``: rows 1a, 1b and 1c at every cluster size of the
+attention kernel, the kernel's time alone.
 ``--q4-times``: kernel 2 alone.  ``--parallel`` runs only the build and
 the multi-device phases (on a machine with a card per rank their worlds
 take NCCL, one card each).
 """
 
+import contextlib
+import functools
 import gc
 import json
 import os
@@ -128,11 +134,16 @@ EVAL_TOKENS = 32
 # new tokens of each arrival_full_depth request (64 before slice 14's
 # phases, 32 before slice 15's)
 ARRIVAL_TOKENS = 16
-# new tokens of each spec and AR run of the 32-layer image prompts
+# new tokens of each spec and AR run of the image prompts
 # (llava_full_depth, qwen_full_depth; 128 before slice 15's) and the CUDA-
 # event calls behind each of their encode and prefill medians (10 before)
 IMAGE_DEPTH_TOKENS = 64
 IMAGE_TIMED_CALLS = 5
+# target layers of every full-width model the default run decodes with
+# (Vicuna-7B, LLaVA, Qwen2.5-VL, Mixtral, the tp 2 worlds): 32, 32, 28 and
+# 24 of their 32, 32, 28 and 32 until slice 16, when the whole run took
+# 946 s on one host and over 1,200 s on another; --end-to-end keeps 32
+DEPTH_LAYERS = 8
 # the 1c kernel row at getkacc's shape: 16 slots' committed rows
 KACC_STARTS = tuple(int(x) for x in np.random.default_rng(70).integers(256, 511, 16))
 
@@ -213,6 +224,49 @@ def kernel_split_ms(fn, flush, n=10):
                        f"sessions of {n} calls that launch one each")
 
 
+@contextlib.contextmanager
+def forced_cluster(cluster, p_tiles=None):
+    """Every head-dim-128 attention call inside runs at cluster size
+    ``cluster`` and, bf16 q over int8, in the build ``p_tiles`` names (None:
+    the P tiles), through ``_launch``'s private keywords; cluster None: the
+    size and build the host picks."""
+    from vispec_tpu_torch.ops import verify_attention as va
+
+    if cluster is None:
+        yield
+        return
+    launch = va._launch
+    va._launch = functools.partial(launch, _cluster=cluster, _p_tiles=p_tiles)
+    try:
+        yield
+    finally:
+        va._launch = launch
+
+
+def _cluster_fields(dev, dtype, int8, nslots, h, hkv, s, cluster, p_tiles=None):
+    """The cluster size a call runs at (forced, or the host's pick) and the
+    clusters of it the card holds at once; bf16 q over int8 also its build
+    (``p_tiles``: the P tiles, or p * v_scale packed in registers)."""
+    from vispec_tpu_torch.ops import verify_attention as va
+
+    gs = (h // hkv) * s
+    if cluster is None:
+        c, pt = va.cluster_for(dev, dtype, int8, nslots, hkv, gs)
+    else:
+        c, pt = cluster, va.two_builds(dtype, int8) if p_tiles is None else p_tiles
+    resident = va.resident_clusters(dev, dtype, int8, gs, pt)
+    RESIDENT_SEEN[(str(dtype).replace("torch.", ""), int8, min(gs, va.QTILE), pt)] = resident
+    out = {"cluster": c, "resident_clusters": resident.get(c, 0)}
+    if va.two_builds(dtype, int8):
+        out["p_tiles"] = pt
+    return out
+
+
+# {(q dtype, int8 cache, query rows of a slot (at most 64), P tiles):
+# {cluster size: clusters the card holds}} of every attention row so far
+RESIDENT_SEEN = {}
+
+
 def phase_build():
     """Both sources at once, one nvcc each."""
     from vispec_tpu_torch.ops import cuda_build
@@ -230,14 +284,21 @@ def phase_build():
         ptxas = _ptxas_by_kernel(so.with_suffix(".log").read_text())
         emit({"phase": "build", "ok": True, "seconds": seconds, "library": so.name,
               "ptxas": [f"{name}: {info}" for name, info in ptxas.items()]})
-        # the tensor-core kernels: the attention's four instantiations (bf16
-        # and float32 q, each over its own and an int8 cache), kernel 2's
-        # four; none may spill
-        tag, count = (("partial_kernel_mma", 4) if "verify_attention" in so.name
-                      else ("q4_mma_kernel", 4))
-        mma = [info for name, info in ptxas.items() if name.startswith(tag)]
-        assert len(mma) == count and all("0 bytes spill stores, 0 bytes spill loads" in info
-                                         for info in mma), f"{tag}: {mma}"
+        # the tensor-core kernels: the attention's seventeen instantiations
+        # (bf16 and float32 q, each over its own and an int8 cache, each at
+        # clusters of 8, 4, 2 and 1, and bf16 q over int8 also in its register
+        # build at 8: partial_kernel_mmaI<q><cache>Li128ELi<C>ELb<P tiles>E),
+        # kernel 2's four; none may spill
+        if "verify_attention" in so.name:
+            tag = "partial_kernel_mma"
+            want = ([f"Li128ELi{c}ELb0E" for c in (8, 4, 2, 1) for _ in range(3)]
+                    + [f"Li128ELi{c}ELb1E" for c in (8, 4, 2, 1)] + ["Li128ELi8ELb0E"])
+        else:
+            tag, want = "q4_mma_kernel", ["q4_mma_kernel"] * 4
+        mma = {name: info for name, info in ptxas.items() if name.startswith(tag)}
+        assert sorted(next(w for w in set(want) if w in name) for name in mma) == sorted(want) \
+            and all("0 bytes spill stores, 0 bytes spill loads" in info
+                    for info in mma.values()), f"{tag}: {mma}"
     emit({"phase": "build_all", "ok": True, "seconds": total})
 
 
@@ -261,10 +322,32 @@ def _ptxas_by_kernel(log):
     return out
 
 
+def _unfit(name, dev, dtype, int8, nslots, h, hkv, s, cluster, p_tiles=None):
+    """A forced cluster size whose blocks' shared memory does not fit this
+    shape: a line saying so (True); a forced build the dtype pair does not
+    have: no line (True); else False."""
+    from vispec_tpu_torch.ops import verify_attention as va
+
+    if cluster is None:
+        return False
+    if p_tiles is not None and not va.two_builds(dtype, int8):
+        return True
+    fields = _cluster_fields(dev, dtype, int8, nslots, h, hkv, s, cluster, p_tiles)
+    if fields["resident_clusters"] > 0:
+        return False
+    emit({"phase": "kernel_vs_plain", "case": name, **fields,
+          "skipped": "the blocks' shared memory does not fit"})
+    return True
+
+
 def kernel_case(name, seed, dev, dtype, h, hkv, s, t_reg, start, layers, mask, flush,
-                max_len=2048, d=128):
+                max_len=2048, d=128, cluster=None, light=False):
     """One main-path geometry: kernel vs plain version (max abs error), and
-    the times of the kernel, the plain version and SDPA as a yardstick."""
+    the times of the kernel, the plain version and SDPA as a yardstick; the
+    cluster size the call ran at and the clusters of it the card holds.  At
+    ``cluster`` (None: the picker's size); ``light`` times the kernel alone."""
+    if _unfit(name, dev, dtype, False, 1, h, hkv, s, cluster):
+        return None
     import torch.nn.functional as F
 
     from vispec_tpu_torch.ops import verify_attention as va
@@ -279,7 +362,8 @@ def kernel_case(name, seed, dev, dtype, h, hkv, s, t_reg, start, layers, mask, f
     layer = None if layers is None else torch.tensor(layers - 1, dtype=torch.int32,
                                                      device=dev)
     args = (q, k, v, st, mask)
-    out = va.verify_attention(*args, layer_idx=layer)
+    with forced_cluster(cluster):
+        out = va.verify_attention(*args, layer_idx=layer)
     ref = va.verify_attention_ref(*args, layer_idx=layer)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
@@ -295,10 +379,13 @@ def kernel_case(name, seed, dev, dtype, h, hkv, s, t_reg, start, layers, mask, f
                                        attn_mask=sdpa_mask[None, None],
                                        enable_gqa=h != hkv)
 
-    ms = timed_ms(lambda: va.verify_attention(*args, layer_idx=layer), flush)
-    plain_ms = timed_ms(lambda: va.verify_attention_ref(*args, layer_idx=layer), flush)
-    library_ms = timed_ms(library, flush)
-    split = kernel_split_ms(lambda: va.verify_attention(*args, layer_idx=layer), flush)
+    with forced_cluster(cluster):
+        ms = timed_ms(lambda: va.verify_attention(*args, layer_idx=layer), flush)
+        plain_ms = None if light else timed_ms(
+            lambda: va.verify_attention_ref(*args, layer_idx=layer), flush)
+        library_ms = None if light else timed_ms(library, flush)
+        split = {} if light else kernel_split_ms(
+            lambda: va.verify_attention(*args, layer_idx=layer), flush)
     elem = q.element_size()
     moved = 2 * total * hkv * d * elem + 2 * q.numel() * elem + mask.numel()
     ops = 4 * h * s * total * d
@@ -308,12 +395,14 @@ def kernel_case(name, seed, dev, dtype, h, hkv, s, t_reg, start, layers, mask, f
            "max_abs_err": err, "tol": TOL[dtype], "ms": ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **split}
+    if d == 128:
+        row.update(_cluster_fields(dev, dtype, False, 1, h, hkv, s, cluster))
     emit({"phase": "kernel_vs_plain", **row})
     assert err <= TOL[dtype], f"{name}: max abs err {err} > {TOL[dtype]}"
     return row
 
 
-def phase_kernel(dev):
+def phase_kernel(dev, cluster=None, light=False):
     """Table row 1a's four main-path geometries at 7B width (H = Hkv = 32,
     D = 128, max_len 2048), plus GQA, float32 and a ragged region end; then
     the LLaVA-1.6 prompts' geometry at max_len 4096 (64 chunks): the verify
@@ -322,7 +411,10 @@ def phase_kernel(dev):
     at max_len; and Qwen2.5-VL-7B's at max_len 4096 (groups of 7: the
     verify, the AR step; the draft's expansion at 28 heads).  Starts are
     not 64-row aligned and every region crosses a 64-row tile edge.  The
-    bf16 cases run the tensor-core kernel in bf16, float32 in 3xTF32."""
+    bf16 cases run the tensor-core kernel in bf16, float32 in 3xTF32.  At
+    ``cluster`` (None: the picker's size); ``light`` times the kernel alone
+    (the sweep)."""
+    case = functools.partial(kernel_case, cluster=cluster, light=light)
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(0)
     tree = torch.tril(torch.rand((30, 30), generator=g) < 0.3)
@@ -336,55 +428,60 @@ def phase_kernel(dev):
     tri = torch.tril(torch.ones((5, 5), dtype=torch.bool, device=dev))
     bf16, f32 = torch.bfloat16, torch.float32
     rows = [
-        kernel_case("target_verify", 0, dev, bf16, 32, 32, 30, 30, 301, 32, tree, flush),
-        kernel_case("ar_step", 1, dev, bf16, 32, 32, 1, 1, 319, 32, ones, flush),
-        kernel_case("draft_append", 2, dev, bf16, 32, 32, 5, 5, 317, None, tri, flush),
-        kernel_case("draft_expand", 3, dev, bf16, 32, 32, 8, 24, 300, None, expand, flush),
-        kernel_case("gqa_groups4", 4, dev, bf16, 32, 8, 30, 30, 301, 32, tree, flush),
-        kernel_case("target_verify_f32", 5, dev, f32, 32, 32, 30, 30, 301, 32, tree, flush),
+        case("target_verify", 0, dev, bf16, 32, 32, 30, 30, 301, 32, tree, flush),
+        case("ar_step", 1, dev, bf16, 32, 32, 1, 1, 319, 32, ones, flush),
+        case("draft_append", 2, dev, bf16, 32, 32, 5, 5, 317, None, tri, flush),
+        case("draft_expand", 3, dev, bf16, 32, 32, 8, 24, 300, None, expand, flush),
+        case("gqa_groups4", 4, dev, bf16, 32, 8, 30, 30, 301, 32, tree, flush),
+        case("target_verify_f32", 5, dev, f32, 32, 32, 30, 30, 301, 32, tree, flush),
         # ragged: the region ends one column into a 64-row chunk (total 321)
-        kernel_case("region_one_column_into_a_chunk", 6, dev, bf16, 32, 32, 30, 30,
+        case("region_one_column_into_a_chunk", 6, dev, bf16, 32, 32, 30, 30,
                     5 * 64 + 1 - 30, 32, tree, flush),
-        kernel_case("llava_target_verify_4096", 7, dev, bf16, 32, 32, 30, 30, 2956, 32, tree,
+        case("llava_target_verify_4096", 7, dev, bf16, 32, 32, 30, 30, 2956, 32, tree,
                     flush, max_len=4096),
-        kernel_case("llava_draft_expand_4096", 8, dev, bf16, 32, 32, 8, 24, 2368, None,
+        case("llava_draft_expand_4096", 8, dev, bf16, 32, 32, 8, 24, 2368, None,
                     expand, flush, max_len=4096),
-        kernel_case("region_ends_at_max_len_4096", 9, dev, bf16, 32, 32, 30, 30, 4096 - 30,
+        case("region_ends_at_max_len_4096", 9, dev, bf16, 32, 32, 30, 30, 4096 - 30,
                     32, tree, flush, max_len=4096),
         # Qwen2.5-VL-7B at max_len 4096 after the 1,344-row prompt of an
         # 896x1120 image: 28 heads over 4 KV heads (groups of 7: 210 query
         # rows a KV head at the verify, 7 at the AR step) over the 28-layer
         # cache, and the draft's 28 heads over 28 KV heads
-        kernel_case("qwen_target_verify", 40, dev, bf16, 28, 4, 30, 30, 1381, 28, tree,
+        case("qwen_target_verify", 40, dev, bf16, 28, 4, 30, 30, 1381, 28, tree,
                     flush, max_len=4096),
-        kernel_case("qwen_ar_step", 41, dev, bf16, 28, 4, 1, 1, 1400, 28, ones, flush,
+        case("qwen_ar_step", 41, dev, bf16, 28, 4, 1, 1, 1400, 28, ones, flush,
                     max_len=4096),
-        kernel_case("qwen_draft_expand", 42, dev, bf16, 28, 28, 8, 24, 1380, None, expand,
+        case("qwen_draft_expand", 42, dev, bf16, 28, 28, 8, 24, 1380, None, expand,
                     flush, max_len=4096),
         # the float32 Qwen model of qwen_exact: the 3xTF32 kernel at groups of 7
-        kernel_case("qwen_target_verify_f32", 44, dev, f32, 28, 4, 30, 30, 1381, 28, tree,
+        case("qwen_target_verify_f32", 44, dev, f32, 28, 4, 30, 30, 1381, 28, tree,
                     flush, max_len=4096),
         # Mixtral-8x7B (32 heads over 8 KV heads; gqa_groups4 holds its
         # verify): the AR step over the 24-layer cache, the draft's append
         # and expansion at 32 over 8, and mixtral_exact's float32 verify over
         # its 2-layer cache (the 3xTF32 kernel at groups of 4)
-        kernel_case("mixtral_ar_step", 60, dev, bf16, 32, 8, 1, 1, 319, 24, ones, flush),
-        kernel_case("mixtral_draft_append", 61, dev, bf16, 32, 8, 5, 5, 317, None, tri,
+        case("mixtral_ar_step", 60, dev, bf16, 32, 8, 1, 1, 319, 24, ones, flush),
+        case("mixtral_draft_append", 61, dev, bf16, 32, 8, 5, 5, 317, None, tri,
                     flush),
-        kernel_case("mixtral_draft_expand", 62, dev, bf16, 32, 8, 8, 24, 300, None, expand,
+        case("mixtral_draft_expand", 62, dev, bf16, 32, 8, 8, 24, 300, None, expand,
                     flush),
-        kernel_case("mixtral_target_verify_f32", 63, dev, f32, 32, 8, 30, 30, 301, 2, tree,
+        case("mixtral_target_verify_f32", 63, dev, f32, 32, 8, 30, 30, 301, 2, tree,
                     flush),
     ]
     return rows
 
 
 def kernel_case_int8(name, seed, dev, h, hkv, s, t_reg, start, layers, mask, flush,
-                     max_len=2048, d=128, dtype=torch.bfloat16):
+                     max_len=2048, d=128, dtype=torch.bfloat16, cluster=None, light=False,
+                     p_tiles=None):
     """Kernel 1b at one main-path geometry: bf16 (or float32) q over a
     stacked int8 cache with per-row scales, read at layer ``layers - 1``.  No single PyTorch
     call attends over int8 rows with per-row scales, so ``library_ms`` is
-    null; dequantize + SDPA over the live rows is printed as an extra."""
+    null; dequantize + SDPA over the live rows is printed as an extra.  At
+    ``cluster`` and build ``p_tiles`` (None: the host's pick); ``light``
+    times the kernel alone."""
+    if _unfit(name, dev, dtype, True, 1, h, hkv, s, cluster, p_tiles):
+        return None
     import torch.nn.functional as F
 
     from vispec_tpu_torch.ops import kv_cache as kvc
@@ -399,7 +496,8 @@ def kernel_case_int8(name, seed, dev, h, hkv, s, t_reg, start, layers, mask, flu
     st = torch.tensor(start, dtype=torch.int32, device=dev)
     layer = torch.tensor(layers - 1, dtype=torch.int32, device=dev)
     args = (q, k, v, st, mask, layer, ks, vs)
-    out = va.verify_attention(*args)
+    with forced_cluster(cluster, p_tiles):
+        out = va.verify_attention(*args)
     ref = va.verify_attention_ref(*args)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
@@ -416,10 +514,11 @@ def kernel_case_int8(name, seed, dev, h, hkv, s, t_reg, start, layers, mask, flu
                                        attn_mask=sdpa_mask[None, None],
                                        enable_gqa=h != hkv)
 
-    ms = timed_ms(lambda: va.verify_attention(*args), flush)
-    plain_ms = timed_ms(lambda: va.verify_attention_ref(*args), flush)
-    extra_ms = timed_ms(dequant_sdpa, flush)
-    split = kernel_split_ms(lambda: va.verify_attention(*args), flush)
+    with forced_cluster(cluster, p_tiles):
+        ms = timed_ms(lambda: va.verify_attention(*args), flush)
+        plain_ms = None if light else timed_ms(lambda: va.verify_attention_ref(*args), flush)
+        extra_ms = None if light else timed_ms(dequant_sdpa, flush)
+        split = {} if light else kernel_split_ms(lambda: va.verify_attention(*args), flush)
     moved = (2 * total * hkv * d + 2 * total * hkv * 4 + 2 * q.numel() * q.element_size()
              + mask.numel())
     ops = 4 * h * s * total * d
@@ -432,20 +531,23 @@ def kernel_case_int8(name, seed, dev, h, hkv, s, t_reg, start, layers, mask, flu
            "library_note": "no single PyTorch call attends over int8 rows with "
                            "per-row scales",
            "dequant_sdpa_ms": extra_ms, "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **split}
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **split,
+           **_cluster_fields(dev, dtype, True, 1, h, hkv, s, cluster, p_tiles)}
     emit({"phase": "kernel_vs_plain", **row})
     assert err <= TOL[dtype], f"{name} int8: max abs err {err} > {TOL[dtype]}"
     return row
 
 
-def phase_kernel_int8(dev):
+def phase_kernel_int8(dev, cluster=None, light=False, p_tiles=None):
     """Table row 1b's main-path geometries at 7B width: the target verify and
     the AR step over the 32-layer int8 cache, GQA with 4 groups, a region
     that ends one column into a 64-row chunk, and the verify after a
     2,956-row LLaVA-1.6 prompt at max_len 4096; then Qwen2.5-VL-7B's over
     its 28-layer int8 cache at max_len 4096 (groups of 7): the verify and
     the AR step with bf16 q, and the verify with float32 q (qwen_exact's
-    quantized model)."""
+    quantized model).  At ``cluster`` and build ``p_tiles`` (None: the
+    host's pick); ``light`` times the kernel alone (the sweep)."""
+    case = functools.partial(kernel_case_int8, cluster=cluster, light=light, p_tiles=p_tiles)
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(1)
     tree = torch.tril(torch.rand((30, 30), generator=g) < 0.3)
@@ -454,42 +556,47 @@ def phase_kernel_int8(dev):
     tree = tree.to(dev)
     ones = torch.ones((1, 1), dtype=torch.bool, device=dev)
     return [
-        kernel_case_int8("target_verify_int8", 10, dev, 32, 32, 30, 30, 301, 32, tree, flush),
-        kernel_case_int8("ar_step_int8", 11, dev, 32, 32, 1, 1, 319, 32, ones, flush),
-        kernel_case_int8("gqa_groups4_int8", 12, dev, 32, 8, 30, 30, 301, 32, tree, flush),
-        kernel_case_int8("region_one_column_into_a_chunk_int8", 13, dev, 32, 32, 30, 30,
+        case("target_verify_int8", 10, dev, 32, 32, 30, 30, 301, 32, tree, flush),
+        case("ar_step_int8", 11, dev, 32, 32, 1, 1, 319, 32, ones, flush),
+        case("gqa_groups4_int8", 12, dev, 32, 8, 30, 30, 301, 32, tree, flush),
+        case("region_one_column_into_a_chunk_int8", 13, dev, 32, 32, 30, 30,
                          5 * 64 + 1 - 30, 32, tree, flush),
-        kernel_case_int8("llava_target_verify_int8_4096", 14, dev, 32, 32, 30, 30, 2956, 32,
+        case("llava_target_verify_int8_4096", 14, dev, 32, 32, 30, 30, 2956, 32,
                          tree, flush, max_len=4096),
-        kernel_case_int8("qwen_target_verify_int8", 45, dev, 28, 4, 30, 30, 1381, 28, tree,
+        case("qwen_target_verify_int8", 45, dev, 28, 4, 30, 30, 1381, 28, tree,
                          flush, max_len=4096),
-        kernel_case_int8("qwen_ar_step_int8", 46, dev, 28, 4, 1, 1, 1400, 28, ones, flush,
+        case("qwen_ar_step_int8", 46, dev, 28, 4, 1, 1, 1400, 28, ones, flush,
                          max_len=4096),
-        kernel_case_int8("qwen_target_verify_int8_f32", 47, dev, 28, 4, 30, 30, 1381, 28,
+        case("qwen_target_verify_int8_f32", 47, dev, 28, 4, 30, 30, 1381, 28,
                          tree, flush, max_len=4096, dtype=torch.float32),
         # Mixtral-8x7B over int8 caches (gqa_groups4_int8 holds the verify):
         # the AR step over 24 layers, mixtral_exact's float32-q verify
-        kernel_case_int8("mixtral_ar_step_int8", 64, dev, 32, 8, 1, 1, 319, 24, ones, flush),
-        kernel_case_int8("mixtral_target_verify_int8_f32", 65, dev, 32, 8, 30, 30, 301, 2,
+        case("mixtral_ar_step_int8", 64, dev, 32, 8, 1, 1, 319, 24, ones, flush),
+        case("mixtral_target_verify_int8_f32", 65, dev, 32, 8, 30, 30, 301, 2,
                          tree, flush, dtype=torch.float32),
     ]
 
 
 def kernel_case_batched(name, seed, dev, dtype, h, hkv, s, t_reg, starts, layers, masks,
-                        flush, int8=False, n_layers=32, max_len=2048, d=128):
+                        flush, int8=False, n_layers=32, max_len=2048, d=128, cluster=None,
+                        light=False, p_tiles=None):
     """Kernel 1c (the batched grid) at one main-path geometry: B slots, each
     with its own cache, start, layer and region mask.  Against its plain
     version; times of the kernel, the plain version, the library yardstick
     (one SDPA call over [B, H, S, Lmax], Lmax = max start + T_reg, with a
     dense bool mask over each slot's live rows of its layer, selected before
     timing; int8: dequantize + SDPA, printed beside a null library_ms as for
-    row 1b) and B launches of the single-request kernel on the same data."""
+    row 1b) and B launches of the single-request kernel on the same data.
+    At ``cluster`` and build ``p_tiles`` (None: the host's pick); ``light``
+    times the kernel alone."""
     import torch.nn.functional as F
 
     from vispec_tpu_torch.ops import kv_cache as kvc
     from vispec_tpu_torch.ops import verify_attention as va
     from vispec_tpu_torch.ops.attention import tree_verify_mask
 
+    if _unfit(name, dev, dtype, int8, len(starts), h, hkv, s, cluster, p_tiles):
+        return None
     b = len(starts)
     g = torch.Generator(device=dev).manual_seed(seed)
     shape = (b, hkv, max_len, d) if layers is None else (b, n_layers, hkv, max_len, d)
@@ -503,7 +610,8 @@ def kernel_case_batched(name, seed, dev, dtype, h, hkv, s, t_reg, starts, layers
     st = torch.tensor(starts, dtype=torch.int32, device=dev)
     layer = None if layers is None else torch.tensor(layers, dtype=torch.int32, device=dev)
     args = (q, k, v, st, masks, layer, ks, vs)
-    out = va.verify_attention_batched(*args)
+    with forced_cluster(cluster, p_tiles):
+        out = va.verify_attention_batched(*args)
     ref = va.verify_attention_batched_ref(*args)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
@@ -531,11 +639,14 @@ def kernel_case_batched(name, seed, dev, dtype, h, hkv, s, t_reg, starts, layers
         vv = kvc.dequantize_rows(v_l, vs_l, dtype) if int8 else v_l
         F.scaled_dot_product_attention(q, kk, vv, attn_mask=dense, enable_gqa=h != hkv)
 
-    ms = timed_ms(lambda: va.verify_attention_batched(*args), flush)
-    plain_ms = timed_ms(lambda: va.verify_attention_batched_ref(*args), flush)
-    yard_ms = timed_ms(library, flush)
-    one_a_ms = timed_ms(one_a_per_slot, flush)
-    split = kernel_split_ms(lambda: va.verify_attention_batched(*args), flush)
+    with forced_cluster(cluster, p_tiles):
+        ms = timed_ms(lambda: va.verify_attention_batched(*args), flush)
+        plain_ms = None if light else timed_ms(
+            lambda: va.verify_attention_batched_ref(*args), flush)
+        yard_ms = None if light else timed_ms(library, flush)
+        one_a_ms = None if light else timed_ms(one_a_per_slot, flush)
+        split = {} if light else kernel_split_ms(
+            lambda: va.verify_attention_batched(*args), flush)
     rows = sum(starts) + b * t_reg
     elem = 1 if int8 else q.element_size()
     moved = (2 * rows * hkv * d * elem + (2 * rows * hkv * 4 if int8 else 0)
@@ -550,6 +661,8 @@ def kernel_case_batched(name, seed, dev, dtype, h, hkv, s, t_reg, starts, layers
            "library_ms": None if int8 else yard_ms, "one_a_x_b_ms": one_a_ms,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **split}
+    if d == 128:
+        row.update(_cluster_fields(dev, dtype, int8, b, h, hkv, s, cluster, p_tiles))
     if int8:
         row.update(library_note="no single PyTorch call attends over int8 rows with "
                                 "per-row scales", dequant_sdpa_ms=yard_ms)
@@ -560,7 +673,7 @@ def kernel_case_batched(name, seed, dev, dtype, h, hkv, s, t_reg, starts, layers
     return row
 
 
-def phase_kernel_batched(dev):
+def phase_kernel_batched(dev, cluster=None, light=False, p_tiles=None):
     """Table row 1c at the batched round's geometries, B = 4 at 7B width:
     the target verify over the 32-layer cache (slots at starts 301, 129,
     777, 1500 and layers 0, 5, 17, 31), the draft append and expansion over
@@ -572,7 +685,10 @@ def phase_kernel_batched(dev):
     int8 verify; the Qwen2.5-VL-7B engine's verify (groups of 7) over
     bf16 and int8 caches; Mixtral's draft shapes; and ``trainer.getkacc``'s
     rollout at 7B widths: B = 16, S = 1 over a 519-row float32 draft
-    cache."""
+    cache.  At ``cluster`` and build ``p_tiles`` (None: the host's pick);
+    ``light`` times the kernel alone (the sweep)."""
+    case = functools.partial(kernel_case_batched, cluster=cluster, light=light,
+                             p_tiles=p_tiles)
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(2)
     b, starts, layers = 4, (301, 129, 777, 1500), (0, 5, 17, 31)
@@ -589,58 +705,58 @@ def phase_kernel_batched(dev):
     tree, expand, tri, ones = (t.to(dev).contiguous() for t in (tree, expand, tri, ones))
     bf16, f32 = torch.bfloat16, torch.float32
     rows = [
-        kernel_case_batched("batched_target_verify", 20, dev, bf16, 32, 32, 30, 30, starts,
+        case("batched_target_verify", 20, dev, bf16, 32, 32, 30, 30, starts,
                             layers, tree, flush),
-        kernel_case_batched("batched_draft_append", 21, dev, bf16, 32, 32, 5, 5, starts,
+        case("batched_draft_append", 21, dev, bf16, 32, 32, 5, 5, starts,
                             None, tri, flush),
-        kernel_case_batched("batched_draft_expand", 22, dev, bf16, 32, 32, 8, 24, starts,
+        case("batched_draft_expand", 22, dev, bf16, 32, 32, 8, 24, starts,
                             None, expand, flush),
-        kernel_case_batched("batched_gqa_groups4", 23, dev, bf16, 32, 8, 30, 30, starts,
+        case("batched_gqa_groups4", 23, dev, bf16, 32, 8, 30, 30, starts,
                             layers, tree, flush),
-        kernel_case_batched("batched_target_verify_f32", 24, dev, f32, 32, 32, 30, 30,
+        case("batched_target_verify_f32", 24, dev, f32, 32, 32, 30, 30,
                             starts, layers, tree, flush),
         # ragged: a region that ends at max_len, a slot with no committed
         # prefix, a region ending one column into a chunk, a short slot
-        kernel_case_batched("batched_ragged_starts", 27, dev, bf16, 32, 32, 30, 30,
+        case("batched_ragged_starts", 27, dev, bf16, 32, 32, 30, 30,
                             (2048 - 30, 0, 5 * 64 + 1 - 30, 77), layers, tree, flush),
-        kernel_case_batched("batched_llava_verify_4096", 29, dev, bf16, 32, 32, 30, 30,
+        case("batched_llava_verify_4096", 29, dev, bf16, 32, 32, 30, 30,
                             llava_starts, layers, tree, flush, max_len=4096),
-        kernel_case_batched("batched_llava_draft_expand_4096", 30, dev, bf16, 32, 32, 8, 24,
+        case("batched_llava_draft_expand_4096", 30, dev, bf16, 32, 32, 8, 24,
                             llava_starts, None, expand, flush, max_len=4096),
         # the Qwen2.5-VL-7B engine: groups of 7 over the 28-layer cache, two
         # image slots (1,381 and 339 rows), a long and a short text slot
-        kernel_case_batched("qwen_batched_verify", 43, dev, bf16, 28, 4, 30, 30,
+        case("qwen_batched_verify", 43, dev, bf16, 28, 4, 30, 30,
                             (1381, 339, 1100, 104), (0, 9, 17, 27), tree, flush,
                             n_layers=28, max_len=4096),
         # the Mixtral-8x7B engine (batched_gqa_groups4 holds its verify): the
         # draft's append and expansion at 32 over 8; mixtral_exact's float32
         # B = 2 engine over its 2-layer cache
-        kernel_case_batched("mixtral_batched_draft_append", 66, dev, bf16, 32, 8, 5, 5,
+        case("mixtral_batched_draft_append", 66, dev, bf16, 32, 8, 5, 5,
                             starts, None, tri, flush),
-        kernel_case_batched("mixtral_batched_draft_expand", 67, dev, bf16, 32, 8, 8, 24,
+        case("mixtral_batched_draft_expand", 67, dev, bf16, 32, 8, 8, 24,
                             starts, None, expand, flush),
-        kernel_case_batched("mixtral_batched_verify_f32", 68, dev, f32, 32, 8, 30, 30,
+        case("mixtral_batched_verify_f32", 68, dev, f32, 32, 8, 30, 30,
                             starts, (0, 1, 1, 0), tree, flush, n_layers=2),
         # getkacc's batched rollout at 7B widths (train_full_width): 16
         # prefixes, one query row each, over the float32 draft cache of
         # 512 + 5 + 2 rows (starts in the sample's generated half)
-        kernel_case_batched("batched_getkacc_f32_b16", 70, dev, f32, 32, 32, 1, 1,
+        case("batched_getkacc_f32_b16", 70, dev, f32, 32, 32, 1, 1,
                             KACC_STARTS, None, ones16.to(dev), flush, max_len=519),
     ]
     rows_int8 = [
-        kernel_case_batched("batched_target_verify_int8", 25, dev, bf16, 32, 32, 30, 30,
+        case("batched_target_verify_int8", 25, dev, bf16, 32, 32, 30, 30,
                             starts, layers, tree, flush, int8=True),
-        kernel_case_batched("batched_step_int8", 26, dev, bf16, 32, 32, 1, 1, starts,
+        case("batched_step_int8", 26, dev, bf16, 32, 32, 1, 1, starts,
                             layers, ones, flush, int8=True),
-        kernel_case_batched("batched_ragged_starts_int8", 28, dev, bf16, 32, 32, 30, 30,
+        case("batched_ragged_starts_int8", 28, dev, bf16, 32, 32, 30, 30,
                             (2048 - 30, 0, 5 * 64 + 1 - 30, 77), layers, tree, flush,
                             int8=True),
-        kernel_case_batched("batched_llava_verify_int8_4096", 31, dev, bf16, 32, 32, 30, 30,
+        case("batched_llava_verify_int8_4096", 31, dev, bf16, 32, 32, 30, 30,
                             llava_starts, layers, tree, flush, int8=True, max_len=4096),
-        kernel_case_batched("qwen_batched_verify_int8", 48, dev, bf16, 28, 4, 30, 30,
+        case("qwen_batched_verify_int8", 48, dev, bf16, 28, 4, 30, 30,
                             (1381, 339, 1100, 104), (0, 9, 17, 27), tree, flush, int8=True,
                             n_layers=28, max_len=4096),
-        kernel_case_batched("mixtral_batched_verify_int8", 69, dev, bf16, 32, 8, 30, 30,
+        case("mixtral_batched_verify_int8", 69, dev, bf16, 32, 8, 30, 30,
                             starts, (0, 5, 17, 23), tree, flush, int8=True, n_layers=24),
     ]
     return rows, rows_int8
@@ -727,9 +843,15 @@ chip_smoke.phase_kernel(dev)
 chip_smoke.phase_kernel_int8(dev)
 chip_smoke.phase_kernel_batched(dev)
 """,
-    # the 7B decode loop and the engine, training with getkacc, then the
-    # quantized decode loop and engine
+    # rows 1a, 1b and 1c at every cluster size, the kernel's time alone (the
+    # picker's rule comes from this sweep)
+    "--attention-sweep": """
+chip_smoke.phase_attention_sweep(dev)
+""",
+    # the 7B decode loop and the engine at all 32 layers, training with
+    # getkacc, then the quantized decode loop and engine
     "--end-to-end": """
+chip_smoke.DEPTH_LAYERS = 32
 model, prompt, row = chip_smoke.phase_full_width_depth(dev)
 chip_smoke.phase_serving_full_depth(dev, model)
 chip_smoke.phase_train_full_width(dev, model)
@@ -737,6 +859,25 @@ _, qmodel = chip_smoke.phase_quant_full_depth(dev, model, prompt, row)
 chip_smoke.phase_serving_quant_full_depth(dev, qmodel)
 """,
 }
+
+
+def phase_attention_sweep(dev):
+    """Rows 1a, 1b and 1c at each cluster size the kernel is built for, one
+    ``kernel_vs_plain`` line per row and size (a size whose shared memory
+    does not fit a shape says so), then the bf16-q-over-int8 rows in the
+    register build (clusters of 8), the kernel's time alone; then the
+    resident clusters of every build and row count."""
+    from vispec_tpu_torch.ops import verify_attention as va
+
+    for cluster in va.CLUSTERS:
+        phase_kernel(dev, cluster=cluster, light=True)
+        phase_kernel_int8(dev, cluster=cluster, light=True)
+        phase_kernel_batched(dev, cluster=cluster, light=True)
+    phase_kernel_int8(dev, cluster=va.VRANKS, light=True, p_tiles=False)
+    phase_kernel_batched(dev, cluster=va.VRANKS, light=True, p_tiles=False)
+    emit({"phase": "resident_clusters", "card": torch.cuda.get_device_name(0),
+          "table": [{"dtype": d, "int8": q8, "rows": rows, "p_tiles": pt, "resident": res}
+                    for (d, q8, rows, pt), res in sorted(RESIDENT_SEEN.items())]})
 
 
 def checkout_runs(mode, roots):
@@ -1037,14 +1178,14 @@ def _profile_once(fn):
 
 
 def phase_full_width_depth(dev):
-    """Vicuna-7B at all 32 layers in bfloat16, max_len 2048, SpecConfig()
+    """Vicuna-7B at DEPTH_LAYERS of its 32 layers in bfloat16, max_len 2048, SpecConfig()
     (30 tokens, depth 3, top-k 8): a 128-token prompt, 128 new tokens by spec
     and by AR.  Counts the kernel's launches on the main path against the
     expected count; spec/AR agreement is reported, not required (bf16 argmax
     near-ties differ between the batch-30 verify and the batch-1 AR step)."""
     from vispec_tpu_torch.ops import verify_attention as va
 
-    model = _full_width_model(dev, 32, torch.bfloat16, seed=0)
+    model = _full_width_model(dev, DEPTH_LAYERS, torch.bfloat16, seed=0)
     prompt = np.random.default_rng(0).integers(3, 32000, 128).tolist()
     model.specgenerate(prompt, max_new_tokens=8)  # warm-up: cuBLAS handles, caches
     model.ar_generate(prompt, max_new_tokens=8)
@@ -1195,15 +1336,15 @@ def _profile_engine_chunk(model, batch_size):
 
 
 def phase_serving_full_depth(dev, model):
-    """The continuous-batching engine at Vicuna-7B, 32 layers, bfloat16,
+    """The continuous-batching engine at Vicuna-7B, DEPTH_LAYERS layers, bfloat16,
     max_len 2048: ``ServingEngine(batch_size=4, pad_bucket=(128, 256, 512),
     chunk_rounds=8)`` serves 8 requests from seed 0 (prompts of 64-448
     tokens, caps of 64-128), so slots free and refill mid-flight.  The first
     ``SERIAL_REQUESTS`` of them through ``specgenerate`` one at a time give
     the serial rate and the agreeing prefix per request (reported: bf16
     argmax near-ties may differ between batch shapes).  Requires the batched-grid kernel (1c)
-    launched 36 times per dispatched round (32 target verifies, 1 draft
-    append, 3 expansion levels) and the single-request kernel (1a) 3 times
+    launched layers + 4 times per dispatched round (the target verifies, 1
+    draft append, 3 expansion levels) and the single-request kernel (1a) 3 times
     per prefill (its first tree's expansion)."""
     _warm_engine(model, dev)
     reqs = _serving_requests(8)
@@ -1229,8 +1370,9 @@ def phase_serving_full_depth(dev, model):
     for o, r in zip(outs, serial):
         n = min(len(o), len(r))
         agree.append(int(np.argmin(np.append(o[:n] == r[:n], False))))
-    want = {"1a": 3 * prefills, "1b": 0, "1c": 36 * rounds, "1c_int8": 0, "2": 0}
-    row = {"phase": "serving_full_depth", "layers": 32, "dtype": "bfloat16",
+    layers = model.tcfg.num_hidden_layers
+    want = {"1a": 3 * prefills, "1b": 0, "1c": (layers + 4) * rounds, "1c_int8": 0, "2": 0}
+    row = {"phase": "serving_full_depth", "layers": layers, "dtype": "bfloat16",
            "max_len": model.max_len, "batch_size": 4, "requests": len(reqs),
            "prompt_lens": [len(p) for p, _ in reqs], "caps": [c for _, c in reqs],
            "tokens": tokens, "wall_s": wall, "tok_per_s": tokens / wall,
@@ -1281,7 +1423,8 @@ def phase_serving_quant_full_depth(dev, qmodel):
             "1c_int8": qmodel.tcfg.num_hidden_layers * rounds,
             "2": per_round * rounds + (1 + depth * per_level) * prefills}
     tokens = sum(len(o) for o in outs)
-    row = {"phase": "serving_quant_full_depth", "layers": 32, "dtype": "bfloat16",
+    row = {"phase": "serving_quant_full_depth", "layers": qmodel.tcfg.num_hidden_layers,
+           "dtype": "bfloat16",
            "kv": "int8", "draft": "int4", "target": "int8", "batch_size": 4,
            "requests": len(reqs), "prompt_lens": [len(p) for p, _ in reqs],
            "tokens": tokens, "wall_s": wall, "tok_per_s": tokens / wall,
@@ -1318,11 +1461,11 @@ def phase_serving_quant_full_depth(dev, qmodel):
 
 
 def phase_quant_full_depth(dev, model, prompt, bf16_row):
-    """The quantized serving mode at all 32 layers in bfloat16: the previous
+    """The quantized serving mode at DEPTH_LAYERS layers in bfloat16: the previous
     phase's model, its draft quantized to int4 (with an int4 ranking head)
     and then its target to int8 in place, over an int8 KV cache.  Same
     prompt and budgets.  Counts each kernel's launches on this path against
-    the count the code gives: per spec round, 32 int8-KV verifies, 4 draft
+    the count the code gives: per spec round, an int8-KV verify a layer, 4 draft
     attentions over the bf16 draft cache (1 append + 3 expansion levels)
     and 40 int4 products (append: 2 fuse + 7 layer; expansion: 1 root
     ranking + 3 x (2 fuse + 7 layer + 1 ranking)); at prefill, 3 draft
@@ -1552,13 +1695,13 @@ def phase_llava_exact(dev):
 
 def phase_llava_full_depth(dev, models):
     """LLaVA-1.5 (one 336x336 image, 576 image tokens) and LLaVA-1.6 (one
-    480x640 image, 2,340 tokens; one 672x672 image, 2,928) at all 32 layers
+    480x640 image, 2,340 tokens; one 672x672 image, 2,928) at DEPTH_LAYERS layers
     in bfloat16, max_len 4096, IMAGE_DEPTH_TOKENS new tokens by spec and by
     AR.  Per image: the vision encode and the prefill (merge, plan, target
     and draft prefill, first tree), each the median (and range) of
     IMAGE_TIMED_CALLS calls timed by
     CUDA events after a warm-up, decode tok/s, kernel 1a's launches against
-    the text path's count (36 per dispatched round, 3 at prefill; 32 per AR
+    the text path's count (layers + 4 per dispatched round, 3 at prefill; layers per AR
     step) and peak memory; then the encode and the prefill under
     torch.profiler (``profile_llava_encode``, ``profile_llava_prefill``:
     device-busy ms and the idle share of one call).
@@ -1641,7 +1784,7 @@ def phase_llava_full_depth(dev, models):
 
 
 def phase_serving_vision_full_depth(dev, model):
-    """The engine over the 32-layer bfloat16 LLaVA-1.5 model: B = 4,
+    """The engine over the DEPTH_LAYERS-layer bfloat16 LLaVA-1.5 model: B = 4,
     ``max_span=576`` (one 336x336 image's span), pad buckets (128, 256, 512,
     768), 8 requests of which 4 carry a 336x336 image (cap 64) and 4 are
     text (seed 0: prompts of 64-448, caps of 64-128).  All complete;
@@ -1924,7 +2067,7 @@ QWEN_PROMPTS = (("448x448", dict(images=[(448, 448)])),
 
 
 def phase_qwen_full_depth(dev, model):
-    """Qwen2.5-VL-7B at all 28 target layers and the 32-block tower in
+    """Qwen2.5-VL-7B at DEPTH_LAYERS of its 28 target layers and the 32-block tower in
     bfloat16, max_len 4096, IMAGE_DEPTH_TOKENS new tokens by spec and by AR after each of
     four prompts (~63 text tokens each): a 448x448 image (256 image
     tokens, 1,024 patches in 16 windows), an 896x1120 image (1,280 tokens,
@@ -1933,8 +2076,8 @@ def phase_qwen_full_depth(dev, model):
     and the prefill (encode, merge, M-RoPE ids, plan, target and draft
     prefill, first tree), each the median (and range) of IMAGE_TIMED_CALLS
     calls timed by CUDA events after a warm-up; decode tok/s; kernel 1a's launches (3 +
-    32 per dispatched spec round: 28 target verifies, the draft append, 3
-    expansion levels; 28 per AR step); peak memory; then the encode and
+    layers + 4 per dispatched spec round: the target verifies, the draft append, 3
+    expansion levels; layers per AR step); peak memory; then the encode and
     the prefill under torch.profiler.  spec/AR agreement is reported, not
     required (bf16)."""
     from vispec_tpu_torch.ops import kv_cache as kv
@@ -2411,13 +2554,13 @@ def _accept_step_ms(dev, sampling_params, b=None):
 
 
 def phase_sampling_full_depth(dev, model, prompt):
-    """Vicuna-7B at 32 layers in bfloat16 (the ``full_width_depth`` model),
+    """Vicuna-7B at DEPTH_LAYERS layers in bfloat16 (the ``full_width_depth`` model),
     ``DEPTH_TOKENS`` new tokens after its 128-token prompt, three runs each (median and
     range of tok/s): ViSpec spec at T 1 / top-p 0.9 and AR at T 1 (seeds
     0-2); Medusa spec (random heads from a seed) and EAGLE-2 spec (a random
-    ``vision=False`` draft) at T 0.  Gates: kernel 1a launched 36 times a
-    sampled ViSpec round + 3 at prefill, 32 a Medusa round (none at
-    prefill), 36 an EAGLE-2 round + 3, 32 a sampled AR step; a sampled round
+    ``vision=False`` draft) at T 0.  Gates: kernel 1a launched layers + 4
+    times a sampled ViSpec round + 3 at prefill, layers a Medusa round (none
+    at prefill), layers + 4 an EAGLE-2 round + 3, layers a sampled AR step; a sampled round
     and a Medusa round make no host read.  Reports the acceptance step's
     device-and-issue ms greedy against sampled (single request and B = 4),
     one profiled ``PROFILE_TOKENS``-token sampled run (launches a round, 1a apart; idle
@@ -2495,12 +2638,12 @@ def phase_sampling_full_depth(dev, model, prompt):
 
 
 def phase_serving_sampling_full_depth(dev, model, med):
-    """The engine at Vicuna-7B, 32 layers, bfloat16: ``ServingEngine(
+    """The engine at Vicuna-7B, DEPTH_LAYERS layers, bfloat16: ``ServingEngine(
     batch_size=4, per_request_sampling=True, top_k=50)`` over the 8
     ``serving_full_depth`` requests, their knobs cycling through greedy /
     T 1 / T 1 with penalty 1.3 / T 0.7 with top-p 0.9 / T 1 with top_k 20;
-    then the Medusa engine (greedy) over the same 8.  Gates: kernel 1c 36
-    launches a round (Medusa 32), 1a 3 a prefill (Medusa none), no failed
+    then the Medusa engine (greedy) over the same 8.  Gates: kernel 1c layers
+    + 4 launches a round (Medusa layers), 1a 3 a prefill (Medusa none), no failed
     request, every request complete."""
     knobs = SAMPLING_MIX + [{"temperature": 1.0, "top_k": 20}]
     base = _serving_requests(8)
@@ -2559,9 +2702,9 @@ MIXTRAL_DRAFT = {k: MIXTRAL[k] for k in ("vocab_size", "hidden_size", "intermedi
                                          "num_attention_heads", "num_key_value_heads",
                                          "max_position_embeddings", "rms_norm_eps",
                                          "rope_theta")}
-# 24 of 32 layers in bfloat16: ~70 GB of weights, the most one 80 GB card
-# holds beside the caches and the draft
-MIXTRAL_LAYERS = 24
+# at most 24 of 32 layers in bfloat16 (~70 GB of weights) fit one 80 GB
+# card beside the caches and the draft
+MIXTRAL_LAYERS = DEPTH_LAYERS
 # lmsys/vicuna-7b-v1.5's config.json at 2 layers (from_pretrained_device)
 VICUNA_HF = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
              "vocab_size": 32000, "hidden_size": 4096, "intermediate_size": 11008,
@@ -2872,12 +3015,12 @@ def phase_from_pretrained_device(dev):
 
 
 def phase_mixtral_full_depth(dev):
-    """Mixtral-8x7B at 24 of its 32 layers in bfloat16 (8 experts, dense
+    """Mixtral-8x7B at MIXTRAL_LAYERS of its 32 layers in bfloat16 (8 experts, dense
     over experts as in the JAX package), its draft at the same widths,
     max_len 2048: a 128-token prompt, ``DEPTH_TOKENS`` new tokens by spec and by AR,
     three runs each (median and range of tok/s); kernel 1a's launches
-    (3 + 28 per dispatched spec round: 24 target verifies, the draft
-    append, 3 expansion levels; 24 per AR step); peak memory; then one
+    (3 + layers + 4 per dispatched spec round: the target verifies, the
+    draft append, 3 expansion levels; layers per AR step); peak memory; then one
     ``PROFILE_TOKENS``-token spec run under torch.profiler (device busy ms, idle share)."""
     model = _mixtral_model(dev, MIXTRAL_LAYERS, torch.bfloat16, seed=0)
     prompt = np.random.default_rng(0).integers(3, 32000, 128).tolist()
@@ -2964,7 +3107,7 @@ def phase_serving_mixtral_full_depth(dev, model):
 
 
 def phase_snapshot_full_depth(dev, model):
-    """Vicuna-7B at 32 layers in bfloat16: a 1,024-token turn and 128 new
+    """Vicuna-7B at DEPTH_LAYERS layers in bfloat16: a 1,024-token turn and 128 new
     tokens kept as a snapshot, then a 64-token turn.  The continuation
     prefill (the snapshot's rows copied in, the suffix through the target,
     the draft's boundary row) against the full prefill of the whole
@@ -3150,7 +3293,7 @@ def phase_eval_exact(dev):
 
 
 def phase_eval_full_depth(dev, model, serving_row):
-    """The harness at Vicuna-7B, 32 layers, bfloat16 (the
+    """The harness at Vicuna-7B, DEPTH_LAYERS layers, bfloat16 (the
     ``full_width_depth`` model): ``run_eval`` spec and baseline over the
     first ``EVAL_QUESTIONS`` MT-bench questions, both turns,
     ``EVAL_TOKENS`` new tokens a turn; tok/s of each
@@ -3173,7 +3316,8 @@ def phase_eval_full_depth(dev, model, serving_row):
             a, b = a.split(), b.split()
             n = min(len(a), len(b))
             agree.append(int(np.argmin(np.append(np.array(a[:n]) == np.array(b[:n]), False))))
-    row = {"phase": "eval_full_depth", "layers": 32, "dtype": "bfloat16",
+    row = {"phase": "eval_full_depth", "layers": model.tcfg.num_hidden_layers,
+           "dtype": "bfloat16",
            "questions": len(qs), "turns": turns, "max_new_tokens": EVAL_TOKENS, **rep,
            "new_tokens_spec": [r["new_tokens"] for r in recs["spec"]],
            "new_tokens_baseline": [r["new_tokens"] for r in recs["baseline"]],
@@ -3192,12 +3336,14 @@ def phase_eval_full_depth(dev, model, serving_row):
     arr = bench_batch.arrival_bench(model, 4, ARRIVAL_TOKENS, rate, 8, seed=0, vocab=32000)
     launches = _launch_counts()
     toks = arr.pop("tokens")
-    row = {"phase": "arrival_full_depth", "layers": 32, "dtype": "bfloat16",
+    per_round = model.tcfg.num_hidden_layers + 1 + model.spec.depth
+    row = {"phase": "arrival_full_depth", "layers": model.tcfg.num_hidden_layers,
+           "dtype": "bfloat16",
            "saturated_tok_per_s": serving_row["tok_per_s"], **arr,
            "request_tokens": [len(t) for t in toks], "launches_1c": launches["1c"]}
     row["ok"] = (all(len(t) == ARRIVAL_TOKENS or (t and t[-1] == model.eos_token_id)
                      for t in toks)
-                 and launches["1c"] > 0 and launches["1c"] % 36 == 0)
+                 and launches["1c"] > 0 and launches["1c"] % per_round == 0)
     emit(row)
     assert row["ok"], row
 
@@ -3360,10 +3506,10 @@ def phase_train_exact(dev):
 
 
 def phase_train_full_width(dev, model):
-    """Training at Vicuna-7B width.  ``generate_sample`` with the 32-layer
-    bfloat16 target (the ``full_width_depth`` model) builds one sample: a
-    256-token MT-bench prompt and 256 generated tokens (kernel 1a at 32
-    launches a step).  Then 10 ``train_step``s of a draft at the 7B's widths
+    """Training at Vicuna-7B width.  ``generate_sample`` with the
+    DEPTH_LAYERS-layer bfloat16 target (the ``full_width_depth`` model)
+    builds one sample: a 256-token MT-bench prompt and 256 generated tokens
+    (kernel 1a at a launch a layer a step).  Then 10 ``train_step``s of a draft at the 7B's widths
     (float32 master weights, ``bf16=True``, bs 1, mtp_steps 2, max_len 512,
     lr 1e-5 without warm-up) on that one sample: median step ms, peak
     memory, and the loss falling from the first step to the last.  Then
@@ -3467,7 +3613,7 @@ def phase_train_full_width(dev, model):
 
 
 def phase_train_vlm_data_gen(dev, models):
-    """Image-conditioned training data at LLaVA-1.5-7B (32 layers bfloat16,
+    """Image-conditioned training data at LLaVA-1.5-7B (DEPTH_LAYERS layers bfloat16,
     the ``llava_full_depth`` model): ``generate_vlm_sample`` with one
     336x336 image (576 image tokens) and 64 generated tokens, then one
     ``train_step`` (float32 master, ``bf16=True``, mtp_steps 2, no warm-up)
@@ -3662,13 +3808,14 @@ def _rank_full_run(model, prompt, tokens):
 
 
 def _rank_full(dev):
-    """One rank of the full-width world: Vicuna-7B at 32 layers in bfloat16
+    """One rank of the full-width world: Vicuna-7B at DEPTH_LAYERS layers in bfloat16
     over tp 2, then Mixtral-8x7B at PARALLEL_MIXTRAL_LAYERS layers over ep 2."""
     from vispec_tpu_torch.parallel import mesh as meshmod
 
     mesh = meshmod.make_mesh(tp=2, device="cuda")
     prompt = np.random.default_rng(0).integers(3, 32000, 128).tolist()
-    model = _staggered_shard(mesh, lambda: _full_width_model(dev, 32, torch.bfloat16, 0),
+    model = _staggered_shard(mesh, lambda: _full_width_model(dev, DEPTH_LAYERS,
+                                                             torch.bfloat16, 0),
                              False, False)
     out = {"mesh": mesh.describe(), "vicuna": _rank_full_run(model, prompt, PARALLEL_TOKENS)}
     del model
@@ -3696,7 +3843,7 @@ def parallel_rank(rank, world, init_file, job, out_path):
     result = {"exact": _rank_exact, "full": _rank_full, "train_exact": _rank_train_exact,
               "train_full": _rank_train_full,
               "serve_exact": lambda d: _rank_serve(d, 2, torch.float32),
-              "serve_full": lambda d: _rank_serve(d, 32, torch.bfloat16)}[job](dev)
+              "serve_full": lambda d: _rank_serve(d, DEPTH_LAYERS, torch.bfloat16)}[job](dev)
     with open(out_path, "w") as f:
         json.dump(result, f)
 
@@ -3836,7 +3983,7 @@ def _full_row(phase, layers, ranks, key, note):
 
 
 def phase_parallel_full_width():
-    """Vicuna-7B at 32 layers and Mixtral-8x7B at PARALLEL_MIXTRAL_LAYERS of
+    """Vicuna-7B at DEPTH_LAYERS of 32 layers and Mixtral-8x7B at PARALLEL_MIXTRAL_LAYERS of
     32 layers, bfloat16, over two ranks (sharing the card over gloo, or a
     card each over NCCL where there are enough): tok/s of spec and AR,
     kernel 1a's launches per round against the expected count, collectives
@@ -3846,7 +3993,7 @@ def phase_parallel_full_width():
     note = ("two ranks on one card over gloo: tok/s measure the cost of the "
             "collectives, not a speed-up" if "shared" in ranks[0]["mesh"] else
             "a card per rank over NCCL")
-    _full_row("parallel_full_width", 32, ranks, "vicuna", note)
+    _full_row("parallel_full_width", DEPTH_LAYERS, ranks, "vicuna", note)
     _full_row("parallel_mixtral_ep2_full_width", PARALLEL_MIXTRAL_LAYERS, ranks, "mixtral",
               note + f"; {PARALLEL_MIXTRAL_LAYERS} of Mixtral's 32 layers")
 
@@ -4239,15 +4386,15 @@ def phase_serving_parallel_exact(dev):
 
 
 def phase_serving_parallel_full_depth(dev):
-    """The same at full depth: Vicuna-7B at 32 layers in bfloat16, tp 2, plain
+    """The same at full width: Vicuna-7B at DEPTH_LAYERS layers in bfloat16, tp 2, plain
     and quantized.  Gates: the ranks agree token for token, and each round
-    launches what one device's round launches (1c 36; quantized: 1c over
-    the int8 cache 32, over the bf16 draft cache 4, kernel 2 40).  The
+    launches what one device's round launches (1c layers + 4; quantized: 1c
+    over the int8 cache layers, over the bf16 draft cache 4, kernel 2 40).  The
     tokens against the unsharded engine's are reported (agreeing prefix per
     request): the tp sums run in another order, and bf16 rounding turns a
     few of those differences into another argmax at a near-tie."""
-    rows, shapes = _serving_parallel(dev, "serving_parallel_full_depth", "serve_full", 32,
-                                     torch.bfloat16)
+    rows, shapes = _serving_parallel(dev, "serving_parallel_full_depth", "serve_full",
+                                     DEPTH_LAYERS, torch.bfloat16)
     for row in rows:
         # the rounds' kernels (prefills launch 1a and kernel 2 as well)
         rounds = ("1c", "1c_int8") if row["case"] != "plain" else ("1c",)
@@ -4468,14 +4615,14 @@ def main():
     del model, qmodel  # the 7B text weights, quantized in place, make room
     gc.collect()
     torch.cuda.empty_cache()
-    llava_models = _llava_models(dev, 32, torch.bfloat16, seed=0)
+    llava_models = _llava_models(dev, DEPTH_LAYERS, torch.bfloat16, seed=0)
     phase_llava_full_depth(dev, llava_models)
     phase_serving_vision_full_depth(dev, llava_models["llava-1.5"])
     phase_train_vlm_data_gen(dev, llava_models)
     del llava_models
     gc.collect()
     torch.cuda.empty_cache()
-    qwen = _qwen_model(dev, 28, torch.bfloat16, seed=0)
+    qwen = _qwen_model(dev, DEPTH_LAYERS, torch.bfloat16, seed=0)
     phase_qwen_full_depth(dev, qwen)
     phase_serving_qwen_full_depth(dev, qwen)
     del qwen

@@ -4,6 +4,9 @@ Every test here needs an NVIDIA GPU with nvcc and skips elsewhere.  The file
 imports neither jax nor the JAX package, so it runs where only PyTorch is
 installed (see README, "PyTorch + CUDA port")."""
 
+import functools
+from unittest import mock
+
 import pytest
 import torch
 
@@ -369,6 +372,117 @@ def test_verify_attention_mma_kernel_is_reproducible(cuda_device, dtype, int8):
     torch.cuda.synchronize()
     assert torch.equal(a, b) and torch.equal(c, d)
     assert torch.equal(c[0], a) and torch.equal(c[1], a)
+
+
+def _at_cluster(cluster, p_tiles=None):
+    """Attention calls inside run at clusters of ``cluster`` blocks and, bf16
+    q over int8, in the build ``p_tiles`` names (None: the P tiles), through
+    ``_launch``'s private keywords."""
+    return mock.patch.object(va, "_launch", functools.partial(va._launch, _cluster=cluster,
+                                                              _p_tiles=p_tiles))
+
+
+# (B (None: a single request), H, Hkv, S, T_reg, starts, slot layers of a
+# 2-layer cache (None: no layer dim), max_len): GQA with 4 groups (120 query
+# rows a kv head: two query tiles, the second of 56 rows), alone and at B =
+# 2 (over int8 the request alone takes the register build, the batch the P
+# tiles); B = 4 at ragged starts (a region ending at max_len, no committed
+# prefix, a region ending one column into a chunk, a short slot); the LLaVA
+# engine's starts at max_len 4096; getkacc's rollout (16 slots, one query
+# row each, 519 rows)
+CLUSTER_SHAPES = {
+    "single_gqa4": (None, 32, 8, 30, 30, (301,), (1,), 2048),
+    "batched_gqa4": (2, 32, 8, 30, 30, (301, 1500), (1, 0), 2048),
+    "batched_ragged": (4, 32, 32, 30, 30, (2048 - 30, 0, 5 * 64 + 1 - 30, 77), (0, 1, 1, 0),
+                       2048),
+    "batched_4096": (4, 32, 32, 30, 30, (604, 391, 604, 66), (0, 1, 1, 0), 4096),
+    "getkacc": (16, 32, 32, 1, 1, (518, 2, 300, 77, 511, 256, 130, 64, 65, 400, 450, 500,
+                                   3, 128, 190, 260), None, 519),
+}
+CLUSTER_PAIRS = [(torch.bfloat16, False), (torch.bfloat16, True), (torch.float32, False)]
+
+
+def _cluster_case(dev, dtype, int8, shape):
+    """Batched operands ``(q, k, v, starts, mask, layer, ks, vs)`` of a
+    CLUSTER_SHAPES entry (a single request: B = 1)."""
+    b, h, hkv, s, t_reg, starts, layers, max_len = shape
+    b = b or 1
+    g = torch.Generator(device=dev).manual_seed(len(starts) * max_len + s)
+    cache = (b, hkv, max_len, 128) if layers is None else (b, 2, hkv, max_len, 128)
+    q = torch.randn((b, h, s, 128), generator=g, device=dev, dtype=dtype)
+    k = torch.randn(cache, generator=g, device=dev, dtype=dtype)
+    v = torch.randn(cache, generator=g, device=dev, dtype=dtype)
+    ks = vs = None
+    if int8:
+        k, ks = kvc.quantize_rows(k)
+        v, vs = kvc.quantize_rows(v)
+    mask = torch.stack([_edge_mask(dev, s, t_reg, i) for i in range(b)])
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    layer = None if layers is None else torch.tensor(layers, dtype=torch.int32, device=dev)
+    return q, k, v, st, mask, layer, ks, vs
+
+
+def _slot(args, i):
+    return tuple(None if a is None else a[i] for a in args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(CLUSTER_SHAPES), ids=list(CLUSTER_SHAPES))
+@pytest.mark.parametrize("dtype,int8", CLUSTER_PAIRS, ids=["bf16", "bf16_int8", "f32"])
+def test_verify_attention_every_cluster_size_gives_the_bits_of_8(cuda_device, shape, dtype,
+                                                                 int8):
+    """The chunks' reduction order does not depend on the cluster: at every
+    size whose shared memory fits the shape, and over int8 in both builds,
+    the output equals the cluster of 8's bit for bit, and two runs at a size
+    agree bit for bit."""
+    dev = cuda_device
+    args = _cluster_case(dev, dtype, int8, CLUSTER_SHAPES[shape])
+    single = CLUSTER_SHAPES[shape][0] is None
+    b, h, s = args[0].shape[:3]
+    hkv = args[1].shape[-3]
+    resident = va.resident_clusters(dev, dtype, int8, (h // hkv) * s)
+    assert resident[8] > 0
+
+    def run(cluster, p_tiles=None):
+        with _at_cluster(cluster, p_tiles):
+            if single:
+                return va.verify_attention(*_slot(args, 0))
+            return va.verify_attention_batched(*args)
+
+    want = run(8)
+    builds = [(c, None) for c in va.CLUSTERS if resident[c] > 0]
+    if va.two_builds(dtype, int8):
+        builds.append((8, False))
+    for cluster, p_tiles in builds:
+        a, b = run(cluster, p_tiles), run(cluster, p_tiles)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), (cluster, p_tiles)
+        assert torch.equal(a, want), (cluster, p_tiles)
+    assert len(builds) >= 3, resident
+    ref = (va.verify_attention_ref(*_slot(args, 0)) if single else
+           va.verify_attention_batched_ref(*args))
+    assert (want.float() - ref.float()).abs().max().item() <= (
+        1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [n for n in CLUSTER_SHAPES if n != "single_gqa4"])
+@pytest.mark.parametrize("dtype,int8", CLUSTER_PAIRS, ids=["bf16", "bf16_int8", "f32"])
+def test_verify_attention_slot_at_the_picked_cluster_equals_the_request_alone(
+        cuda_device, shape, dtype, int8):
+    """Each slot of a batch, at the cluster size (and build) the host picks
+    for the batch, equals the same request alone at what it picks for one
+    request, bit for bit; the launch counts one call each."""
+    dev = cuda_device
+    args = _cluster_case(dev, dtype, int8, CLUSTER_SHAPES[shape])
+    counter = "launches_int8" if int8 else "launches"
+    before = getattr(va.verify_attention_batched, counter)
+    out = va.verify_attention_batched(*args)
+    assert getattr(va.verify_attention_batched, counter) == before + 1
+    for i in range(args[0].shape[0]):
+        one = va.verify_attention(*_slot(args, i))
+        torch.cuda.synchronize()
+        assert torch.equal(one, out[i]), i
 
 
 @pytest.mark.gpu

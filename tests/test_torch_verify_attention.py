@@ -136,6 +136,118 @@ def test_cpu_wrapper_runs_the_plain_version_without_a_launch():
     assert tva.verify_attention.launches == before
 
 
+# The clusters of each size the H100 80GB HBM3 holds at once, by (q dtype,
+# int8 cache, query rows of a kv head up to 64), from the occupancy query
+# (``resident_clusters``) as chip_smoke.py --attention-sweep printed it: a
+# size whose extra slots of shared memory cost blocks an SM holds fewer.
+H100_RESIDENT = {
+    ("bfloat16", False, 1): {8: 45, 4: 92, 2: 198, 1: 396},
+    ("bfloat16", False, 5): {8: 45, 4: 92, 2: 198, 1: 396},
+    ("bfloat16", False, 8): {8: 45, 4: 92, 2: 198, 1: 264},
+    ("bfloat16", False, 30): {8: 45, 4: 92, 2: 132, 1: 132},
+    ("bfloat16", False, 64): {8: 45, 4: 62, 2: 66, 1: 0},
+    ("bfloat16", True, 1): {8: 45, 4: 92, 2: 198, 1: 396},
+    ("bfloat16", True, 30): {8: 45, 4: 62, 2: 66, 1: 132},
+    ("float32", False, 1): {8: 30, 4: 62, 2: 132, 1: 264},
+    ("float32", False, 30): {8: 30, 4: 30, 2: 66, 1: 132},
+    ("float32", False, 64): {8: 30, 4: 30, 2: 66, 1: 0},
+}
+
+# (name, slots, kv heads, query rows of a kv head, q dtype, int8 cache,
+# cluster size): chip_smoke.py's attention rows and the size the sweep
+# found fastest or within a few per cent of it (PERF.md §6)
+PICKS = [
+    ("target_verify", 1, 32, 30, "bfloat16", False, 8),
+    ("ar_step", 1, 32, 1, "bfloat16", False, 8),
+    ("gqa_groups4", 1, 8, 120, "bfloat16", False, 8),
+    ("target_verify_f32", 1, 32, 30, "float32", False, 8),  # 2 waves of 30 clusters
+    ("target_verify_int8", 1, 32, 30, "bfloat16", True, 8),
+    ("batched_target_verify", 4, 32, 30, "bfloat16", False, 4),
+    ("batched_llava_verify_4096", 4, 32, 30, "bfloat16", False, 4),
+    ("batched_draft_append", 4, 32, 5, "bfloat16", False, 4),
+    ("batched_draft_expand", 4, 32, 8, "bfloat16", False, 4),
+    ("batched_gqa_groups4", 4, 8, 120, "bfloat16", False, 8),
+    ("batched_target_verify_f32", 4, 32, 30, "float32", False, 8),
+    ("mixtral_batched_verify_f32", 4, 8, 120, "float32", False, 8),
+    ("batched_target_verify_int8", 4, 32, 30, "bfloat16", True, 8),
+    ("batched_step_int8", 4, 32, 1, "bfloat16", True, 4),
+    ("batched_getkacc_f32_b16", 16, 32, 1, "float32", False, 1),
+    ("tp2_batched_getkacc_f32_b16", 16, 16, 1, "float32", False, 2),
+]
+
+
+def _resident(dtype, int8, gs):
+    return H100_RESIDENT[(dtype, int8, min(gs, tva.QTILE))]
+
+
+@pytest.mark.parametrize("name,nslots,hkv,gs,dtype,int8,want", PICKS,
+                         ids=[p[0] for p in PICKS])
+def test_cluster_picker_on_the_h100(name, nslots, hkv, gs, dtype, int8, want):
+    """The cluster size the host picks from a call's shapes and the card's
+    resident clusters, at each attention shape chip_smoke.py runs."""
+    assert tva.pick_cluster(nslots, hkv, gs, _resident(dtype, int8, gs)) == want
+
+
+@pytest.mark.parametrize("hkv,gs,dtype,int8", [(32, 30, "bfloat16", False),
+                                               (32, 30, "bfloat16", True),
+                                               (32, 30, "float32", False),
+                                               (32, 1, "float32", False)])
+def test_cluster_picker_keeps_its_size_while_the_grid_allows(hkv, gs, dtype, int8):
+    """Slot counts that change only B keep the pick while the grid still
+    fits the waves that chose it: the size changes only where a count of
+    slots crosses a wave of the size it had, and a larger batch never takes
+    a larger cluster."""
+    resident = _resident(dtype, int8, gs)
+    picks = [tva.pick_cluster(b, hkv, gs, resident) for b in range(1, 33)]
+    assert all(a >= b for a, b in zip(picks, picks[1:])), picks
+    for b in range(1, 32):
+        if picks[b] != picks[b - 1]:  # B = b + 1 leaves the waves of the old size
+            old = picks[b - 1]
+            assert -(-(b + 1) * hkv // resident[old]) > 2, (b + 1, picks)
+
+
+# bf16 q over int8 in its register build (p * v_scale packed inside P.V,
+# two blocks an SM): the clusters of 8 the H100 holds at once, at every row
+# count chip_smoke.py runs (the occupancy query, as its sweep printed it)
+H100_REGISTER8 = 30
+
+# (name, slots, kv heads, query rows of a kv head, register build): the
+# bf16-over-int8 rows of chip_smoke.py; the register build where one wave
+# holds the grid (Qwen2.5-VL's and the GQA requests, the tp 2 shard), the
+# P tiles elsewhere
+INT8_BUILDS = [
+    ("target_verify_int8", 1, 32, 30, False),
+    ("ar_step_int8", 1, 32, 1, False),
+    ("gqa_groups4_int8", 1, 8, 120, True),
+    ("qwen_target_verify_int8", 1, 4, 210, True),
+    ("qwen_ar_step_int8", 1, 4, 7, True),
+    ("mixtral_ar_step_int8", 1, 8, 4, True),
+    ("tp2_target_verify_int8", 1, 16, 30, True),
+    ("batched_target_verify_int8", 4, 32, 30, False),
+    ("qwen_batched_verify_int8", 4, 4, 210, False),
+    ("mixtral_batched_verify_int8", 4, 8, 120, False),
+]
+
+
+@pytest.mark.parametrize("name,nslots,hkv,gs,register", INT8_BUILDS,
+                         ids=[b[0] for b in INT8_BUILDS])
+def test_int8_build_choice_on_the_h100(name, nslots, hkv, gs, register):
+    """bf16 q over int8 takes its register build exactly where one wave of
+    its clusters of 8 holds the grid."""
+    assert tva.register_build_holds(nslots, hkv, gs, H100_REGISTER8) == register
+
+
+def test_cluster_picker_needs_no_device():
+    """The picker is a function of shapes and the resident table alone: the
+    same inputs give the same size on a machine without a card, and no
+    size's shared memory that does not fit is ever picked."""
+    for (dtype, int8, rows), resident in H100_RESIDENT.items():
+        for nslots in (1, 2, 4, 8, 16, 64):
+            c = tva.pick_cluster(nslots, 32, rows, resident)
+            assert c in tva.CLUSTERS and resident[c] > 0
+            assert c == tva.pick_cluster(nslots, 32, rows, dict(resident))
+
+
 # every test runs in the module's child pytest process (the JAX compiles
 # stay out of the suite's worker): tests/torch_parity.in_fresh_interpreter_module
 in_fresh_interpreter_module(globals())

@@ -33,18 +33,28 @@
 //   partial_kernel_mma  <T = bf16 or float q, TC = T or int8 cache, D = 128>:
 //     every model the port serves (Vicuna, LLaVA, Qwen2.5-VL and Mixtral all
 //     have head dim 128), rows 1a, 1b and 1c.  Tensor cores.
-//   - Grid and reduction.  One thread-block cluster per (slot x kv head, 64
-//     query rows), CLUSTER = 8 blocks (the portable size; 16 was measured
-//     slower) along grid.y.  Block r walks the live chunks r, r + 8, ...
-//     (the live end read from tree_start on the device: the host never reads
-//     it, and a block with no live chunk does no loads), keeping an online
-//     softmax (row max, row sum, unnormalised P.V) for its query rows in
-//     registers.  Then each block leaves its rows' (m, l, acc) in its own
-//     shared memory, the cluster syncs, and block r reduces its share of the rows over the cluster's
-//     blocks in rank order through distributed shared memory and writes the
-//     output in q's dtype.  No atomics and no partials in device memory: a
-//     run is reproducible bit for bit, and a slot of a batch equals the same
-//     request alone.
+//   - Grid and reduction.  The live 64-row chunks of a (slot x kv head, 64
+//     query rows) are split over VRANKS = 8 virtual ranks: rank v walks
+//     chunks v, v + 8, ... (the live end read from tree_start on the device:
+//     the host never reads it) with an online softmax (row max, row sum,
+//     unnormalised P.V) in registers, and leaves its rows' (acc, m, l) in a
+//     slot of shared memory.  A thread-block cluster of C = 8, 4, 2 or 1
+//     blocks along grid.y runs the 8 ranks, block b the ranks b, b + C, ...
+//     in turn, the prefetch running on from one rank's last chunk to the
+//     next rank's first (each rank after a block's first: a slot of rows x
+//     (D + 10) x 4 bytes more shared memory).  Then block b merges its share
+//     of the rows over the 8 ranks in rank order through distributed shared
+//     memory (a rank with no live chunk would weigh exactly 0 and is left
+//     out) and writes the output in q's dtype.  A rank's arithmetic and the
+//     merge are the same whatever C, so every C gives the same bits; no
+//     atomics and no partials in device memory: a run is reproducible bit
+//     for bit, and a slot of a batch equals the same request alone.  The
+//     host picks C from the call's shapes and the clusters of each size the
+//     card holds at once (ops/verify_attention.pick_cluster): 8 for one
+//     request, where a wave of clusters of 8 holds the grid; 4 for the B = 4
+//     bf16 rounds (128 clusters: 3 waves of 8, 2 of 4); 8 again for B = 4 over
+//     int8 or in float32, where smaller clusters' slots cost blocks an SM;
+//     1 for getkacc's 16 one-row slots (512 clusters).
 //   - Staging.  The chunk's K and V rows go by 16-byte cp.async into a K and
 //     a V tile, each a cp.async group: the next chunk's K lands while this
 //     chunk's P.V runs, its V while the next q.k runs.  Rows are padded
@@ -62,7 +72,20 @@
 //     the raw rows converted to a bf16 tile in shared memory (exact: |x| <=
 //     127), the key scale multiplying each score column with D^-0.5, the row
 //     sum taken before the value scale, as JAX does, and p * v_scale (f32)
-//     split into bf16 hi + lo, P.V run twice (hi.V + lo.V).
+//     split into bf16 hi + lo, P.V run twice (hi.V + lo.V).  Two builds
+//     (PT): with the P tiles the value scales land with K, and hi and lo go
+//     to the warp's two P tiles in shared memory right after the softmax
+//     and come back by ldmatrix.x4 for P.V: no score or p register is live
+//     while V is converted, the int8 k-steps are not unrolled, and the
+//     build fits three blocks an SM (168 registers, no spill).  The
+//     register build packs hi and lo inside P.V as each k-step comes, where
+//     the packing overlaps the tensor cores, in 180-200 registers and two
+//     blocks an SM.  The host takes the register build, at a cluster of 8,
+//     where one wave of it holds the grid (a block then has its SM to
+//     itself and the P tiles' separate pack only lengthens each chunk), and
+//     the P tiles everywhere else.  Both round x = p * v_scale to f32
+//     first (__fmul_rn) and run the same products in the same order, so
+//     they give the same bits.
 //   - float32 q: mma.sync.m16n8k8 in tf32, 3xTF32: each operand x split into
 //     hi = tf32(x) and lo = tf32(x - hi), hi.hi + hi.lo + lo.hi summed in f32,
 //     which keeps float32's accuracy (one tf32 product keeps about three
@@ -79,8 +102,12 @@
 //     the chunk's K and V widened to f32 and writes the chunk's (row max,
 //     row sum, P.V) to float32 scratch; combine_kernel merges them per row.
 //
-// No TMA or wgmma: a head has 30 query rows at the verify and wgmma's tile
-// has 64; m16n8k16 fits them in two tiles.
+// No TMA or wgmma: a kv head has 30 query rows at the verify (1 at an AR
+// step, 1 a slot in getkacc) where wgmma's tile has 64, and m16n8k16 fits
+// them in two tiles; the time is set by each block's chain of chunk loads
+// (one chunk of cp.async ahead) and, on batched grids, by waves of clusters,
+// not by the tensor cores' rate.  TMA would take the 16-byte copies off the
+// threads; it is untried.
 //
 // Batched grid (row 1c): the slot is folded into grid.x (slot * Hkv + kv
 // head), so one launch serves the whole batch and the grid grows with B,
@@ -318,19 +345,27 @@ __global__ void __launch_bounds__(THREADS) partial_kernel(
 
 constexpr int QTILE = 16 * WARPS;  // query rows a block: one 16-row tile a warp
 constexpr int PAD = 8;             // bf16 of padding per shared bf16 row (16 bytes)
-constexpr int CLUSTER = 8;         // blocks of a cluster along the chunks (portable size)
+// Virtual ranks of a (slot x kv head, query tile): rank v walks the live
+// chunks v, v + VRANKS, ... and the ranks are merged in rank order, whatever
+// the cluster that runs them
+constexpr int VRANKS = 8;
 
-// Shared memory of partial_kernel_mma<T, TC, D>, in bytes: a K tile and a V
-// tile of the cache as staged (bf16 rows of D + 8, f32 rows of D + 4, raw
+// Shared memory of partial_kernel_mma<T, TC, D, C, PT>, in bytes: a K tile and a
+// V tile of the cache as staged (bf16 rows of D + 8, f32 rows of D + 4, raw
 // int8 rows of D (bf16 q: converted into a bf16 tile) or D + 16 bytes (f32 q:
 // read in place)), the bf16 conversion tile (bf16 q over int8 only), the q
-// tile, and an int8 cache's key and value scales of the chunk.  After a
-// pass's chunks the same bytes hold the block's (acc, m, l) of every query
-// row for the cluster's reduction.
-template <typename T, typename TC, int D>
+// tile, an int8 cache's key and value scales of the chunk, and (bf16 q over
+// int8 with PT) each warp's p * v_scale as a bf16 hi tile and lo tile.  A virtual
+// rank leaves its (acc, m, l) of the block's query rows in a slot: the
+// block's last rank in the staged bytes once its chunks are done, each
+// earlier one (VRANKS / C - 1 of them) in a slot of its own after them.
+template <typename T, typename TC, int D, bool PT>
 struct MmaLayout {
   static constexpr bool F32 = std::is_same<T, float>::value;
   static constexpr bool QUANT = std::is_same<TC, int8_t>::value;
+  // bf16 q over int8: p * v_scale through the warps' P tiles (PT), or packed
+  // in registers inside P.V
+  static constexpr bool PTILES = QUANT && !F32 && PT;
   static constexpr int LDQ = F32 ? D + 4 : D + PAD;                       // T a q row
   static constexpr int LDC = QUANT ? (F32 ? D + 16 : D) : (F32 ? D + 4 : D + PAD);  // TC
   static constexpr int LDA = D + 8;                                       // f32 an acc row
@@ -339,15 +374,25 @@ struct MmaLayout {
   static constexpr size_t CONV_BYTES = QUANT && !F32 ? TILE * (D + PAD) * 2 : 0;
   static constexpr size_t Q = CONV + CONV_BYTES;
   static constexpr size_t SCALES = Q + (size_t)QTILE * LDQ * sizeof(T);
-  static constexpr size_t STAGED = SCALES + (QUANT ? 2 * TILE * sizeof(float) : 0);
-  static constexpr size_t PARTIAL = (size_t)(QTILE * LDA + 2 * QTILE) * sizeof(float);
-  static constexpr size_t BYTES = STAGED > PARTIAL ? STAGED : PARTIAL;
+  static constexpr int LDP = TILE + PAD;  // bf16 a row of a warp's P tile
+  static constexpr size_t PTILE = SCALES + (QUANT ? 2 * TILE * sizeof(float) : 0);
+  static constexpr size_t BYTES = PTILE + (PTILES ? (size_t)WARPS * 2 * 16 * LDP * 2 : 0);
+  // a virtual rank's slot for ``rows`` query rows: acc [rows][LDA], then the
+  // row maxima [rows] and row sums [rows]
+  static __host__ __device__ constexpr size_t slot_bytes(int rows) {
+    return ((size_t)rows * (LDA + 2) * sizeof(float) + 15) / 16 * 16;
+  }
+  static constexpr size_t bytes(int cluster, int rows) {
+    return BYTES + (size_t)(VRANKS / cluster - 1) * slot_bytes(rows);
+  }
   // blocks an SM the registers must allow: three for bf16 q over a bf16
-  // cache (168 registers, no spill); one otherwise, so that ptxas keeps the
-  // accumulators, scores and split fragments in registers (capped at 168,
-  // the int8 instantiation spills and the f32 one stops at 168 by itself
-  // and spills)
-  static constexpr int MIN_BLOCKS = F32 ? 1 : (QUANT ? 1 : 3);
+  // cache and over an int8 one through the P tiles (168 registers, no
+  // spill); one for bf16 q over int8 packing p * v_scale in registers (its
+  // hi and lo live through V's conversion: 180-200 registers, two blocks an
+  // SM; capped at 168 it spills) and for float32 q, so that ptxas keeps the
+  // accumulators, scores and split fragments in registers (185-187, 244-246
+  // over int8; capped at 168 it spills)
+  static constexpr int MIN_BLOCKS = F32 || (QUANT && !PTILES) ? 1 : 3;
   static_assert(TILE_BYTES % 16 == 0 && CONV_BYTES % 16 == 0 && SCALES % 16 == 0,
                 "16-byte aligned tiles");
 };
@@ -462,31 +507,35 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src, int valid,
 }
 
 // Convert TILE raw int8 rows of D (the first ``valid`` real, the rest zero)
-// to bf16 rows of D + PAD.  Every thread reads its 16-byte vectors first and
-// then writes them widened, 32 bytes each.
-template <int D>
+// to bf16 rows of D + PAD.  Every thread reads STEP of its 16-byte vectors,
+// then writes them widened, 32 bytes each, and so on (a small STEP holds
+// few registers while the P.V state is live).
+template <int D, int STEP>
 __device__ __forceinline__ void convert_i8(const int8_t* src, int valid, __nv_bfloat16* dst) {
   constexpr int VPR = D / 16;
   constexpr int ITER = TILE * VPR / THREADS;
-  static_assert(TILE * VPR % THREADS == 0, "whole vectors a thread");
-  uint4 w[ITER];
+  static_assert(TILE * VPR % THREADS == 0 && ITER % STEP == 0, "whole vectors a thread");
 #pragma unroll
-  for (int it = 0; it < ITER; ++it) {
-    const int i = threadIdx.x + it * THREADS;
-    w[it] = i / VPR < valid ? *reinterpret_cast<const uint4*>(src + i * 16)
-                            : make_uint4(0u, 0u, 0u, 0u);
-  }
+  for (int it0 = 0; it0 < ITER; it0 += STEP) {
+    uint4 w[STEP];
 #pragma unroll
-  for (int it = 0; it < ITER; ++it) {
-    const int i = threadIdx.x + it * THREADS;
-    uint4 out[2];
-    i8x4_to_bf16(w[it].x, out[0].x, out[0].y);
-    i8x4_to_bf16(w[it].y, out[0].z, out[0].w);
-    i8x4_to_bf16(w[it].z, out[1].x, out[1].y);
-    i8x4_to_bf16(w[it].w, out[1].z, out[1].w);
-    uint4* d = reinterpret_cast<uint4*>(dst + (i / VPR) * (D + PAD) + (i % VPR) * 16);
-    d[0] = out[0];
-    d[1] = out[1];
+    for (int u = 0; u < STEP; ++u) {
+      const int i = threadIdx.x + (it0 + u) * THREADS;
+      w[u] = i / VPR < valid ? *reinterpret_cast<const uint4*>(src + i * 16)
+                             : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < STEP; ++u) {
+      const int i = threadIdx.x + (it0 + u) * THREADS;
+      uint4 out[2];
+      i8x4_to_bf16(w[u].x, out[0].x, out[0].y);
+      i8x4_to_bf16(w[u].y, out[0].z, out[0].w);
+      i8x4_to_bf16(w[u].z, out[1].x, out[1].y);
+      i8x4_to_bf16(w[u].w, out[1].z, out[1].w);
+      uint4* d = reinterpret_cast<uint4*>(dst + (i / VPR) * (D + PAD) + (i % VPR) * 16);
+      d[0] = out[0];
+      d[1] = out[1];
+    }
   }
 }
 
@@ -498,16 +547,20 @@ __device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 x) {
   *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
 }
 
-// One cluster of blocks per (slot x kv head, tile of 64 query rows) along
-// the chunk axis (grid.y = CLUSTER, grid.z = the row tiles); block r
-// walks the live chunks r, r + CLUSTER, ...  with an online softmax in
-// registers, then the cluster reduces the blocks' rows in rank order through
-// distributed shared memory and writes the output.  Each warp owns a tile
-// of 16 query rows.  T is q's and the output's type (bf16 or float), TC the
-// cache's (T, or int8_t with per-row scales).
-template <typename T, typename TC, int D>
-__global__ void __cluster_dims__(1, CLUSTER, 1)
-__launch_bounds__(THREADS, (MmaLayout<T, TC, D>::MIN_BLOCKS)) partial_kernel_mma(
+// One cluster of C blocks per (slot x kv head, tile of 64 query rows) along
+// the chunk axis (grid.y = C, grid.z = the row tiles).  Block b runs the
+// virtual ranks b, b + C, ... in turn; rank v walks the live chunks v, v +
+// VRANKS, ... with an online softmax in registers and leaves its rows in a
+// slot of shared memory; then the cluster merges the VRANKS ranks in rank
+// order through distributed shared memory and writes the output.  A rank's
+// arithmetic and the merge do not depend on C, so the output is the same
+// bits for every C.  Each warp owns a tile of 16 query rows.  T is q's and
+// the output's type (bf16 or float), TC the cache's (T, or int8_t with
+// per-row scales); PT (bf16 q over int8 only): p * v_scale through the
+// warps' P tiles rather than packed in registers inside P.V.
+template <typename T, typename TC, int D, int C, bool PT>
+__global__ void __launch_bounds__(THREADS, (MmaLayout<T, TC, D, PT>::MIN_BLOCKS))
+partial_kernel_mma(
     const T* __restrict__ q,              // [B * Hkv, GS, D]
     const TC* __restrict__ k,             // per slot [L?, Hkv, max_len, D]
     const TC* __restrict__ v,
@@ -520,19 +573,22 @@ __launch_bounds__(THREADS, (MmaLayout<T, TC, D>::MIN_BLOCKS)) partial_kernel_mma
     int hkv, int gs, int s_len, int t_reg, int max_len, long long layer_stride,
     long long scale_layer_stride, long long slot_stride, long long scale_slot_stride,
     long long mask_slot_stride, float scale) {
-  using L = MmaLayout<T, TC, D>;
-  constexpr bool F32 = L::F32, QUANT = L::QUANT;
+  using L = MmaLayout<T, TC, D, PT>;
+  constexpr bool F32 = L::F32, QUANT = L::QUANT, PTILES = L::PTILES;
   static_assert(std::is_same<T, __nv_bfloat16>::value || F32, "bf16 or f32 q");
   static_assert(QUANT || std::is_same<TC, T>::value, "the cache is q's type or int8");
   static_assert(D % 16 == 0 && TILE == 64, "whole mma steps; 8 score tiles a chunk");
+  static_assert(VRANKS % C == 0, "a block runs a whole number of virtual ranks");
+  static_assert(L::slot_bytes(QTILE) <= L::BYTES, "the last virtual rank's slot fits the tiles");
   constexpr int LDQ = L::LDQ, LDC = L::LDC, LDA = L::LDA;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
+  constexpr int NV = VRANKS / C;  // virtual ranks a block runs
+  const int rank = blockIdx.y;    // the block's rank in its cluster (grid.y = C)
   const int bh = blockIdx.x;  // slot * hkv + kv head
   const int slot = bh / hkv;
   const int hk = bh % hkv;
   const int p0 = blockIdx.z * QTILE;  // this block's query rows
   const int prow = min(QTILE, gs - p0);
+  const int pm = min(QTILE, gs);  // query rows a virtual rank's slot holds
   const int start = start_ptr[slot];
   const int total = min(start + t_reg, max_len);
   const int nlive = (total + TILE - 1) / TILE;  // chunks past these are never read
@@ -549,24 +605,48 @@ __launch_bounds__(THREADS, (MmaLayout<T, TC, D>::MIN_BLOCKS)) partial_kernel_mma
   T* qs = reinterpret_cast<T*>(smem_mma + L::Q);                   // [QTILE][LDQ]
   float* ksc = reinterpret_cast<float*>(smem_mma + L::SCALES);     // [TILE] (int8)
   float* vsc = ksc + TILE;                                         // [TILE] (int8)
-  // after the chunks: the block's unnormalised P.V, row max and row sum
-  float* part_acc = reinterpret_cast<float*>(smem_mma);            // [QTILE][LDA]
-  float* part_m = part_acc + QTILE * LDA;                          // [QTILE]
-  float* part_l = part_m + QTILE;                                  // [QTILE]
+  // bf16 q over int8 with PT: this warp's p * v_scale, hi [16][LDP] then lo [16][LDP]
+  __nv_bfloat16* pt = reinterpret_cast<__nv_bfloat16*>(smem_mma + L::PTILE) +
+                      (threadIdx.x / 32) * 2 * 16 * L::LDP;
+  // the slot of the block's j-th virtual rank (rank + j * C): its
+  // unnormalised P.V [pm][LDA], then row maxima [pm] and row sums [pm]; the
+  // last in the staged bytes, written once the block's chunks are done
+  auto part_of = [&](int j) {
+    return reinterpret_cast<float*>(j == NV - 1 ? smem_mma
+                                                : smem_mma + L::BYTES + j * L::slot_bytes(pm));
+  };
 
-  // the K (or V) rows of a chunk and, int8, their scales (zero past the live
-  // end), as one cp.async group
-  auto stage_chunk = [&](const TC* src, const float* sc, TC* dst, float* dsc, int chunk) {
+  // an int8 cache's scales of a chunk's rows, zero past the live end
+  auto stage_scales = [&](const float* src, float* dst, int col0, int ncols, int i) {
+    if (i < ncols) {
+      cp_async4(dst + i, src + shead + col0 + i);
+    } else {
+      dst[i] = 0.f;
+    }
+  };
+  // with the P tiles the value scales land with K (p * v_scale is packed
+  // right after the softmax); otherwise P.V reads them, so they land with V
+  constexpr bool VSC_WITH_K = PTILES;
+  // the K (or V) rows of a chunk and, int8, their scales, as one cp.async
+  // group
+  auto stage_k = [&](int chunk) {
     const int col0 = chunk * TILE, ncols = min(TILE, total - col0);
-    stage_rows<TC, D, TILE>(src + head + (size_t)col0 * D, ncols, dst, LDC);
+    stage_rows<TC, D, TILE>(k + head + (size_t)col0 * D, ncols, kt, LDC);
     if constexpr (QUANT) {
+      const int i = threadIdx.x % TILE;
       if (threadIdx.x < TILE) {
-        if (threadIdx.x < ncols) {
-          cp_async4(dsc + threadIdx.x, sc + shead + col0 + threadIdx.x);
-        } else {
-          dsc[threadIdx.x] = 0.f;
-        }
+        stage_scales(k_scale, ksc, col0, ncols, i);
+      } else if (VSC_WITH_K) {
+        stage_scales(v_scale, vsc, col0, ncols, i);
       }
+    }
+    cp_async_commit();
+  };
+  auto stage_v = [&](int chunk) {
+    const int col0 = chunk * TILE, ncols = min(TILE, total - col0);
+    stage_rows<TC, D, TILE>(v + head + (size_t)col0 * D, ncols, vt, LDC);
+    if constexpr (QUANT && !VSC_WITH_K) {
+      if (threadIdx.x < TILE) stage_scales(v_scale, vsc, col0, ncols, threadIdx.x);
     }
     cp_async_commit();
   };
@@ -583,18 +663,26 @@ __launch_bounds__(THREADS, (MmaLayout<T, TC, D>::MIN_BLOCKS)) partial_kernel_mma
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
+  // the block's chunks in turn: those of virtual rank ``rank``, then of rank
+  // + C, ...; rank v's first chunk is v, so a block whose first rank has no
+  // live chunk has none at all
   if (rank < nlive) {
     stage_rows<T, D, QTILE>(q + ((size_t)bh * gs + p0) * D, prow, qs, LDQ);
-    stage_chunk(k, k_scale, kt, ksc, rank);  // q joins the K group
-    stage_chunk(v, v_scale, vt, vsc, rank);
+    stage_k(rank);  // q joins the K group
+    stage_v(rank);
   }
-  for (int chunk = rank; chunk < nlive; chunk += CLUSTER) {
-    const bool more = chunk + CLUSTER < nlive;
+  for (int chunk = rank; chunk < nlive;) {
+    const int vr = chunk % VRANKS;
+    // the next chunk of this virtual rank, else the first of the block's next
+    // one (nlive: none)
+    const bool last = chunk + VRANKS >= nlive;  // the virtual rank's last chunk
+    const int next = !last ? chunk + VRANKS : vr + C < VRANKS && vr + C < nlive ? vr + C : nlive;
+    const bool more = next < nlive;
     const int col0 = chunk * TILE, ncols = min(TILE, total - col0);
     cp_async_wait<1>();  // K (and q); V may still be in flight
     __syncthreads();
     if constexpr (QUANT && !F32) {
-      convert_i8<D>(reinterpret_cast<const int8_t*>(kt), ncols, conv);
+      convert_i8<D, PTILES ? 2 : 4>(reinterpret_cast<const int8_t*>(kt), ncols, conv);
       __syncthreads();
     }
 
@@ -636,7 +724,7 @@ __launch_bounds__(THREADS, (MmaLayout<T, TC, D>::MIN_BLOCKS)) partial_kernel_mma
       } else {
         const __nv_bfloat16* kb16 =
             QUANT ? conv : reinterpret_cast<const __nv_bfloat16*>(kt);
-#pragma unroll
+#pragma unroll(PTILES ? 1 : D / 16)
         for (int kk = 0; kk < D / 16; ++kk) {
           unsigned a[4];  // rows 0-7 / 8-15 at k 0-7, then at k 8-15
           ldmatrix_x4(a, reinterpret_cast<const __nv_bfloat16*>(qs) +
@@ -656,8 +744,9 @@ __launch_bounds__(THREADS, (MmaLayout<T, TC, D>::MIN_BLOCKS)) partial_kernel_mma
       // scale of each column, read as its tile comes); then the visibility
       // rule
       const bool all_visible = col0 + TILE <= start;  // the whole chunk is committed prefix
-      const uint8_t* mrow[2] = {mask + (size_t)(ra % s_len) * t_reg,
-                                mask + (size_t)(rb % s_len) * t_reg};
+      // the mask rows of the thread's two query rows, as offsets from the
+      // region's first column (32-bit: fewer registers than two pointers)
+      const int mrow[2] = {(ra % s_len) * t_reg - start, (rb % s_len) * t_reg - start};
 #pragma unroll
       for (int j = 0; j < TILE / 8; ++j) {
         float csc[2] = {scale, scale};  // the factor of columns j * 8 + 2t + {0, 1}
@@ -671,7 +760,7 @@ __launch_bounds__(THREADS, (MmaLayout<T, TC, D>::MIN_BLOCKS)) partial_kernel_mma
           const int c = j * 8 + 2 * t + e % 2;
           const int col = col0 + c;
           const bool ok = all_visible || ((e < 2 ? ra : rb) < gs && c < ncols &&
-                                          (col < start || mrow[e / 2][col - start] != 0));
+                                          (col < start || mask[mrow[e / 2] + col] != 0));
           sc[j][e] = ok ? sc[j][e] * csc[e % 2] : -INFINITY;
         }
       }
@@ -713,17 +802,36 @@ __launch_bounds__(THREADS, (MmaLayout<T, TC, D>::MIN_BLOCKS)) partial_kernel_mma
         lc[h] += __shfl_xor_sync(0xffffffffu, lc[h], 2);
         l[h] += lc[h];
       }
+      if constexpr (PTILES) {
+        // p * v_scale (f32) split into bf16 hi + lo, into the warp's P tiles
+        // now (the value scales landed with K): no score or p register is
+        // live while V is converted and P.V runs
+#pragma unroll
+        for (int j = 0; j < TILE / 8; ++j) {
+          const float2 f = *reinterpret_cast<const float2*>(vsc + j * 8 + 2 * t);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // rows g, then g + 8
+            const float x0 = __fmul_rn(sc[j][2 * h], f.x);
+            const float x1 = __fmul_rn(sc[j][2 * h + 1], f.y);
+            const unsigned hi = pack_bf16(x0, x1);
+            const int at = (g + 8 * h) * L::LDP + j * 8 + 2 * t;
+            *reinterpret_cast<unsigned*>(pt + at) = hi;
+            *reinterpret_cast<unsigned*>(pt + 16 * L::LDP + at) =
+                pack_bf16(x0 - bf16_lo(hi), x1 - bf16_hi(hi));
+          }
+        }
+      }
     }
-    __syncthreads();  // every warp is done with the K tile
+    __syncthreads();  // every warp is done with the K tile (and its scales)
     if (more) {
-      stage_chunk(k, k_scale, kt, ksc, chunk + CLUSTER);  // lands while P.V runs
+      stage_k(next);  // lands while P.V runs
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();  // V landed
     if constexpr (QUANT && !F32) {
-      convert_i8<D>(reinterpret_cast<const int8_t*>(vt), ncols, conv);
+      convert_i8<D, PTILES ? 2 : 4>(reinterpret_cast<const int8_t*>(vt), ncols, conv);
       __syncthreads();
     }
 
@@ -763,31 +871,40 @@ __launch_bounds__(THREADS, (MmaLayout<T, TC, D>::MIN_BLOCKS)) partial_kernel_mma
         }
       } else {
         // p as bf16 A fragments, one per 16-column k-step (two 8-wide score
-        // tiles), packed as the step comes; bf16 cache: p rounded to bf16,
-        // as the plain version rounds it to the value dtype; int8: p *
-        // v_scale in two parts, pf (rounded to bf16) + pl (the rest, rounded
-        // to bf16)
+        // tiles); bf16 cache: p rounded to bf16, as the plain version rounds
+        // it to the value dtype, packed as the step comes; int8: p * v_scale
+        // in two parts, pf (rounded to bf16) + pl (the rest, rounded to
+        // bf16), from the warp's P tiles or packed as the step comes (the
+        // same bits: x = p * v_scale is rounded to f32 first in both)
         const __nv_bfloat16* vb16 =
             QUANT ? conv : reinterpret_cast<const __nv_bfloat16*>(vt);
-#pragma unroll
+#pragma unroll(PTILES ? 1 : TILE / 16)
         for (int kk = 0; kk < TILE / 16; ++kk) {
           unsigned pf[4];
           [[maybe_unused]] unsigned pl[4];
+          if constexpr (PTILES) {  // rows 0-7 / 8-15 at k 0-7, then at k 8-15
+            const __nv_bfloat16* pa = pt + (lane % 16) * L::LDP + kk * 16 + (lane / 16) * 8;
+            ldmatrix_x4(pf, pa);
+            ldmatrix_x4(pl, pa + 16 * L::LDP);
+          } else if constexpr (QUANT) {
 #pragma unroll
-          for (int jj = 0; jj < 2; ++jj) {
-            const int j = 2 * kk + jj;
-            if constexpr (QUANT) {
+            for (int jj = 0; jj < 2; ++jj) {
+              const int j = 2 * kk + jj;
               const float2 f = *reinterpret_cast<const float2*>(vsc + j * 8 + 2 * t);
 #pragma unroll
               for (int h = 0; h < 2; ++h) {  // rows g, then g + 8
-                const float x0 = sc[j][2 * h] * f.x, x1 = sc[j][2 * h + 1] * f.y;
+                const float x0 = __fmul_rn(sc[j][2 * h], f.x);
+                const float x1 = __fmul_rn(sc[j][2 * h + 1], f.y);
                 const unsigned hi = pack_bf16(x0, x1);
                 pf[jj * 2 + h] = hi;
                 pl[jj * 2 + h] = pack_bf16(x0 - bf16_lo(hi), x1 - bf16_hi(hi));
               }
-            } else {
-              pf[jj * 2] = pack_bf16(sc[j][0], sc[j][1]);      // rows g
-              pf[jj * 2 + 1] = pack_bf16(sc[j][2], sc[j][3]);  // rows g + 8
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {  // rows g (e even), g + 8 (e odd) of tile 2 kk + e / 2
+              const int j = 2 * kk + e / 2, h = e % 2;
+              pf[e] = pack_bf16(sc[j][2 * h], sc[j][2 * h + 1]);
             }
           }
 #pragma unroll
@@ -806,52 +923,80 @@ __launch_bounds__(THREADS, (MmaLayout<T, TC, D>::MIN_BLOCKS)) partial_kernel_mma
       }
     }
     __syncthreads();  // every warp is done with the V tile
-    if (more) stage_chunk(v, v_scale, vt, vsc, chunk + CLUSTER);  // lands while the next q.k runs
+    if (last) {
+      // the virtual rank's rows below prow to its slot (the last slot
+      // overlays the tiles, which no warp reads any more), and a fresh state
+      // for the next rank
+      if (active) {
+        float* part = part_of(vr / C);
+        float* part_m = part + pm * LDA;
+        const int a = warp * 16 + g, b = a + 8;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          if (a < prow)
+            *reinterpret_cast<float2*>(part + a * LDA + j * 8 + 2 * t) =
+                make_float2(o[j][0], o[j][1]);
+          if (b < prow)
+            *reinterpret_cast<float2*>(part + b * LDA + j * 8 + 2 * t) =
+                make_float2(o[j][2], o[j][3]);
+          o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+        }
+        if (t == 0 && a < prow) part_m[a] = m[0], part_m[pm + a] = l[0];
+        if (t == 0 && b < prow) part_m[b] = m[1], part_m[pm + b] = l[1];
+        m[0] = m[1] = -INFINITY;
+        l[0] = l[1] = 0.f;
+      }
+    }
+    if (more) stage_v(next);  // lands while the next q.k runs
+    chunk = next;
   }
 
-  // this block's rows (a block with no live chunk: m = -inf, l = 0)
-  if (active) {
-    const int a = warp * 16 + g, b = a + 8;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<float2*>(part_acc + a * LDA + j * 8 + 2 * t) =
-          make_float2(o[j][0], o[j][1]);
-      *reinterpret_cast<float2*>(part_acc + b * LDA + j * 8 + 2 * t) =
-          make_float2(o[j][2], o[j][3]);
-    }
-    if (t == 0) {
-      part_m[a] = m[0], part_l[a] = l[0];
-      part_m[b] = m[1], part_l[b] = l[1];
-    }
+  cg::cluster_group cluster = cg::this_cluster();
+  if constexpr (C > 1) {
+    cluster.sync();
+  } else {
+    __syncthreads();
   }
-  cluster.sync();
-  // the cluster's sum in rank order, block r over its share of the rows x
-  // D / 4 columns, read from every block's shared memory (all of a row's
-  // loads in flight before any is used)
-  for (int i = rank * THREADS + tid; i < prow * (D / 4); i += CLUSTER * THREADS) {
+  // virtual rank v's slot: slot v / C of the cluster's block v % C
+  auto peer = [&](float* p, int v) {
+    if constexpr (C > 1) {
+      return cluster.map_shared_rank(p, v % C);
+    } else {
+      return p;
+    }
+  };
+  // the merge over the virtual ranks in rank order, block b over its share of
+  // the rows x D / 4 columns (all of a row's loads in flight before any is
+  // used); a rank with no live chunk (v >= nlive) would weigh exactly 0 and
+  // is left out
+  for (int i = rank * THREADS + tid; i < prow * (D / 4); i += C * THREADS) {
     const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-    float mb[CLUSTER];
+    float mb[VRANKS];
     float mmax = -INFINITY;
 #pragma unroll
-    for (int b = 0; b < CLUSTER; ++b) {
-      mb[b] = *cluster.map_shared_rank(part_m + r, b);
-      mmax = fmaxf(mmax, mb[b]);
+    for (int v = 0; v < VRANKS; ++v) {
+      if (v < nlive) {
+        mb[v] = peer(part_of(v / C), v)[pm * LDA + r];
+        mmax = fmaxf(mmax, mb[v]);
+      }
     }
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
     float lsum = 0.f;
 #pragma unroll
-    for (int b = 0; b < CLUSTER; ++b) {  // a block that saw nothing of this row weighs 0
-      const float w = mb[b] == -INFINITY ? 0.f : expf(mb[b] - mmax);
-      lsum += *cluster.map_shared_rank(part_l + r, b) * w;
-      const float4 x =
-          *reinterpret_cast<const float4*>(cluster.map_shared_rank(part_acc + r * LDA + c, b));
-      acc.x += x.x * w, acc.y += x.y * w, acc.z += x.z * w, acc.w += x.w * w;
+    for (int v = 0; v < VRANKS; ++v) {  // a rank that saw nothing of this row weighs 0
+      if (v < nlive) {
+        const float* part = peer(part_of(v / C), v);
+        const float w = mb[v] == -INFINITY ? 0.f : expf(mb[v] - mmax);
+        lsum += part[pm * LDA + pm + r] * w;
+        const float4 x = *reinterpret_cast<const float4*>(part + r * LDA + c);
+        acc.x += x.x * w, acc.y += x.y * w, acc.z += x.z * w, acc.w += x.w * w;
+      }
     }
     const float inv = 1.f / fmaxf(lsum, 1e-20f);
     store4(out + ((size_t)bh * gs + p0 + r) * D + c,
            make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv));
   }
-  cluster.sync();  // no block leaves while its peers read its shared memory
+  if constexpr (C > 1) cluster.sync();  // no block leaves while its peers read its slots
 }
 
 // One block per (slot, kv head, query row), one thread per head-dim element
@@ -883,26 +1028,74 @@ __global__ void __launch_bounds__(D) combine_kernel(
   out[(size_t)row * D + d] = from_f<T>(acc / fmaxf(l, 1e-20f));
 }
 
-// D = 128: partial_kernel_mma, one launch, a cluster of CLUSTER blocks per
-// (slot x kv head).  The shared-memory attribute is set once per
-// instantiation.
-template <typename T, typename TC, int D>
+// D = 128: partial_kernel_mma, one launch, a cluster of C blocks per (slot x
+// kv head, query tile) along grid.y.  Shared memory grows by a slot for each
+// virtual rank a block runs after its first; the attribute is set once per
+// instantiation, to what its largest query tile needs (at most the card's
+// opt-in limit).
+constexpr size_t SMEM_OPTIN = 232448;  // a block's shared memory on sm_90, opt-in
+
+template <typename T, typename TC, int D, int C, bool PT>
+cudaError_t prepare_mma() {
+  constexpr size_t most = MmaLayout<T, TC, D, PT>::bytes(C, QTILE);
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(partial_kernel_mma<T, TC, D, C, PT>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)(most < SMEM_OPTIN ? most : SMEM_OPTIN));
+  return attr;
+}
+
+template <typename T, typename TC, int D, int C, bool PT>
+cudaLaunchConfig_t config_mma(cudaLaunchAttribute* cluster, int pairs, int gs,
+                              cudaStream_t stream) {
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = C;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(pairs, C, (gs + QTILE - 1) / QTILE);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = MmaLayout<T, TC, D, PT>::bytes(C, gs < QTILE ? gs : QTILE);
+  cfg.stream = stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of C blocks the card holds at once at ``gs`` query rows a kv head
+// (0: the shared memory does not fit; negative: an error).
+template <typename T, typename TC, int D, int C, bool PT>
+int max_clusters_mma(int gs) {
+  const cudaError_t attr = prepare_mma<T, TC, D, C, PT>();
+  if (attr != cudaSuccess) return -(int)attr;
+  cudaLaunchAttribute cluster[1];
+  const cudaLaunchConfig_t cfg = config_mma<T, TC, D, C, PT>(cluster, 1, gs, 0);
+  if (cfg.dynamicSmemBytes > SMEM_OPTIN) return 0;
+  int count = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveClusters(&count, partial_kernel_mma<T, TC, D, C, PT>, &cfg);
+  return err == cudaSuccess ? count : -(int)err;
+}
+
+template <typename T, typename TC, int D, int C, bool PT>
 int launch_mma(const void* q, const void* k, const void* v, const void* k_scale,
                const void* v_scale, const void* mask, const void* start, const void* layer,
                void* out, int nslots, int hkv, int gs, int s_len, int t_reg, int max_len,
                long long layer_stride, long long scale_layer_stride, long long slot_stride,
                long long scale_slot_stride, long long mask_slot_stride,
                cudaStream_t stream) {
-  using L = MmaLayout<T, TC, D>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      partial_kernel_mma<T, TC, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
+  const cudaError_t attr = prepare_mma<T, TC, D, C, PT>();
   if (attr != cudaSuccess) return (int)attr;
-  partial_kernel_mma<T, TC, D>
-      <<<dim3(nslots * hkv, CLUSTER, (gs + QTILE - 1) / QTILE), THREADS, L::BYTES, stream>>>(
-          (const T*)q, (const TC*)k, (const TC*)v, (const float*)k_scale,
-          (const float*)v_scale, (const uint8_t*)mask, (const int*)start, (const int*)layer,
-          (T*)out, hkv, gs, s_len, t_reg, max_len, layer_stride, scale_layer_stride,
-          slot_stride, scale_slot_stride, mask_slot_stride, 1.0f / sqrtf((float)D));
+  cudaLaunchAttribute cluster[1];
+  const cudaLaunchConfig_t cfg = config_mma<T, TC, D, C, PT>(cluster, nslots * hkv, gs, stream);
+  if (cfg.dynamicSmemBytes > SMEM_OPTIN) return -1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, partial_kernel_mma<T, TC, D, C, PT>, (const T*)q, (const TC*)k, (const TC*)v,
+      (const float*)k_scale, (const float*)v_scale, (const uint8_t*)mask, (const int*)start,
+      (const int*)layer, (T*)out, hkv, gs, s_len, t_reg, max_len, layer_stride,
+      scale_layer_stride, slot_stride, scale_slot_stride, mask_slot_stride,
+      1.0f / sqrtf((float)D));
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -943,17 +1136,57 @@ extern "C" {
 // Chunk length of the split; the caller sizes head_dim 16's scratch from it.
 int vispec_verify_attention_tile() { return TILE; }
 
+// Clusters of ``cluster`` blocks (8, 4, 2 or 1) of the head_dim-128 kernel
+// for this dtype pair that the card holds at once at ``gs`` query rows a kv
+// head: 0 when the blocks' shared memory does not fit, negative a
+// cudaError_t, -1 for a build that does not exist.  ``p_tiles`` selects,
+// for bf16 q over int8, the build with the P tiles (every cluster size) or
+// the one packing p * v_scale in registers (clusters of 8); the other pairs
+// have one build (p_tiles 0).
+int vispec_verify_attention_max_clusters(int is_bf16, int cache_int8, int cluster, int p_tiles,
+                                         int gs) {
+#define VISPEC_CLUSTERS(T, TC, PT)                                  \
+  switch (cluster) {                                               \
+    case 8: return max_clusters_mma<T, TC, 128, 8, PT>(gs);        \
+    case 4: return max_clusters_mma<T, TC, 128, 4, PT>(gs);        \
+    case 2: return max_clusters_mma<T, TC, 128, 2, PT>(gs);        \
+    case 1: return max_clusters_mma<T, TC, 128, 1, PT>(gs);        \
+    default: return -1;                                            \
+  }
+  if (is_bf16 && cache_int8 && !p_tiles)
+    return cluster == 8 ? max_clusters_mma<__nv_bfloat16, int8_t, 128, 8, false>(gs) : -1;
+  if (p_tiles && !(is_bf16 && cache_int8)) return -1;
+  if (is_bf16) {
+    if (cache_int8) {
+      VISPEC_CLUSTERS(__nv_bfloat16, int8_t, true)
+    } else {
+      VISPEC_CLUSTERS(__nv_bfloat16, __nv_bfloat16, false)
+    }
+  } else {
+    if (cache_int8) {
+      VISPEC_CLUSTERS(float, int8_t, false)
+    } else {
+      VISPEC_CLUSTERS(float, float, false)
+    }
+  }
+#undef VISPEC_CLUSTERS
+  return -1;
+}
+
 // Returns a cudaError_t code (0 on success), or -1 for an unsupported
-// head_dim / dtype pair or a missing scratch.  q and the output are bf16
-// (is_bf16) or f32; the cache is q's type, or int8 (cache_int8) with scales
-// k_scale / v_scale (null otherwise).  ``nslots`` requests at once: start and
-// layer hold one int32 per slot, and slot b's cache, scales and mask begin
-// ``b * *_slot_stride`` elements after the given pointers (all strides 0 for
-// a single request).  head_dim 128 is one launch of partial_kernel_mma with
-// a cluster of CLUSTER blocks per (slot x kv head) and takes no scratch
-// (part_m, part_l, part_acc may be null); head_dim 16 writes the partials
-// [nslots * hkv, ceil(max_len / TILE), gs (, D)] to the scratch.  Launches
-// on ``stream``; does not synchronise.
+// head_dim / dtype pair / build, a missing scratch or a shared memory that
+// does not fit.  q and the output are bf16 (is_bf16) or f32; the cache is
+// q's type, or int8 (cache_int8) with scales k_scale / v_scale (null
+// otherwise).  ``nslots`` requests at once: start and layer hold one int32
+// per slot, and slot b's cache, scales and mask begin ``b * *_slot_stride``
+// elements after the given pointers (all strides 0 for a single request).
+// head_dim 128 is one launch of partial_kernel_mma with a cluster of
+// ``cluster`` blocks (8, 4, 2 or 1) per (slot x kv head, 64 query rows), in
+// the build ``p_tiles`` names (see vispec_verify_attention_max_clusters),
+// and takes no scratch (part_m, part_l, part_acc may be null); the output
+// does not depend on the cluster or the build.  head_dim 16 ignores both
+// and writes the partials [nslots * hkv, ceil(max_len / TILE), gs (, D)] to
+// the scratch.  Launches on ``stream``; does not synchronise.
 int vispec_verify_attention(const void* q, const void* k, const void* v,
                             const void* k_scale, const void* v_scale,
                             const void* mask, const void* start,
@@ -964,34 +1197,50 @@ int vispec_verify_attention(const void* q, const void* k, const void* v,
                             long long scale_layer_stride,
                             long long slot_stride, long long scale_slot_stride,
                             long long mask_slot_stride, int head_dim,
-                            int is_bf16, int cache_int8, void* stream) {
+                            int is_bf16, int cache_int8, int cluster, int p_tiles,
+                            void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define VISPEC_LAUNCH(T, TC)                                                         \
-  if (head_dim == 128)                                                               \
-    return launch_mma<T, TC, 128>(q, k, v, k_scale, v_scale, mask, start, layer, out, \
-                                  nslots, hkv, gs, s_len, t_reg, max_len,             \
-                                  layer_stride, scale_layer_stride, slot_stride,      \
-                                  scale_slot_stride, mask_slot_stride, st);  \
+#define VISPEC_MMA(T, TC, C, PT)                                                          \
+  return launch_mma<T, TC, 128, C, PT>(q, k, v, k_scale, v_scale, mask, start, layer, out, \
+                                       nslots, hkv, gs, s_len, t_reg, max_len,             \
+                                       layer_stride, scale_layer_stride, slot_stride,      \
+                                       scale_slot_stride, mask_slot_stride, st);
+#define VISPEC_LAUNCH(T, TC, PT)                                                     \
+  if (head_dim == 128) {                                                             \
+    switch (cluster) {                                                               \
+      case 8: VISPEC_MMA(T, TC, 8, PT)                                               \
+      case 4: VISPEC_MMA(T, TC, 4, PT)                                               \
+      case 2: VISPEC_MMA(T, TC, 2, PT)                                               \
+      case 1: VISPEC_MMA(T, TC, 1, PT)                                               \
+      default: return -1;                                                            \
+    }                                                                                \
+  }                                                                                  \
   if (head_dim == 16)                                                                \
     return launch_split<T, TC, 16>(q, k, v, k_scale, v_scale, mask, start, layer,     \
                                    part_m, part_l, part_acc, out, nslots, hkv, gs,    \
                                    s_len, t_reg, max_len, layer_stride,               \
                                    scale_layer_stride, slot_stride,                   \
                                    scale_slot_stride, mask_slot_stride, st);
+  if (head_dim == 128 && is_bf16 && cache_int8 && !p_tiles) {
+    if (cluster != 8) return -1;
+    VISPEC_MMA(__nv_bfloat16, int8_t, 8, false)
+  }
+  if (head_dim == 128 && p_tiles && !(is_bf16 && cache_int8)) return -1;
   if (is_bf16) {
     if (cache_int8) {
-      VISPEC_LAUNCH(__nv_bfloat16, int8_t)
+      VISPEC_LAUNCH(__nv_bfloat16, int8_t, true)
     } else {
-      VISPEC_LAUNCH(__nv_bfloat16, __nv_bfloat16)
+      VISPEC_LAUNCH(__nv_bfloat16, __nv_bfloat16, false)
     }
   } else {
     if (cache_int8) {
-      VISPEC_LAUNCH(float, int8_t)
+      VISPEC_LAUNCH(float, int8_t, false)
     } else {
-      VISPEC_LAUNCH(float, float)
+      VISPEC_LAUNCH(float, float, false)
     }
   }
 #undef VISPEC_LAUNCH
+#undef VISPEC_MMA
   return -1;
 }
 

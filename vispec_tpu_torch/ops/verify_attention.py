@@ -10,10 +10,16 @@ row 1c: the batched grid of the JAX package's ``custom_vmap`` rule).  It is
 compiled with ``nvcc`` for ``sm_90a`` at first use (``ops/cuda_build.py``)
 and bound with ``ctypes``.  At head_dim 128 every call is one launch of
 ``partial_kernel_mma`` on tensor cores (bf16 q; float32 q in 3xTF32), over
-q's own cache or an int8 cache: a thread-block cluster of 8 blocks per
-(slot x kv head) splits the live chunks and reduces them in its shared
-memory, so no partials reach device memory.  head_dim 16 runs the CUDA-core
-``partial_kernel`` into float32 scratch, then ``combine_kernel``.
+q's own cache or an int8 cache: a thread-block cluster per (slot x kv head,
+64 query rows) splits the live chunks over 8 virtual ranks and merges them
+in rank order in its shared memory, so no partials reach device memory.
+The cluster has 8, 4, 2 or 1 blocks, each running 1, 2, 4 or 8 ranks in
+turn; the host picks the size from the call's shapes and the clusters the
+card holds at once (``pick_cluster``), and, for bf16 q over int8, the
+build (``register_build_holds``): p * v_scale through shared-memory P
+tiles (three blocks an SM) or packed in registers inside P.V.  The output
+is the same bits whatever the size and the build.  head_dim 16 runs the CUDA-core ``partial_kernel`` into
+float32 scratch, then ``combine_kernel``.
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain version
 (``verify_attention_ref``, ``verify_attention_batched_ref``) for CPU tensors;
@@ -23,7 +29,7 @@ there is no other switch.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -33,6 +39,9 @@ from .kv_cache import dequantize_rows
 
 HEAD_DIMS = (16, 128)  # the instantiations in the source
 FOLDED_HEAD_DIM = 128  # one launch, no scratch; head_dim 16 runs partial + combine
+CLUSTERS = (8, 4, 2, 1)  # the cluster sizes built at head_dim 128, largest first
+VRANKS = 8  # virtual ranks a (slot x kv head, query tile) splits its chunks over
+QTILE = 64  # query rows a cluster takes; a kv head's gs rows take ceil(gs / 64)
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -48,8 +57,10 @@ def _library() -> ctypes.CDLL:
             p, p, p, p, p, p, p, p, p, p, p, p,  # q k v ks vs mask start layer m l acc out
             i, i, i, i, i, i,  # nslots hkv gs s_len t_reg max_len
             ll, ll, ll, ll, ll,  # layer, scale-layer, slot, scale-slot, mask-slot strides
-            i, i, i, p]  # head_dim is_bf16 cache_int8 stream
+            i, i, i, i, i, p]  # head_dim is_bf16 cache_int8 cluster p_tiles stream
         lib.vispec_verify_attention.restype = i
+        lib.vispec_verify_attention_max_clusters.argtypes = [i, i, i, i, i]
+        lib.vispec_verify_attention_max_clusters.restype = i
         lib.vispec_verify_attention_tile.argtypes = []
         lib.vispec_verify_attention_tile.restype = i
         _lib = lib
@@ -143,12 +154,101 @@ def _check_operands(name, q, k_cache, v_cache, tree_mask, k_scale, v_scale,
     return quantized
 
 
+def pick_cluster(nslots: int, hkv: int, gs: int, resident: Dict[int, int]) -> int:
+    """The cluster size of a head_dim-128 call, from its shapes alone (the
+    host never reads tree_start).  ``resident`` maps each size in CLUSTERS to
+    the clusters of it the card holds at once for this dtype pair and gs (0:
+    its shared memory does not fit).  The grid has one cluster per (slot x
+    kv head, 64 query rows).  Of the sizes that keep at least as many blocks
+    resident as the cluster of 8 (a smaller cluster's extra slots of shared
+    memory may cost blocks an SM), the largest whose grid runs in at most two
+    waves is taken, else the one with the fewest waves.  The output does not
+    depend on the size (chip_smoke.py --attention-sweep holds the rule: a
+    cluster of 8 for one request, 4 for the B = 4 bf16 rounds, 8 for B = 4
+    over int8 or in float32, 1 for getkacc's 16 one-row slots)."""
+    tiles = nslots * hkv * -(-gs // QTILE)
+    if resident.get(VRANKS, 0) <= 0:
+        raise RuntimeError(f"verify_attention: no cluster of {VRANKS} fits (resident {resident})")
+    full = resident[VRANKS] * VRANKS
+    sizes = [c for c in CLUSTERS if resident.get(c, 0) * c >= full]
+    waves = {c: -(-tiles // resident[c]) for c in sizes}
+    for c in sizes:
+        if waves[c] <= 2:
+            return c
+    return min(sizes, key=lambda c: (waves[c], -c))
+
+
+def register_build_holds(nslots: int, hkv: int, gs: int, register8: int) -> bool:
+    """Whether bf16 q over int8 runs its register build: p * v_scale packed
+    inside P.V, in two blocks an SM, where the P-tile build keeps three.  It
+    is taken when one wave of its ``register8`` clusters of 8 holds the
+    whole grid: then a block has its SM's tensor cores mostly to itself and
+    the P tiles' pack would only lengthen each chunk (Qwen2.5-VL's and the
+    GQA single requests, 8-16 clusters); a grid that needs more waves keeps
+    the P tiles' third block an SM."""
+    return nslots * hkv * -(-gs // QTILE) <= register8
+
+
+_RESIDENT: Dict[tuple, Dict[int, int]] = {}
+_PICKED: Dict[tuple, Tuple[int, bool]] = {}
+
+
+def two_builds(q_dtype: torch.dtype, int8: bool) -> bool:
+    """bf16 q over int8 has a P-tile build (every cluster size) and a
+    register build (clusters of 8); the other pairs have one build."""
+    return int8 and q_dtype == torch.bfloat16
+
+
+def resident_clusters(device: torch.device, q_dtype: torch.dtype, int8: bool, gs: int,
+                      p_tiles: Optional[bool] = None) -> Dict[int, int]:
+    """{cluster size: clusters the card holds at once} of the head_dim-128
+    kernel for this dtype pair at ``gs`` query rows a kv head (an occupancy
+    query per instantiation, kept); bf16 q over int8: of its P-tile build,
+    or with ``p_tiles=False`` of its register build ({8: n})."""
+    pt = two_builds(q_dtype, int8) if p_tiles is None else p_tiles
+    key = (device.index, q_dtype, int8, min(gs, QTILE), pt)
+    if key not in _RESIDENT:
+        lib = _library()
+        sizes = CLUSTERS if pt or not two_builds(q_dtype, int8) else (VRANKS,)
+        counts = {c: lib.vispec_verify_attention_max_clusters(
+            int(q_dtype == torch.bfloat16), int(int8), c, int(pt), gs) for c in sizes}
+        bad = {c: n for c, n in counts.items() if n < 0}
+        if bad:
+            raise RuntimeError(f"verify_attention: occupancy query failed {bad}")
+        _RESIDENT[key] = counts
+    return _RESIDENT[key]
+
+
+def cluster_for(device: torch.device, q_dtype: torch.dtype, int8: bool, nslots: int,
+                hkv: int, gs: int) -> Tuple[int, bool]:
+    """(cluster size, P tiles) of this call on this card: bf16 q over int8
+    takes its register build at a cluster of 8 where
+    ``register_build_holds``, else every call takes ``pick_cluster``'s size
+    (of the P-tile build over int8).  Kept per shape."""
+    key = (device.index, q_dtype, int8, nslots, hkv, gs)
+    if key not in _PICKED:
+        two = two_builds(q_dtype, int8)
+        if two and register_build_holds(
+                nslots, hkv, gs, resident_clusters(device, q_dtype, int8, gs, False)[VRANKS]):
+            _PICKED[key] = (VRANKS, False)
+        else:
+            _PICKED[key] = (pick_cluster(nslots, hkv, gs,
+                                         resident_clusters(device, q_dtype, int8, gs)), two)
+    return _PICKED[key]
+
+
 def _launch(q, k_cache, v_cache, k_scale, v_scale, tree_mask, start, layer,
-            nslots: int, has_layer: bool) -> torch.Tensor:
+            nslots: int, has_layer: bool, *, _cluster: Optional[int] = None,
+            _p_tiles: Optional[bool] = None) -> torch.Tensor:
     """One call over ``nslots`` slots (1 for a single request, whose slot
     strides are then 0): one launch at head_dim 128, a launch pair over
     float32 scratch at 16.  ``start`` and ``layer`` are int32 [nslots] on
-    the device; the caches' leading dims are (slot,)? + (layer,)?."""
+    the device; the caches' leading dims are (slot,)? + (layer,)?.  The
+    cluster size and build at head_dim 128 are ``cluster_for``'s, or forced
+    by ``_cluster`` (a size in CLUSTERS) and ``_p_tiles`` (bf16 q over int8:
+    False for the register build, clusters of 8 only; default the P tiles):
+    the tests and chip_smoke.py's sweep force them, and the output is the
+    same bits."""
     quantized = k_scale is not None
     h, s, d = q.shape[-3:]
     hkv, max_len = k_cache.shape[-3:-1]
@@ -161,6 +261,15 @@ def _launch(q, k_cache, v_cache, k_scale, v_scale, tree_mask, start, layer,
 
     lib = _library()
     gs = (h // hkv) * s
+    cluster, p_tiles = 0, False
+    if d == FOLDED_HEAD_DIM:
+        if _cluster is None:
+            cluster, p_tiles = cluster_for(q.device, q.dtype, quantized, nslots, hkv, gs)
+        else:
+            cluster = _cluster
+            p_tiles = two_builds(q.dtype, quantized) if _p_tiles is None else _p_tiles
+        if cluster not in CLUSTERS:
+            raise ValueError(f"verify_attention: cluster {cluster} not in {CLUSTERS}")
     scratch = [None, None, None]
     if d != FOLDED_HEAD_DIM:
         nc = -(-max_len // lib.vispec_verify_attention_tile())
@@ -178,8 +287,8 @@ def _launch(q, k_cache, v_cache, k_scale, v_scale, tree_mask, start, layer,
         *(t.data_ptr() if t is not None else None for t in scratch),
         out.data_ptr(), nslots, hkv, gs, s, tree_mask.shape[-1], max_len,
         layer_stride, scale_stride, slot_stride, scale_slot_stride,
-        mask_slot_stride, d, int(q.dtype == torch.bfloat16), int(quantized),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        mask_slot_stride, d, int(q.dtype == torch.bfloat16), int(quantized), cluster,
+        int(p_tiles), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"verify_attention: kernel launch failed "
                            f"(CUDA error {err})")
