@@ -1,8 +1,8 @@
 """Chip smoke test of the PyTorch + CUDA port (vispec_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py (--end-to-end | --attention-times | --attention-sweep
-                           | --q4-times) [CHECKOUT ...]
+    python3 chip_smoke.py (--end-to-end | --engine-rounds | --attention-times
+                           | --attention-sweep | --q4-times) [CHECKOUT ...]
 
 Builds the port's CUDA kernels from the sources in this checkout (in
 parallel), holds each against its plain PyTorch version at the main paths'
@@ -79,10 +79,13 @@ bfloat16 decode loop and engine, training at its width with ``getkacc``,
 then the same model quantized, single request and through the engine
 (``full_width_depth``, ``serving_full_depth``, ``train_full_width``,
 ``quant_full_depth``,
-``serving_quant_full_depth`` and their profiles).  ``--attention-times``:
+``serving_quant_full_depth`` and their profiles).  ``--engine-rounds``:
+the B = 4 engine's rounds at all 32 layers under torch.profiler, bfloat16
+then quantized, twice each (``engine_rounds``: the attention's device ms a
+round).  ``--attention-times``:
 every attention ``kernel_vs_plain`` line (rows 1a, 1b, 1c).
-``--attention-sweep``: rows 1a, 1b and 1c at every cluster size of the
-attention kernel, the kernel's time alone.
+``--attention-sweep``: rows 1a, 1b and 1c at every (cluster size, walkers)
+shape of the attention kernel, the kernel's time alone.
 ``--q4-times``: kernel 2 alone.  ``--parallel`` runs only the build and
 the multi-device phases (on a machine with a card per rank their worlds
 take NCCL, one card each).
@@ -225,45 +228,49 @@ def kernel_split_ms(fn, flush, n=10):
 
 
 @contextlib.contextmanager
-def forced_cluster(cluster, p_tiles=None):
+def forced_cluster(cluster, p_tiles=None, walkers=1):
     """Every head-dim-128 attention call inside runs at cluster size
-    ``cluster`` and, bf16 q over int8, in the build ``p_tiles`` names (None:
-    the P tiles), through ``_launch``'s private keywords; cluster None: the
-    size and build the host picks."""
+    ``cluster`` with ``walkers`` walkers a block and, bf16 q over int8, in
+    the build ``p_tiles`` names (None: the P tiles), through ``_launch``'s
+    private keywords; cluster None: the shape and build the host picks."""
     from vispec_tpu_torch.ops import verify_attention as va
 
     if cluster is None:
         yield
         return
     launch = va._launch
-    va._launch = functools.partial(launch, _cluster=cluster, _p_tiles=p_tiles)
+    va._launch = functools.partial(launch, _cluster=cluster, _walkers=walkers,
+                                   _p_tiles=p_tiles)
     try:
         yield
     finally:
         va._launch = launch
 
 
-def _cluster_fields(dev, dtype, int8, nslots, h, hkv, s, cluster, p_tiles=None):
-    """The cluster size a call runs at (forced, or the host's pick) and the
-    clusters of it the card holds at once; bf16 q over int8 also its build
-    (``p_tiles``: the P tiles, or p * v_scale packed in registers)."""
+def _cluster_fields(dev, dtype, int8, nslots, h, hkv, s, cluster, p_tiles=None, walkers=1):
+    """The cluster size and walkers a call runs at (forced, or the host's
+    pick) and the clusters of that shape the card holds at once; bf16 q over
+    int8 also its build (``p_tiles``: the P tiles, or p * v_scale packed in
+    registers)."""
     from vispec_tpu_torch.ops import verify_attention as va
 
     gs = (h // hkv) * s
     if cluster is None:
-        c, pt = va.cluster_for(dev, dtype, int8, nslots, hkv, gs)
+        c, w, pt = va.cluster_for(dev, dtype, int8, nslots, hkv, gs)
     else:
-        c, pt = cluster, va.two_builds(dtype, int8) if p_tiles is None else p_tiles
+        c, w = cluster, walkers
+        pt = va.two_builds(dtype, int8) if p_tiles is None else p_tiles
     resident = va.resident_clusters(dev, dtype, int8, gs, pt)
     RESIDENT_SEEN[(str(dtype).replace("torch.", ""), int8, min(gs, va.QTILE), pt)] = resident
-    out = {"cluster": c, "resident_clusters": resident.get(c, 0)}
+    out = {"cluster": c, "walkers": w, "resident_clusters": resident.get((c, w), 0)}
     if va.two_builds(dtype, int8):
         out["p_tiles"] = pt
     return out
 
 
 # {(q dtype, int8 cache, query rows of a slot (at most 64), P tiles):
-# {cluster size: clusters the card holds}} of every attention row so far
+# {(cluster size, walkers): clusters the card holds}} of every attention row
+# so far
 RESIDENT_SEEN = {}
 
 
@@ -284,15 +291,19 @@ def phase_build():
         ptxas = _ptxas_by_kernel(so.with_suffix(".log").read_text())
         emit({"phase": "build", "ok": True, "seconds": seconds, "library": so.name,
               "ptxas": [f"{name}: {info}" for name, info in ptxas.items()]})
-        # the tensor-core kernels: the attention's seventeen instantiations
-        # (bf16 and float32 q, each over its own and an int8 cache, each at
-        # clusters of 8, 4, 2 and 1, and bf16 q over int8 also in its register
-        # build at 8: partial_kernel_mmaI<q><cache>Li128ELi<C>ELb<P tiles>E),
-        # kernel 2's four; none may spill
+        # the tensor-core kernels: the attention's twenty-three instantiations
+        # partial_kernel_mmaI<q><cache>Li128ELi<C>ELb<P tiles>ELi<W>ELb<order>E:
+        # with the slot order, bf16 and float32 q, each over its own and an
+        # int8 cache, at clusters of 8, 4, 2 and 1 with one walker, bf16 q
+        # over a bf16 cache also at (4, 2), bf16 q over int8 in its register
+        # build at (8, 1); the five (8, 1) ones again without it (single
+        # requests); kernel 2's four; none may spill
         if "verify_attention" in so.name:
             tag = "partial_kernel_mma"
-            want = ([f"Li128ELi{c}ELb0E" for c in (8, 4, 2, 1) for _ in range(3)]
-                    + [f"Li128ELi{c}ELb1E" for c in (8, 4, 2, 1)] + ["Li128ELi8ELb0E"])
+            shapes = ([(c, 1, pt) for c in (8, 4, 2, 1) for pt in (0, 0, 0, 1)] + [(8, 1, 0)]
+                      + [(4, 2, 0)])
+            want = ([f"Li128ELi{c}ELb{pt}ELi{w}ELb1E" for c, w, pt in shapes]
+                    + [f"Li128ELi8ELb{pt}ELi1ELb0E" for pt in (0, 0, 0, 0, 1)])
         else:
             tag, want = "q4_mma_kernel", ["q4_mma_kernel"] * 4
         mma = {name: info for name, info in ptxas.items() if name.startswith(tag)}
@@ -322,17 +333,23 @@ def _ptxas_by_kernel(log):
     return out
 
 
-def _unfit(name, dev, dtype, int8, nslots, h, hkv, s, cluster, p_tiles=None):
-    """A forced cluster size whose blocks' shared memory does not fit this
-    shape: a line saying so (True); a forced build the dtype pair does not
-    have: no line (True); else False."""
+def _unfit(name, dev, dtype, int8, nslots, h, hkv, s, cluster, p_tiles=None, walkers=1):
+    """A forced shape whose blocks' shared memory does not fit this call: a
+    line saying so (True); a forced build or shape the dtype pair does not
+    have, or two walkers whose rows do not hold the call's query rows a kv
+    head: no line (True); else False.  One walker takes any query rows (a
+    query tile a cluster along grid.z)."""
     from vispec_tpu_torch.ops import verify_attention as va
 
     if cluster is None:
         return False
     if p_tiles is not None and not va.two_builds(dtype, int8):
         return True
-    fields = _cluster_fields(dev, dtype, int8, nslots, h, hkv, s, cluster, p_tiles)
+    pt = va.two_builds(dtype, int8) if p_tiles is None else p_tiles
+    if ((cluster, walkers) not in va.shapes_built(dtype, int8, pt)
+            or (walkers > 1 and (h // hkv) * s > va.QTILE // walkers)):
+        return True
+    fields = _cluster_fields(dev, dtype, int8, nslots, h, hkv, s, cluster, p_tiles, walkers)
     if fields["resident_clusters"] > 0:
         return False
     emit({"phase": "kernel_vs_plain", "case": name, **fields,
@@ -341,12 +358,13 @@ def _unfit(name, dev, dtype, int8, nslots, h, hkv, s, cluster, p_tiles=None):
 
 
 def kernel_case(name, seed, dev, dtype, h, hkv, s, t_reg, start, layers, mask, flush,
-                max_len=2048, d=128, cluster=None, light=False):
+                max_len=2048, d=128, cluster=None, light=False, walkers=1):
     """One main-path geometry: kernel vs plain version (max abs error), and
     the times of the kernel, the plain version and SDPA as a yardstick; the
-    cluster size the call ran at and the clusters of it the card holds.  At
-    ``cluster`` (None: the picker's size); ``light`` times the kernel alone."""
-    if _unfit(name, dev, dtype, False, 1, h, hkv, s, cluster):
+    cluster size and walkers the call ran at and the clusters of that shape
+    the card holds.  At ``cluster`` and ``walkers`` (cluster None: the
+    picker's shape); ``light`` times the kernel alone."""
+    if _unfit(name, dev, dtype, False, 1, h, hkv, s, cluster, walkers=walkers):
         return None
     import torch.nn.functional as F
 
@@ -362,7 +380,7 @@ def kernel_case(name, seed, dev, dtype, h, hkv, s, t_reg, start, layers, mask, f
     layer = None if layers is None else torch.tensor(layers - 1, dtype=torch.int32,
                                                      device=dev)
     args = (q, k, v, st, mask)
-    with forced_cluster(cluster):
+    with forced_cluster(cluster, walkers=walkers):
         out = va.verify_attention(*args, layer_idx=layer)
     ref = va.verify_attention_ref(*args, layer_idx=layer)
     torch.cuda.synchronize()
@@ -379,7 +397,7 @@ def kernel_case(name, seed, dev, dtype, h, hkv, s, t_reg, start, layers, mask, f
                                        attn_mask=sdpa_mask[None, None],
                                        enable_gqa=h != hkv)
 
-    with forced_cluster(cluster):
+    with forced_cluster(cluster, walkers=walkers):
         ms = timed_ms(lambda: va.verify_attention(*args, layer_idx=layer), flush)
         plain_ms = None if light else timed_ms(
             lambda: va.verify_attention_ref(*args, layer_idx=layer), flush)
@@ -396,13 +414,13 @@ def kernel_case(name, seed, dev, dtype, h, hkv, s, t_reg, start, layers, mask, f
            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **split}
     if d == 128:
-        row.update(_cluster_fields(dev, dtype, False, 1, h, hkv, s, cluster))
+        row.update(_cluster_fields(dev, dtype, False, 1, h, hkv, s, cluster, walkers=walkers))
     emit({"phase": "kernel_vs_plain", **row})
     assert err <= TOL[dtype], f"{name}: max abs err {err} > {TOL[dtype]}"
     return row
 
 
-def phase_kernel(dev, cluster=None, light=False):
+def phase_kernel(dev, cluster=None, light=False, walkers=1):
     """Table row 1a's four main-path geometries at 7B width (H = Hkv = 32,
     D = 128, max_len 2048), plus GQA, float32 and a ragged region end; then
     the LLaVA-1.6 prompts' geometry at max_len 4096 (64 chunks): the verify
@@ -412,9 +430,9 @@ def phase_kernel(dev, cluster=None, light=False):
     verify, the AR step; the draft's expansion at 28 heads).  Starts are
     not 64-row aligned and every region crosses a 64-row tile edge.  The
     bf16 cases run the tensor-core kernel in bf16, float32 in 3xTF32.  At
-    ``cluster`` (None: the picker's size); ``light`` times the kernel alone
-    (the sweep)."""
-    case = functools.partial(kernel_case, cluster=cluster, light=light)
+    ``cluster`` and ``walkers`` (cluster None: the picker's shape); ``light``
+    times the kernel alone (the sweep)."""
+    case = functools.partial(kernel_case, cluster=cluster, light=light, walkers=walkers)
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(0)
     tree = torch.tril(torch.rand((30, 30), generator=g) < 0.3)
@@ -467,20 +485,24 @@ def phase_kernel(dev, cluster=None, light=False):
                     flush),
         case("mixtral_target_verify_f32", 63, dev, f32, 32, 8, 30, 30, 301, 2, tree,
                     flush),
+        # the floor under every launch: one live chunk of one row (tree_start
+        # 0, T_reg 1), the kernel's time alone
+        case("launch_floor_one_chunk", 80, dev, bf16, 32, 32, 1, 1, 0, 32, ones, flush,
+             light=True),
     ]
     return rows
 
 
 def kernel_case_int8(name, seed, dev, h, hkv, s, t_reg, start, layers, mask, flush,
                      max_len=2048, d=128, dtype=torch.bfloat16, cluster=None, light=False,
-                     p_tiles=None):
+                     p_tiles=None, walkers=1):
     """Kernel 1b at one main-path geometry: bf16 (or float32) q over a
     stacked int8 cache with per-row scales, read at layer ``layers - 1``.  No single PyTorch
     call attends over int8 rows with per-row scales, so ``library_ms`` is
     null; dequantize + SDPA over the live rows is printed as an extra.  At
-    ``cluster`` and build ``p_tiles`` (None: the host's pick); ``light``
-    times the kernel alone."""
-    if _unfit(name, dev, dtype, True, 1, h, hkv, s, cluster, p_tiles):
+    ``cluster``, ``walkers`` and build ``p_tiles`` (cluster None: the host's
+    pick); ``light`` times the kernel alone."""
+    if _unfit(name, dev, dtype, True, 1, h, hkv, s, cluster, p_tiles, walkers):
         return None
     import torch.nn.functional as F
 
@@ -496,7 +518,7 @@ def kernel_case_int8(name, seed, dev, h, hkv, s, t_reg, start, layers, mask, flu
     st = torch.tensor(start, dtype=torch.int32, device=dev)
     layer = torch.tensor(layers - 1, dtype=torch.int32, device=dev)
     args = (q, k, v, st, mask, layer, ks, vs)
-    with forced_cluster(cluster, p_tiles):
+    with forced_cluster(cluster, p_tiles, walkers):
         out = va.verify_attention(*args)
     ref = va.verify_attention_ref(*args)
     torch.cuda.synchronize()
@@ -514,7 +536,7 @@ def kernel_case_int8(name, seed, dev, h, hkv, s, t_reg, start, layers, mask, flu
                                        attn_mask=sdpa_mask[None, None],
                                        enable_gqa=h != hkv)
 
-    with forced_cluster(cluster, p_tiles):
+    with forced_cluster(cluster, p_tiles, walkers):
         ms = timed_ms(lambda: va.verify_attention(*args), flush)
         plain_ms = None if light else timed_ms(lambda: va.verify_attention_ref(*args), flush)
         extra_ms = None if light else timed_ms(dequant_sdpa, flush)
@@ -532,22 +554,24 @@ def kernel_case_int8(name, seed, dev, h, hkv, s, t_reg, start, layers, mask, flu
                            "per-row scales",
            "dequant_sdpa_ms": extra_ms, "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **split,
-           **_cluster_fields(dev, dtype, True, 1, h, hkv, s, cluster, p_tiles)}
+           **_cluster_fields(dev, dtype, True, 1, h, hkv, s, cluster, p_tiles, walkers)}
     emit({"phase": "kernel_vs_plain", **row})
     assert err <= TOL[dtype], f"{name} int8: max abs err {err} > {TOL[dtype]}"
     return row
 
 
-def phase_kernel_int8(dev, cluster=None, light=False, p_tiles=None):
+def phase_kernel_int8(dev, cluster=None, light=False, p_tiles=None, walkers=1):
     """Table row 1b's main-path geometries at 7B width: the target verify and
     the AR step over the 32-layer int8 cache, GQA with 4 groups, a region
     that ends one column into a 64-row chunk, and the verify after a
     2,956-row LLaVA-1.6 prompt at max_len 4096; then Qwen2.5-VL-7B's over
     its 28-layer int8 cache at max_len 4096 (groups of 7): the verify and
     the AR step with bf16 q, and the verify with float32 q (qwen_exact's
-    quantized model).  At ``cluster`` and build ``p_tiles`` (None: the
-    host's pick); ``light`` times the kernel alone (the sweep)."""
-    case = functools.partial(kernel_case_int8, cluster=cluster, light=light, p_tiles=p_tiles)
+    quantized model).  At ``cluster``, ``walkers`` and build ``p_tiles``
+    (cluster None: the host's pick); ``light`` times the kernel alone (the
+    sweep)."""
+    case = functools.partial(kernel_case_int8, cluster=cluster, light=light, p_tiles=p_tiles,
+                             walkers=walkers)
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(1)
     tree = torch.tril(torch.rand((30, 30), generator=g) < 0.3)
@@ -579,7 +603,7 @@ def phase_kernel_int8(dev, cluster=None, light=False, p_tiles=None):
 
 def kernel_case_batched(name, seed, dev, dtype, h, hkv, s, t_reg, starts, layers, masks,
                         flush, int8=False, n_layers=32, max_len=2048, d=128, cluster=None,
-                        light=False, p_tiles=None):
+                        light=False, p_tiles=None, walkers=1):
     """Kernel 1c (the batched grid) at one main-path geometry: B slots, each
     with its own cache, start, layer and region mask.  Against its plain
     version; times of the kernel, the plain version, the library yardstick
@@ -587,15 +611,15 @@ def kernel_case_batched(name, seed, dev, dtype, h, hkv, s, t_reg, starts, layers
     dense bool mask over each slot's live rows of its layer, selected before
     timing; int8: dequantize + SDPA, printed beside a null library_ms as for
     row 1b) and B launches of the single-request kernel on the same data.
-    At ``cluster`` and build ``p_tiles`` (None: the host's pick); ``light``
-    times the kernel alone."""
+    At ``cluster``, ``walkers`` and build ``p_tiles`` (cluster None: the
+    host's pick); ``light`` times the kernel alone."""
     import torch.nn.functional as F
 
     from vispec_tpu_torch.ops import kv_cache as kvc
     from vispec_tpu_torch.ops import verify_attention as va
     from vispec_tpu_torch.ops.attention import tree_verify_mask
 
-    if _unfit(name, dev, dtype, int8, len(starts), h, hkv, s, cluster, p_tiles):
+    if _unfit(name, dev, dtype, int8, len(starts), h, hkv, s, cluster, p_tiles, walkers):
         return None
     b = len(starts)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -610,7 +634,8 @@ def kernel_case_batched(name, seed, dev, dtype, h, hkv, s, t_reg, starts, layers
     st = torch.tensor(starts, dtype=torch.int32, device=dev)
     layer = None if layers is None else torch.tensor(layers, dtype=torch.int32, device=dev)
     args = (q, k, v, st, masks, layer, ks, vs)
-    with forced_cluster(cluster, p_tiles):
+    force = functools.partial(forced_cluster, cluster, p_tiles, walkers)
+    with force():
         out = va.verify_attention_batched(*args)
     ref = va.verify_attention_batched_ref(*args)
     torch.cuda.synchronize()
@@ -639,7 +664,7 @@ def kernel_case_batched(name, seed, dev, dtype, h, hkv, s, t_reg, starts, layers
         vv = kvc.dequantize_rows(v_l, vs_l, dtype) if int8 else v_l
         F.scaled_dot_product_attention(q, kk, vv, attn_mask=dense, enable_gqa=h != hkv)
 
-    with forced_cluster(cluster, p_tiles):
+    with force():
         ms = timed_ms(lambda: va.verify_attention_batched(*args), flush)
         plain_ms = None if light else timed_ms(
             lambda: va.verify_attention_batched_ref(*args), flush)
@@ -662,7 +687,7 @@ def kernel_case_batched(name, seed, dev, dtype, h, hkv, s, t_reg, starts, layers
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **split}
     if d == 128:
-        row.update(_cluster_fields(dev, dtype, int8, b, h, hkv, s, cluster, p_tiles))
+        row.update(_cluster_fields(dev, dtype, int8, b, h, hkv, s, cluster, p_tiles, walkers))
     if int8:
         row.update(library_note="no single PyTorch call attends over int8 rows with "
                                 "per-row scales", dequant_sdpa_ms=yard_ms)
@@ -673,7 +698,7 @@ def kernel_case_batched(name, seed, dev, dtype, h, hkv, s, t_reg, starts, layers
     return row
 
 
-def phase_kernel_batched(dev, cluster=None, light=False, p_tiles=None):
+def phase_kernel_batched(dev, cluster=None, light=False, p_tiles=None, walkers=1):
     """Table row 1c at the batched round's geometries, B = 4 at 7B width:
     the target verify over the 32-layer cache (slots at starts 301, 129,
     777, 1500 and layers 0, 5, 17, 31), the draft append and expansion over
@@ -685,10 +710,10 @@ def phase_kernel_batched(dev, cluster=None, light=False, p_tiles=None):
     int8 verify; the Qwen2.5-VL-7B engine's verify (groups of 7) over
     bf16 and int8 caches; Mixtral's draft shapes; and ``trainer.getkacc``'s
     rollout at 7B widths: B = 16, S = 1 over a 519-row float32 draft
-    cache.  At ``cluster`` and build ``p_tiles`` (None: the host's pick);
-    ``light`` times the kernel alone (the sweep)."""
+    cache.  At ``cluster``, ``walkers`` and build ``p_tiles`` (cluster
+    None: the host's pick); ``light`` times the kernel alone (the sweep)."""
     case = functools.partial(kernel_case_batched, cluster=cluster, light=light,
-                             p_tiles=p_tiles)
+                             p_tiles=p_tiles, walkers=walkers)
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(2)
     b, starts, layers = 4, (301, 129, 777, 1500), (0, 5, 17, 31)
@@ -742,6 +767,10 @@ def phase_kernel_batched(dev, cluster=None, light=False, p_tiles=None):
         # 512 + 5 + 2 rows (starts in the sample's generated half)
         case("batched_getkacc_f32_b16", 70, dev, f32, 32, 32, 1, 1,
                             KACC_STARTS, None, ones16.to(dev), flush, max_len=519),
+        # the floor under every launch at B = 4: one live chunk of one row a
+        # slot, the kernel's time alone
+        case("batched_launch_floor_one_chunk", 81, dev, bf16, 32, 32, 1, 1, (0, 0, 0, 0),
+             layers, ones, flush, light=True),
     ]
     rows_int8 = [
         case("batched_target_verify_int8", 25, dev, bf16, 32, 32, 30, 30,
@@ -843,10 +872,43 @@ chip_smoke.phase_kernel(dev)
 chip_smoke.phase_kernel_int8(dev)
 chip_smoke.phase_kernel_batched(dev)
 """,
-    # rows 1a, 1b and 1c at every cluster size, the kernel's time alone (the
-    # picker's rule comes from this sweep)
+    # rows 1a, 1b and 1c at every (cluster size, walkers) shape, the
+    # kernel's time alone (the picker's rule comes from this sweep)
     "--attention-sweep": """
 chip_smoke.phase_attention_sweep(dev)
+""",
+    # the B = 4 engine over Vicuna-7B at all 32 layers, bfloat16 then
+    # quantized (int8 KV, int4 draft, int8 target), each chunk of 8 rounds
+    # under torch.profiler twice: device ms a round, the attention's apart
+    "--engine-rounds": """
+from vispec_tpu_torch.spec.spec_model import SpecModel
+chip_smoke.PROFILE_CHUNK_ROUNDS = 8
+
+def engine_rounds(tag, m):
+    chip_smoke._warm_engine(m, dev)
+    for _ in range(2):
+        chunk = chip_smoke._profile_engine_chunk(m, 4)
+        n = chunk["rounds"]
+        chip_smoke.emit({
+            "phase": "engine_rounds", "model": tag, "layers": m.tcfg.num_hidden_layers,
+            "batch_size": 4, "rounds": n, "attention_launches": chunk["attention_launches"],
+            "attention_ms_per_round": chunk["attention_ms"] / n,
+            "device_busy_ms_per_round": chunk["device_busy_ms"] / n,
+            "device_idle_share": chunk["device_idle_share"],
+            "port_kernels_per_round": {k: [c / n, ms / n]
+                                       for k, (c, ms) in chunk["port_kernels"].items()}})
+
+model = chip_smoke._full_width_model(dev, 32, torch.bfloat16, seed=0)
+engine_rounds("bfloat16", model)
+draft = {k: v for k, v in model.dparams.items() if k not in ("fuse_we", "fuse_wh")}
+model.target_cache = model.draft_cache = None
+qmodel = SpecModel(model.tcfg, model.dcfg, model.spec, model.tparams, draft,
+                   max_len=model.max_len, dtype=torch.bfloat16, device=dev,
+                   quantize_kv=True, quantize_draft="int4")
+qmodel.quantize_target_inplace()
+del model
+torch.cuda.empty_cache()
+engine_rounds("int8_kv_int4_draft_int8_target", qmodel)
 """,
     # the 7B decode loop and the engine at all 32 layers, training with
     # getkacc, then the quantized decode loop and engine
@@ -862,21 +924,24 @@ chip_smoke.phase_serving_quant_full_depth(dev, qmodel)
 
 
 def phase_attention_sweep(dev):
-    """Rows 1a, 1b and 1c at each cluster size the kernel is built for, one
-    ``kernel_vs_plain`` line per row and size (a size whose shared memory
-    does not fit a shape says so), then the bf16-q-over-int8 rows in the
-    register build (clusters of 8), the kernel's time alone; then the
-    resident clusters of every build and row count."""
+    """Rows 1a, 1b and 1c at each (cluster size, walkers) shape the kernel
+    is built for, one ``kernel_vs_plain`` line per row and shape (a shape
+    whose shared memory does not fit a call says so; two walkers whose rows
+    do not hold a call's query rows a kv head are left out), then the
+    bf16-q-over-int8 rows in the register build (8, 1), the kernel's time
+    alone; then the resident clusters of every build and row count."""
     from vispec_tpu_torch.ops import verify_attention as va
 
-    for cluster in va.CLUSTERS:
-        phase_kernel(dev, cluster=cluster, light=True)
-        phase_kernel_int8(dev, cluster=cluster, light=True)
-        phase_kernel_batched(dev, cluster=cluster, light=True)
+    for cluster, walkers in [(c, 1) for c in va.CLUSTERS] + list(va.WALKER_SHAPES):
+        phase_kernel(dev, cluster=cluster, light=True, walkers=walkers)
+        phase_kernel_int8(dev, cluster=cluster, light=True, walkers=walkers)
+        phase_kernel_batched(dev, cluster=cluster, light=True, walkers=walkers)
     phase_kernel_int8(dev, cluster=va.VRANKS, light=True, p_tiles=False)
     phase_kernel_batched(dev, cluster=va.VRANKS, light=True, p_tiles=False)
     emit({"phase": "resident_clusters", "card": torch.cuda.get_device_name(0),
-          "table": [{"dtype": d, "int8": q8, "rows": rows, "p_tiles": pt, "resident": res}
+          "table": [{"dtype": d, "int8": q8, "rows": rows, "p_tiles": pt,
+                     "resident": [{"cluster": c, "walkers": w, "clusters": n}
+                                  for (c, w), n in res.items()]}
                     for (d, q8, rows, pt), res in sorted(RESIDENT_SEEN.items())]})
 
 

@@ -4,6 +4,7 @@ Every test here needs an NVIDIA GPU with nvcc and skips elsewhere.  The file
 imports neither jax nor the JAX package, so it runs where only PyTorch is
 installed (see README, "PyTorch + CUDA port")."""
 
+import contextlib
 import functools
 from unittest import mock
 
@@ -374,24 +375,37 @@ def test_verify_attention_mma_kernel_is_reproducible(cuda_device, dtype, int8):
     assert torch.equal(c[0], a) and torch.equal(c[1], a)
 
 
-def _at_cluster(cluster, p_tiles=None):
-    """Attention calls inside run at clusters of ``cluster`` blocks and, bf16
-    q over int8, in the build ``p_tiles`` names (None: the P tiles), through
-    ``_launch``'s private keywords."""
-    return mock.patch.object(va, "_launch", functools.partial(va._launch, _cluster=cluster,
-                                                              _p_tiles=p_tiles))
+def _at_cluster(cluster, p_tiles=None, walkers=1):
+    """Attention calls inside run at clusters of ``cluster`` blocks of
+    ``walkers`` walkers and, bf16 q over int8, in the build ``p_tiles`` names
+    (None: the P tiles), through ``_launch``'s private keywords (cluster
+    None: the host's shape)."""
+    if cluster is None:
+        return contextlib.nullcontext()
+    return mock.patch.object(va, "_launch", functools.partial(
+        va._launch, _cluster=cluster, _walkers=walkers, _p_tiles=p_tiles))
 
 
 # (B (None: a single request), H, Hkv, S, T_reg, starts, slot layers of a
-# 2-layer cache (None: no layer dim), max_len): GQA with 4 groups (120 query
-# rows a kv head: two query tiles, the second of 56 rows), alone and at B =
-# 2 (over int8 the request alone takes the register build, the batch the P
-# tiles); B = 4 at ragged starts (a region ending at max_len, no committed
-# prefix, a region ending one column into a chunk, a short slot); the LLaVA
-# engine's starts at max_len 4096; getkacc's rollout (16 slots, one query
-# row each, 519 rows)
+# 2-layer cache (None: no layer dim), max_len): the round's shapes at 7B
+# widths, gs = 30 (the verify), 1 (the AR step), 5 (the draft's append, no
+# layer dim) and 8 (its expansion over a 24-column region), alone and at B =
+# 4; GQA with 4 groups (120 query rows a kv head: two query tiles of one
+# walker, the second of 56 rows), alone and at B = 2 (over int8 the request
+# alone takes the register build, the batch the P tiles); B = 4 at ragged
+# starts (a region ending at max_len, no committed prefix, a region ending
+# one column into a chunk, a short slot); the LLaVA engine's starts at
+# max_len 4096; getkacc's rollout (16 slots, one query row each, 519 rows)
 CLUSTER_SHAPES = {
+    "single_s30": (None, 32, 32, 30, 30, (301,), (1,), 2048),
+    "single_s1": (None, 32, 32, 1, 1, (319,), (0,), 2048),
+    "single_s5": (None, 32, 32, 5, 5, (317,), None, 2048),
+    "single_s8": (None, 32, 32, 8, 24, (300,), None, 2048),
     "single_gqa4": (None, 32, 8, 30, 30, (301,), (1,), 2048),
+    "batched_s30": (4, 32, 32, 30, 30, (301, 129, 777, 1500), (0, 1, 1, 0), 2048),
+    "batched_s1": (4, 32, 32, 1, 1, (301, 129, 777, 1500), (1, 0, 1, 0), 2048),
+    "batched_s5": (4, 32, 32, 5, 5, (301, 129, 777, 1500), None, 2048),
+    "batched_s8": (4, 32, 32, 8, 24, (301, 129, 777, 1500), None, 2048),
     "batched_gqa4": (2, 32, 8, 30, 30, (301, 1500), (1, 0), 2048),
     "batched_ragged": (4, 32, 32, 30, 30, (2048 - 30, 0, 5 * 64 + 1 - 30, 77), (0, 1, 1, 0),
                        2048),
@@ -426,39 +440,58 @@ def _slot(args, i):
     return tuple(None if a is None else a[i] for a in args)
 
 
+def _built_shapes(dev, dtype, int8, gs):
+    """Every (cluster, walkers, p_tiles) the source builds for the pair whose
+    shared memory fits ``gs`` query rows a kv head (p_tiles None: the pair's
+    default build), over int8 also the register build (8, 1)."""
+    resident = va.resident_clusters(dev, dtype, int8, gs)
+    assert resident[(8, 1)] > 0
+    builds = [(c, w, None) for (c, w), n in resident.items() if n > 0]
+    if va.two_builds(dtype, int8):
+        builds.append((8, 1, False))
+    return builds
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", list(CLUSTER_SHAPES), ids=list(CLUSTER_SHAPES))
 @pytest.mark.parametrize("dtype,int8", CLUSTER_PAIRS, ids=["bf16", "bf16_int8", "f32"])
 def test_verify_attention_every_cluster_size_gives_the_bits_of_8(cuda_device, shape, dtype,
                                                                  int8):
-    """The chunks' reduction order does not depend on the cluster: at every
-    size whose shared memory fits the shape, and over int8 in both builds,
-    the output equals the cluster of 8's bit for bit, and two runs at a size
-    agree bit for bit."""
+    """The chunks' reduction order does not depend on the cluster or the
+    walkers: at every (cluster, walkers) shape the source builds whose shared
+    memory fits the call (bf16 q over a bf16 cache: also two walkers whose
+    rows take a part of the kv head's query rows, more query tiles), over
+    int8 in both builds, the output equals the cluster of 8's with one
+    walker bit for bit (a batch: each slot alone at (8, 1), which runs
+    without the slot placement), and two runs at a shape agree bit for
+    bit."""
     dev = cuda_device
     args = _cluster_case(dev, dtype, int8, CLUSTER_SHAPES[shape])
     single = CLUSTER_SHAPES[shape][0] is None
     b, h, s = args[0].shape[:3]
     hkv = args[1].shape[-3]
-    resident = va.resident_clusters(dev, dtype, int8, (h // hkv) * s)
-    assert resident[8] > 0
 
-    def run(cluster, p_tiles=None):
-        with _at_cluster(cluster, p_tiles):
+    def run(cluster, walkers=1, p_tiles=None):
+        with _at_cluster(cluster, p_tiles, walkers):
             if single:
                 return va.verify_attention(*_slot(args, 0))
             return va.verify_attention_batched(*args)
 
-    want = run(8)
-    builds = [(c, None) for c in va.CLUSTERS if resident[c] > 0]
-    if va.two_builds(dtype, int8):
-        builds.append((8, False))
-    for cluster, p_tiles in builds:
-        a, b = run(cluster, p_tiles), run(cluster, p_tiles)
+    if single:
+        want = run(8)
+    else:
+        with _at_cluster(8):
+            want = torch.stack([va.verify_attention(*_slot(args, i))
+                                for i in range(args[0].shape[0])])
+    builds = _built_shapes(dev, dtype, int8, (h // hkv) * s)
+    for cluster, walkers, p_tiles in builds:
+        a, b = run(cluster, walkers, p_tiles), run(cluster, walkers, p_tiles)
         torch.cuda.synchronize()
-        assert torch.equal(a, b), (cluster, p_tiles)
-        assert torch.equal(a, want), (cluster, p_tiles)
-    assert len(builds) >= 3, resident
+        assert torch.equal(a, b), (cluster, walkers, p_tiles)
+        assert torch.equal(a, want), (cluster, walkers, p_tiles)
+    assert len(builds) >= 3, builds
+    if dtype == torch.bfloat16 and not int8:
+        assert any(w > 1 for _, w, _ in builds), builds
     ref = (va.verify_attention_ref(*_slot(args, 0)) if single else
            va.verify_attention_batched_ref(*args))
     assert (want.float() - ref.float()).abs().max().item() <= (
@@ -466,13 +499,14 @@ def test_verify_attention_every_cluster_size_gives_the_bits_of_8(cuda_device, sh
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [n for n in CLUSTER_SHAPES if n != "single_gqa4"])
+@pytest.mark.parametrize("shape", [n for n in CLUSTER_SHAPES if not n.startswith("single")])
 @pytest.mark.parametrize("dtype,int8", CLUSTER_PAIRS, ids=["bf16", "bf16_int8", "f32"])
 def test_verify_attention_slot_at_the_picked_cluster_equals_the_request_alone(
         cuda_device, shape, dtype, int8):
-    """Each slot of a batch, at the cluster size (and build) the host picks
-    for the batch, equals the same request alone at what it picks for one
-    request, bit for bit; the launch counts one call each."""
+    """Each slot of a batch, at the (cluster, walkers) shape and build the
+    host picks for the batch and its slots placed longest first on the grid,
+    equals the same request alone at what the host picks for one request,
+    bit for bit; the launch counts one call each."""
     dev = cuda_device
     args = _cluster_case(dev, dtype, int8, CLUSTER_SHAPES[shape])
     counter = "launches_int8" if int8 else "launches"
@@ -483,6 +517,76 @@ def test_verify_attention_slot_at_the_picked_cluster_equals_the_request_alone(
         one = va.verify_attention(*_slot(args, i))
         torch.cuda.synchronize()
         assert torch.equal(one, out[i]), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,int8", CLUSTER_PAIRS, ids=["bf16", "bf16_int8", "f32"])
+@pytest.mark.parametrize("s,t_reg", [(30, 30), (1, 1), (8, 24)], ids=["s30", "s1", "s8"])
+def test_verify_attention_permuting_the_slots_permutes_the_output(cuda_device, dtype, int8, s,
+                                                                  t_reg):
+    """The block columns serve a batch's slots longest first, an order the
+    kernel computes from the starts: permuting the slots (ragged: no
+    committed prefix, a region ending one column into a chunk, one ending
+    at max_len, a short slot, two of equal length) permutes the output bit
+    for bit, at the host's shape and at each built shape."""
+    dev, max_len = cuda_device, 2048
+    starts = (0, 5 * 64 + 1 - t_reg, max_len - t_reg, 77, 700, 700)
+    args = _cluster_case(dev, dtype, int8, (6, 32, 32, s, t_reg, starts, (0, 1, 1, 0, 1, 0),
+                                            max_len))
+    perms = [torch.tensor(p, device=dev) for p in ((5, 4, 3, 2, 1, 0), (2, 0, 5, 1, 3, 4))]
+    shapes = [(None, 1, None)] + _built_shapes(dev, dtype, int8, s)
+    for cluster, walkers, p_tiles in shapes:
+        with _at_cluster(cluster, p_tiles, walkers):
+            out = va.verify_attention_batched(*args)
+            for perm in perms:
+                moved = va.verify_attention_batched(
+                    *(None if a is None else a[perm].contiguous() for a in args))
+                torch.cuda.synchronize()
+                assert torch.equal(moved, out[perm]), (cluster, walkers, p_tiles, perm)
+
+
+# (cluster, walkers, H, Hkv, S, T_reg, start, layers): each shape of more
+# than one walker at the round's query rows a kv head (gs 30, 8, 5, 1) that
+# one of its walkers holds
+WALKER_CASES = [(c, w, *x) for c, w in va.WALKER_SHAPES
+                for x in [(32, 32, 30, 30, 301, 3), (32, 32, 8, 24, 300, None),
+                          (32, 32, 5, 5, 317, None), (32, 32, 1, 1, 319, 3)]
+                if x[2] <= va.QTILE // w]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster,walkers,h,hkv,s,t_reg,start,layers", WALKER_CASES,
+                         ids=[f"c{c[0]}w{c[1]}_s{c[4]}" for c in WALKER_CASES])
+def test_verify_attention_walkers_kernel_matches_plain(cuda_device, cluster, walkers, h, hkv,
+                                                       s, t_reg, start, layers):
+    """Every instantiation with more than one walker (bf16 q over a bf16
+    cache) against the plain version, a single request and B = 3 (starts
+    ``start``, 0 and 1,500), within bf16's 2e-2; rows past the live end
+    poisoned with NaN, so no walker reads them."""
+    dev = cuda_device
+    (q, k, v, st, mask), layer = _case(dev, torch.bfloat16, h, hkv, s, t_reg, start, layers,
+                                       128, max_len=2048)
+    starts = (start, 0, 1530 - t_reg)
+    qb = torch.stack([q, q.flip(0), q.roll(1, 0)])
+    kb = torch.stack([k, k.roll(1, -2), k.flip(-2)])
+    vb = torch.stack([v, v.flip(-2), v.roll(3, -2)])
+    mb = torch.stack([mask, mask.flip(0), mask]).contiguous()
+    stb = torch.tensor(starts, dtype=torch.int32, device=dev)
+    lb = None if layer is None else torch.tensor((layers - 1, 0, 1), dtype=torch.int32,
+                                                 device=dev)
+    ref_args = (kb.clone(), vb.clone(), stb, mb, lb)
+    for i, start_i in enumerate(starts):
+        kb[i, ..., start_i + t_reg:, :] = float("nan")
+        vb[i, ..., start_i + t_reg:, :] = float("nan")
+    run_args = (kb, vb, stb, mb, lb)
+    with _at_cluster(cluster, None, walkers):
+        out = va.verify_attention_batched(qb, *run_args)
+        one = va.verify_attention(qb[0], *_slot(run_args, 0))
+    ref = va.verify_attention_batched_ref(qb, *ref_args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert torch.equal(one, out[0])
 
 
 @pytest.mark.gpu

@@ -136,43 +136,78 @@ def test_cpu_wrapper_runs_the_plain_version_without_a_launch():
     assert tva.verify_attention.launches == before
 
 
-# The clusters of each size the H100 80GB HBM3 holds at once, by (q dtype,
-# int8 cache, query rows of a kv head up to 64), from the occupancy query
+# The clusters of each (cluster size, walkers) shape the H100 80GB HBM3
+# holds at once, by (q dtype, int8 cache (bf16 q: the P-tile build), query
+# rows of a kv head up to 64), from the occupancy query
 # (``resident_clusters``) as chip_smoke.py --attention-sweep printed it: a
-# size whose extra slots of shared memory cost blocks an SM holds fewer.
+# shape whose tiles and extra slots of shared memory cost blocks an SM holds
+# fewer; two walkers over a bf16 cache fit three blocks an SM.  The walker
+# shape exists for bf16 q over a bf16 cache only.
+_SMALL = {(8, 1): 45, (4, 1): 92, (2, 1): 198, (1, 1): 396}
+_BF16_SMALL = {**_SMALL, (4, 2): 92}
 H100_RESIDENT = {
-    ("bfloat16", False, 1): {8: 45, 4: 92, 2: 198, 1: 396},
-    ("bfloat16", False, 5): {8: 45, 4: 92, 2: 198, 1: 396},
-    ("bfloat16", False, 8): {8: 45, 4: 92, 2: 198, 1: 264},
-    ("bfloat16", False, 30): {8: 45, 4: 92, 2: 132, 1: 132},
-    ("bfloat16", False, 64): {8: 45, 4: 62, 2: 66, 1: 0},
-    ("bfloat16", True, 1): {8: 45, 4: 92, 2: 198, 1: 396},
-    ("bfloat16", True, 30): {8: 45, 4: 62, 2: 66, 1: 132},
-    ("float32", False, 1): {8: 30, 4: 62, 2: 132, 1: 264},
-    ("float32", False, 30): {8: 30, 4: 30, 2: 66, 1: 132},
-    ("float32", False, 64): {8: 30, 4: 30, 2: 66, 1: 0},
+    ("bfloat16", False, 1): _BF16_SMALL,
+    ("bfloat16", False, 5): _BF16_SMALL,
+    ("bfloat16", False, 8): {**_BF16_SMALL, (1, 1): 264},
+    ("bfloat16", False, 30): {**_BF16_SMALL, (2, 1): 132, (1, 1): 132},
+    ("bfloat16", False, 64): {**_BF16_SMALL, (4, 1): 62, (2, 1): 66, (1, 1): 0},
+    ("bfloat16", True, 1): _SMALL,
+    ("bfloat16", True, 4): {**_SMALL, (1, 1): 264},
+    ("bfloat16", True, 7): {**_SMALL, (2, 1): 132, (1, 1): 264},
+    ("bfloat16", True, 30): {(8, 1): 45, (4, 1): 62, (2, 1): 66, (1, 1): 132},
+    ("bfloat16", True, 64): {(8, 1): 45, (4, 1): 62, (2, 1): 66, (1, 1): 0},
+    ("float32", False, 1): {(8, 1): 30, (4, 1): 62, (2, 1): 132, (1, 1): 264},
+    ("float32", False, 30): {(8, 1): 30, (4, 1): 30, (2, 1): 66, (1, 1): 132},
+    ("float32", False, 64): {(8, 1): 30, (4, 1): 30, (2, 1): 66, (1, 1): 0},
 }
 
+# bf16 q over int8 in its register build (p * v_scale packed inside P.V,
+# two blocks an SM): the clusters of 8 the H100 holds at once, at every row
+# count chip_smoke.py runs (the occupancy query, as its sweep printed it)
+H100_REGISTER8 = 30
+
 # (name, slots, kv heads, query rows of a kv head, q dtype, int8 cache,
-# cluster size): chip_smoke.py's attention rows and the size the sweep
-# found fastest or within a few per cent of it (PERF.md §6)
+# (cluster size, walkers, P tiles)): chip_smoke.py's attention rows and the
+# shape the host picks.  Each entry with a row in chip_smoke.py
+# --attention-sweep (PERF.md §6) is the fastest shape there or
+# within 3% of it, but for batched_llava_verify_4096 (a cluster of 2 is 7%
+# faster on LLaVA's short slots, which the host cannot tell from the 7B
+# verify's longer ones); batched_step_bf16, tp2_batched_target_verify and
+# tp2_batched_getkacc_f32_b16 have no sweep row and pin the rule: one
+# request at (8, 1) (over int8 the register build where one wave
+# of it holds the grid); the B = 4 bf16 rounds at (4, 2), three blocks an
+# SM, every rank of a block at once; the B = 4 verify over int8 at (8, 1)
+# and its step at (4, 1) (no walkers over int8); float32 q and more than 32 query rows a kv head (GQA, Qwen) with one
+# walker; getkacc's 16 one-row slots at (1, 1), its tp 2 shard at (2, 1)
 PICKS = [
-    ("target_verify", 1, 32, 30, "bfloat16", False, 8),
-    ("ar_step", 1, 32, 1, "bfloat16", False, 8),
-    ("gqa_groups4", 1, 8, 120, "bfloat16", False, 8),
-    ("target_verify_f32", 1, 32, 30, "float32", False, 8),  # 2 waves of 30 clusters
-    ("target_verify_int8", 1, 32, 30, "bfloat16", True, 8),
-    ("batched_target_verify", 4, 32, 30, "bfloat16", False, 4),
-    ("batched_llava_verify_4096", 4, 32, 30, "bfloat16", False, 4),
-    ("batched_draft_append", 4, 32, 5, "bfloat16", False, 4),
-    ("batched_draft_expand", 4, 32, 8, "bfloat16", False, 4),
-    ("batched_gqa_groups4", 4, 8, 120, "bfloat16", False, 8),
-    ("batched_target_verify_f32", 4, 32, 30, "float32", False, 8),
-    ("mixtral_batched_verify_f32", 4, 8, 120, "float32", False, 8),
-    ("batched_target_verify_int8", 4, 32, 30, "bfloat16", True, 8),
-    ("batched_step_int8", 4, 32, 1, "bfloat16", True, 4),
-    ("batched_getkacc_f32_b16", 16, 32, 1, "float32", False, 1),
-    ("tp2_batched_getkacc_f32_b16", 16, 16, 1, "float32", False, 2),
+    ("target_verify", 1, 32, 30, "bfloat16", False, (8, 1, False)),
+    ("ar_step", 1, 32, 1, "bfloat16", False, (8, 1, False)),
+    ("draft_append", 1, 32, 5, "bfloat16", False, (8, 1, False)),
+    ("draft_expand", 1, 32, 8, "bfloat16", False, (8, 1, False)),
+    ("gqa_groups4", 1, 8, 120, "bfloat16", False, (8, 1, False)),
+    ("qwen_target_verify", 1, 4, 210, "bfloat16", False, (8, 1, False)),
+    ("target_verify_f32", 1, 32, 30, "float32", False, (8, 1, False)),  # 2 waves of 30
+    ("target_verify_int8", 1, 32, 30, "bfloat16", True, (8, 1, True)),
+    ("ar_step_int8", 1, 32, 1, "bfloat16", True, (8, 1, True)),
+    ("gqa_groups4_int8", 1, 8, 120, "bfloat16", True, (8, 1, False)),
+    ("qwen_ar_step_int8", 1, 4, 7, "bfloat16", True, (8, 1, False)),
+    ("batched_target_verify", 4, 32, 30, "bfloat16", False, (4, 2, False)),
+    ("batched_llava_verify_4096", 4, 32, 30, "bfloat16", False, (4, 2, False)),
+    ("batched_draft_append", 4, 32, 5, "bfloat16", False, (4, 2, False)),
+    ("batched_draft_expand", 4, 32, 8, "bfloat16", False, (4, 2, False)),
+    ("batched_step_bf16", 4, 32, 1, "bfloat16", False, (4, 2, False)),
+    ("batched_gqa_groups4", 4, 8, 120, "bfloat16", False, (8, 1, False)),
+    ("qwen_batched_verify", 4, 4, 210, "bfloat16", False, (8, 1, False)),
+    ("mixtral_batched_draft_append", 4, 8, 5, "bfloat16", False, (8, 1, False)),
+    ("tp2_batched_target_verify", 4, 16, 30, "bfloat16", False, (8, 1, False)),
+    ("batched_target_verify_f32", 4, 32, 30, "float32", False, (8, 1, False)),
+    ("mixtral_batched_verify_f32", 4, 8, 120, "float32", False, (8, 1, False)),
+    ("batched_target_verify_int8", 4, 32, 30, "bfloat16", True, (8, 1, True)),
+    ("batched_step_int8", 4, 32, 1, "bfloat16", True, (4, 1, True)),
+    ("qwen_batched_verify_int8", 4, 4, 210, "bfloat16", True, (8, 1, True)),
+    ("mixtral_batched_verify_int8", 4, 8, 120, "bfloat16", True, (8, 1, True)),
+    ("batched_getkacc_f32_b16", 16, 32, 1, "float32", False, (1, 1, False)),
+    ("tp2_batched_getkacc_f32_b16", 16, 16, 1, "float32", False, (2, 1, False)),
 ]
 
 
@@ -180,36 +215,43 @@ def _resident(dtype, int8, gs):
     return H100_RESIDENT[(dtype, int8, min(gs, tva.QTILE))]
 
 
+def _pick(nslots, hkv, gs, dtype, int8):
+    return tva.pick_shape(nslots, hkv, gs, _resident(dtype, int8, gs),
+                          H100_REGISTER8 if dtype == "bfloat16" and int8 else None)
+
+
 @pytest.mark.parametrize("name,nslots,hkv,gs,dtype,int8,want", PICKS,
                          ids=[p[0] for p in PICKS])
 def test_cluster_picker_on_the_h100(name, nslots, hkv, gs, dtype, int8, want):
-    """The cluster size the host picks from a call's shapes and the card's
-    resident clusters, at each attention shape chip_smoke.py runs."""
-    assert tva.pick_cluster(nslots, hkv, gs, _resident(dtype, int8, gs)) == want
+    """The (cluster size, walkers, build) the host picks from a call's
+    shapes and the card's resident clusters, at each attention shape
+    chip_smoke.py runs; two walkers only where 32 rows hold a kv head's query
+    rows and the q is bf16."""
+    got = _pick(nslots, hkv, gs, dtype, int8)
+    assert got == want
+    if gs > tva.QTILE // 2 or dtype == "float32":
+        assert got[1] == 1
 
 
 @pytest.mark.parametrize("hkv,gs,dtype,int8", [(32, 30, "bfloat16", False),
+                                               (32, 5, "bfloat16", False),
                                                (32, 30, "bfloat16", True),
+                                               (32, 1, "bfloat16", True),
                                                (32, 30, "float32", False),
                                                (32, 1, "float32", False)])
 def test_cluster_picker_keeps_its_size_while_the_grid_allows(hkv, gs, dtype, int8):
     """Slot counts that change only B keep the pick while the grid still
-    fits the waves that chose it: the size changes only where a count of
-    slots crosses a wave of the size it had, and a larger batch never takes
-    a larger cluster."""
+    fits the waves that chose it: the shape changes only where a count of
+    slots takes the old shape past two waves, and a larger batch never takes
+    a shorter chain of virtual ranks a block (ceil(8 / C / W))."""
     resident = _resident(dtype, int8, gs)
     picks = [tva.pick_cluster(b, hkv, gs, resident) for b in range(1, 33)]
-    assert all(a >= b for a, b in zip(picks, picks[1:])), picks
+    chain = [-(-tva.VRANKS // c // w) for c, w in picks]
+    assert all(a <= b for a, b in zip(chain, chain[1:])), picks
     for b in range(1, 32):
-        if picks[b] != picks[b - 1]:  # B = b + 1 leaves the waves of the old size
-            old = picks[b - 1]
-            assert -(-(b + 1) * hkv // resident[old]) > 2, (b + 1, picks)
+        if picks[b] != picks[b - 1]:  # B = b + 1 leaves the waves of the old shape
+            assert -(-(b + 1) * hkv // resident[picks[b - 1]]) > 2, (b + 1, picks)
 
-
-# bf16 q over int8 in its register build (p * v_scale packed inside P.V,
-# two blocks an SM): the clusters of 8 the H100 holds at once, at every row
-# count chip_smoke.py runs (the occupancy query, as its sweep printed it)
-H100_REGISTER8 = 30
 
 # (name, slots, kv heads, query rows of a kv head, register build): the
 # bf16-over-int8 rows of chip_smoke.py; the register build where one wave
@@ -239,13 +281,16 @@ def test_int8_build_choice_on_the_h100(name, nslots, hkv, gs, register):
 
 def test_cluster_picker_needs_no_device():
     """The picker is a function of shapes and the resident table alone: the
-    same inputs give the same size on a machine without a card, and no
-    size's shared memory that does not fit is ever picked."""
+    same inputs give the same shape on a machine without a card; no shape
+    whose shared memory does not fit is ever picked, and two walkers only
+    where a walker's 32 rows hold the kv head's query rows."""
     for (dtype, int8, rows), resident in H100_RESIDENT.items():
         for nslots in (1, 2, 4, 8, 16, 64):
-            c = tva.pick_cluster(nslots, 32, rows, resident)
-            assert c in tva.CLUSTERS and resident[c] > 0
-            assert c == tva.pick_cluster(nslots, 32, rows, dict(resident))
+            c, w, pt = _pick(nslots, 32, rows, dtype, int8)
+            built = tva.shapes_built(getattr(torch, dtype), int8, pt)
+            assert (c, w) in built and (not pt or resident[(c, w)] > 0)
+            assert w == 1 or rows <= tva.QTILE // w
+            assert (c, w, pt) == _pick(nslots, 32, rows, dtype, int8)
 
 
 # every test runs in the module's child pytest process (the JAX compiles

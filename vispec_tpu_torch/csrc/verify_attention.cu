@@ -39,31 +39,51 @@
 //     the host never reads it) with an online softmax (row max, row sum,
 //     unnormalised P.V) in registers, and leaves its rows' (acc, m, l) in a
 //     slot of shared memory.  A thread-block cluster of C = 8, 4, 2 or 1
-//     blocks along grid.y runs the 8 ranks, block b the ranks b, b + C, ...
-//     in turn, the prefetch running on from one rank's last chunk to the
-//     next rank's first (each rank after a block's first: a slot of rows x
-//     (D + 10) x 4 bytes more shared memory).  Then block b merges its share
-//     of the rows over the 8 ranks in rank order through distributed shared
-//     memory (a rank with no live chunk would weigh exactly 0 and is left
-//     out) and writes the output in q's dtype.  A rank's arithmetic and the
-//     merge are the same whatever C, so every C gives the same bits; no
-//     atomics and no partials in device memory: a run is reproducible bit
-//     for bit, and a slot of a batch equals the same request alone.  The
-//     host picks C from the call's shapes and the clusters of each size the
-//     card holds at once (ops/verify_attention.pick_cluster): 8 for one
-//     request, where a wave of clusters of 8 holds the grid; 4 for the B = 4
-//     bf16 rounds (128 clusters: 3 waves of 8, 2 of 4); 8 again for B = 4 over
-//     int8 or in float32, where smaller clusters' slots cost blocks an SM;
-//     1 for getkacc's 16 one-row slots (512 clusters).
+//     blocks along grid.y runs the 8 ranks, block b the ranks b, b + C, ...,
+//     W at a time: a block of W = 2 walkers (bf16 q over a bf16 cache, at
+//     most 32 query rows a kv head: two warps each, with a K and a V tile,
+//     cp.async groups and a named barrier of their own) runs ranks b + w * C, b + (w + 2) * C, ...
+//     in walker w, where with one walker the warps without a live row only
+//     helped stage; within a walker the prefetch runs on from one rank's
+//     last chunk to the next rank's first (each rank after a walker's first:
+//     a slot of rows x (D + 10) x 4 bytes more shared memory).  Then block b
+//     merges its share of the rows over the 8 ranks in rank order through
+//     distributed shared memory (a rank with no live chunk would weigh
+//     exactly 0 and is left out) and writes the output in q's dtype.  A
+//     rank's arithmetic and the merge are the same whatever (C, W), so every
+//     (C, W) gives the same bits; no atomics and no partials in device
+//     memory: a run is reproducible bit for bit, and a slot of a batch
+//     equals the same request alone.  The host picks (C, W) from the call's
+//     shapes and the clusters of each shape the card holds at once
+//     (ops/verify_attention.pick_cluster): (8, 1) for one request, where a
+//     wave of clusters of 8 holds the grid; (4, 2) for the B = 4 bf16 rounds
+//     (128 clusters: 3 waves of (8, 1), 2 of (4, 2), every rank of a block at
+//     once); (8, 1) for B = 4 over int8 or in float32, where smaller
+//     clusters' slots cost blocks an SM, (4, 1) for the B = 4 step over
+//     int8; (1, 1) for getkacc's 16 one-row slots.  Over int8 two walkers
+//     (with a conversion tile and scales each) held two blocks an SM and
+//     gained nothing at the shapes the host runs, so they are not built.
+//   - Slot order.  The hardware starts a grid's clusters in block-column
+//     order, so on a grid of several waves the slots a batch gives last
+//     would start last whatever their length.  A batched launch's blocks
+//     place their columns on the slots longest first (place_longest_first:
+//     descending live chunks, ties to the lower index, from the starts in
+//     device memory), so the long slots' clusters start in the first wave;
+//     a slot's bits do not depend on where it runs.  A single request runs
+//     an instantiation without that code (ORDER): its presence alone cost a
+//     single request about 0.5 us a launch.
 //   - Staging.  The chunk's K and V rows go by 16-byte cp.async into a K and
 //     a V tile, each a cp.async group: the next chunk's K lands while this
 //     chunk's P.V runs, its V while the next q.k runs.  Rows are padded
 //     against bank conflicts (bf16 D + 8, f32 D + 4, int8 read in place D +
-//     16 bytes); rows past the live end are never read (bf16 and f32 tiles
-//     zeroed there).  Each of the 4 warps owns a tile of 16 query rows; a
-//     head with more than 64 rows (GQA: gs = 120, Qwen's 210) has a cluster
-//     for each 64 of them (grid.z), which reads the chunks again, mostly from
-//     L2.
+//     16 bytes), but for the two walkers' bf16 K tiles, whose 16-byte chunks
+//     are XOR-swizzled by the row instead (swz): the 2 KB a block saves let
+//     three blocks of two walkers fit an SM (76,304 bytes); rows past the
+//     live end are never read (bf16 and f32 tiles zeroed there).  Each warp
+//     of a walker owns a tile of 16 query rows; a head with more rows than a
+//     walker's warps hold (64 with one walker: GQA's gs = 120, Qwen's 210)
+//     has a cluster for each such tile (grid.z), which reads the chunks
+//     again, mostly from L2.
 //   - bf16 q: S = q.k with mma.sync.m16n8k16 (q and K fragments by
 //     ldmatrix.x4), f32 scores times D^-0.5 after the product, p repacked in
 //     registers as the A operand of P.V (two 8-wide score tiles are one
@@ -105,9 +125,13 @@
 // No TMA or wgmma: a kv head has 30 query rows at the verify (1 at an AR
 // step, 1 a slot in getkacc) where wgmma's tile has 64, and m16n8k16 fits
 // them in two tiles; the time is set by each block's chain of chunk loads
-// (one chunk of cp.async ahead) and, on batched grids, by waves of clusters,
-// not by the tensor cores' rate.  TMA would take the 16-byte copies off the
-// threads; it is untried.
+// (one chunk of cp.async ahead), by a fixed cost a launch (one live chunk:
+// about 11 us for one request, 18-20 for B = 4 at (4, 1) or (4, 2)) and, on
+// batched grids, by waves of clusters, not by the tensor cores' rate.  Two
+// walkers of two warps stage a chunk with half the threads of one walker of
+// four, which costs them about what their second rank gains on one request
+// (the host keeps one walker there).  TMA would take the 16-byte copies off
+// the threads; it is untried.
 //
 // Batched grid (row 1c): the slot is folded into grid.x (slot * Hkv + kv
 // head), so one launch serves the whole batch and the grid grows with B,
@@ -350,32 +374,41 @@ constexpr int PAD = 8;             // bf16 of padding per shared bf16 row (16 by
 // the cluster that runs them
 constexpr int VRANKS = 8;
 
-// Shared memory of partial_kernel_mma<T, TC, D, C, PT>, in bytes: a K tile and a
-// V tile of the cache as staged (bf16 rows of D + 8, f32 rows of D + 4, raw
-// int8 rows of D (bf16 q: converted into a bf16 tile) or D + 16 bytes (f32 q:
-// read in place)), the bf16 conversion tile (bf16 q over int8 only), the q
-// tile, an int8 cache's key and value scales of the chunk, and (bf16 q over
-// int8 with PT) each warp's p * v_scale as a bf16 hi tile and lo tile.  A virtual
-// rank leaves its (acc, m, l) of the block's query rows in a slot: the
-// block's last rank in the staged bytes once its chunks are done, each
-// earlier one (VRANKS / C - 1 of them) in a slot of its own after them.
-template <typename T, typename TC, int D, bool PT>
+// Shared memory of partial_kernel_mma<T, TC, D, C, PT, W>, in bytes: each of
+// the W walkers' K tile and V tile of the cache as staged (bf16 rows of D +
+// 8 (two walkers: K rows of D, their 16-byte chunks swizzled (swz)), f32
+// rows of D + 4, raw int8 rows of D (bf16 q: converted into a bf16 tile) or
+// D + 16 bytes (f32 q: read in place)) and its bf16 conversion tile (bf16 q
+// over int8 only), the q tile (the QTILE / W query rows a walker takes), the
+// key and value scales of the chunk (int8 cache), and (bf16 q over int8 with
+// PT) each warp's p * v_scale as a bf16 hi tile and lo tile.  A virtual rank leaves its (acc, m, l) of the block's query rows in
+// a slot: a walker's last rank in its own tiles once its chunks are done
+// (one walker: in all the staged bytes), each earlier one (VRANKS / C - W of
+// them) in a slot of its own after them.
+template <typename T, typename TC, int D, bool PT, int W>
 struct MmaLayout {
   static constexpr bool F32 = std::is_same<T, float>::value;
   static constexpr bool QUANT = std::is_same<TC, int8_t>::value;
   // bf16 q over int8: p * v_scale through the warps' P tiles (PT), or packed
   // in registers inside P.V
   static constexpr bool PTILES = QUANT && !F32 && PT;
+  static constexpr int QT = QTILE / W;  // query rows of a cluster's tile
   static constexpr int LDQ = F32 ? D + 4 : D + PAD;                       // T a q row
   static constexpr int LDC = QUANT ? (F32 ? D + 16 : D) : (F32 ? D + 4 : D + PAD);  // TC
+  // two walkers: the K tile's rows unpadded, their 16-byte chunks swizzled
+  // (swz), so that three blocks fit an SM
+  static constexpr bool SWZ_K = W > 1;
   static constexpr int LDA = D + 8;                                       // f32 an acc row
   static constexpr size_t TILE_BYTES = (size_t)TILE * LDC * sizeof(TC);
-  static constexpr size_t CONV = 2 * TILE_BYTES;
+  static constexpr size_t K_BYTES = SWZ_K ? (size_t)TILE * D * sizeof(TC) : TILE_BYTES;
+  static constexpr size_t CONV = K_BYTES + TILE_BYTES;  // within a walker's tiles
   static constexpr size_t CONV_BYTES = QUANT && !F32 ? TILE * (D + PAD) * 2 : 0;
-  static constexpr size_t Q = CONV + CONV_BYTES;
-  static constexpr size_t SCALES = Q + (size_t)QTILE * LDQ * sizeof(T);
+  static constexpr size_t WALKER = CONV + CONV_BYTES;  // a walker's tiles
+  static constexpr size_t Q = W * WALKER;
+  static constexpr size_t SCALES = Q + (size_t)QT * LDQ * sizeof(T);
+  static constexpr size_t SCALE_BYTES = QUANT ? 2 * TILE * sizeof(float) : 0;
   static constexpr int LDP = TILE + PAD;  // bf16 a row of a warp's P tile
-  static constexpr size_t PTILE = SCALES + (QUANT ? 2 * TILE * sizeof(float) : 0);
+  static constexpr size_t PTILE = SCALES + SCALE_BYTES;
   static constexpr size_t BYTES = PTILE + (PTILES ? (size_t)WARPS * 2 * 16 * LDP * 2 : 0);
   // a virtual rank's slot for ``rows`` query rows: acc [rows][LDA], then the
   // row maxima [rows] and row sums [rows]
@@ -383,18 +416,21 @@ struct MmaLayout {
     return ((size_t)rows * (LDA + 2) * sizeof(float) + 15) / 16 * 16;
   }
   static constexpr size_t bytes(int cluster, int rows) {
-    return BYTES + (size_t)(VRANKS / cluster - 1) * slot_bytes(rows);
+    return BYTES + (size_t)(VRANKS / cluster - W) * slot_bytes(rows);
   }
-  // blocks an SM the registers must allow: three for bf16 q over a bf16
-  // cache and over an int8 one through the P tiles (168 registers, no
-  // spill); one for bf16 q over int8 packing p * v_scale in registers (its
-  // hi and lo live through V's conversion: 180-200 registers, two blocks an
-  // SM; capped at 168 it spills) and for float32 q, so that ptxas keeps the
-  // accumulators, scores and split fragments in registers (185-187, 244-246
-  // over int8; capped at 168 it spills)
+  // blocks an SM the registers must allow.  One walker: three for bf16 q
+  // over a bf16 cache and over an int8 one through the P tiles (168
+  // registers, no spill); one for bf16 q over int8 packing p * v_scale in
+  // registers (its hi and lo live through V's conversion: 180-200 registers,
+  // two blocks an SM; capped at 168 it spills) and for float32 q, so that
+  // ptxas keeps the accumulators, scores and split fragments in registers
+  // (185-187, 244-246 over int8; capped at 168 it spills).  Two walkers'
+  // tiles fit three blocks an SM (168 registers).
   static constexpr int MIN_BLOCKS = F32 || (QUANT && !PTILES) ? 1 : 3;
-  static_assert(TILE_BYTES % 16 == 0 && CONV_BYTES % 16 == 0 && SCALES % 16 == 0,
+  static_assert(TILE_BYTES % 16 == 0 && K_BYTES % 16 == 0 && CONV_BYTES % 16 == 0 &&
+                    SCALES % 16 == 0,
                 "16-byte aligned tiles");
+  static_assert(W == 1 || (W == 2 && !F32 && !QUANT), "two walkers: bf16 q over a bf16 cache");
 };
 
 __device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
@@ -483,26 +519,43 @@ __device__ __forceinline__ void i8x4_to_bf16(unsigned w, unsigned& lo, unsigned&
   hi = pack_bf16(f2, f3);
 }
 
+// Element offset of (row, col) in a bf16 tile of D-element rows whose
+// 16-byte chunks are XOR-swizzled by the row (col a multiple of 8): the 8
+// rows an ldmatrix phase reads land in 8 different bank groups without the
+// padding a plain layout needs (1 KB a tile).
+template <int D>
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * D + (((col >> 3) ^ (row & 7)) << 3);
+}
+
 // Copy NROWS rows of D elements (the first ``valid`` of them real) from
-// device memory into shared rows of ``dst_stride`` elements, 16 bytes a
-// cp.async.  bf16 and f32 rows past ``valid`` are zeroed here (the rows past
-// the live end are never read, and 0 * p must stay 0); int8 rows past it
-// keep whatever they held (finite; their scores are masked and their p is 0).
-// The caller commits the group and waits for it.
-template <typename T, int D, int NROWS>
+// device memory into shared rows of ``dst_stride`` elements (SWZ: bf16 rows
+// of D, chunks swizzled), 16 bytes a cp.async, by NT threads (``i0`` this
+// thread's index among them).  bf16 and f32 rows past ``valid`` are zeroed
+// here (the rows past the live end are never read, and 0 * p must stay 0);
+// int8 rows past it keep whatever they held (finite; their scores are
+// masked and their p is 0).  The caller commits the group and waits for it.
+template <typename T, int D, int NROWS, int NT, bool SWZ = false>
 __device__ __forceinline__ void stage_rows(const T* __restrict__ src, int valid,
-                                           T* __restrict__ dst, int dst_stride) {
+                                           T* __restrict__ dst, int dst_stride, int i0) {
   constexpr int PER = 16 / sizeof(T);
   constexpr int VPR = D / PER;  // 16-byte vectors per row
-#pragma unroll
-  for (int i = threadIdx.x; i < NROWS * VPR; i += THREADS) {
+  static_assert(!SWZ || PER == 8, "swizzled tiles hold bf16");
+  auto copy = [&](int i) {
     const int row = i / VPR, vec = i % VPR;
-    T* d = dst + row * dst_stride + vec * PER;
+    T* d = dst + (SWZ ? swz<D>(row, vec * PER) : row * dst_stride + vec * PER);
     if (row < valid) {
       cp_async16(d, src + (size_t)row * D + vec * PER);
     } else if constexpr (!std::is_same<T, int8_t>::value) {
       *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
     }
+  };
+  if constexpr (NT == THREADS) {
+#pragma unroll
+    for (int i = i0; i < NROWS * VPR; i += NT) copy(i);
+  } else {  // a walker's threads: kept rolled, so the copies hold few registers
+#pragma unroll 2
+    for (int i = i0; i < NROWS * VPR; i += NT) copy(i);
   }
 }
 
@@ -539,6 +592,48 @@ __device__ __forceinline__ void convert_i8(const int8_t* src, int valid, __nv_bf
   }
 }
 
+// The NT threads of walker ``walker`` wait for each other (NT = THREADS:
+// the whole block, as __syncthreads; else a named barrier of their own,
+// 1 + walker, so the other walkers go on)
+template <int NT>
+__device__ __forceinline__ void walker_sync(int walker) {
+  if constexpr (NT == THREADS) {
+    __syncthreads();
+  } else {
+    if (walker == 0) {  // immediate barrier ids: ptxas reserves only these
+      asm volatile("bar.sync 1, %0;\n" ::"n"(NT) : "memory");
+    } else {
+      asm volatile("bar.sync 2, %0;\n" ::"n"(NT) : "memory");
+    }
+  }
+}
+
+// A batched grid's block columns serve its slots longest first: the slots
+// in descending order of live chunks, ties to the lower index, each slot's
+// kv heads in order.  Thread i places slot i at its position (the starts
+// come from device memory: the host never reads them), and the block's slot,
+// the one at block column ``x``'s position, lands in placed[0] with its
+// start and layer index (0 without a layer dim) in placed[1] and placed[2].
+// Every thread of the block calls it.
+__device__ __forceinline__ void place_longest_first(int* placed, int x, int hkv,
+                                                    const int* __restrict__ start_ptr,
+                                                    const int* __restrict__ layer_ptr, int t_reg,
+                                                    int max_len) {
+  const int nslots = gridDim.x / hkv, pos = x / hkv;
+  auto live = [&](int start) { return (min(start + t_reg, max_len) + TILE - 1) / TILE; };
+  for (int i = threadIdx.x; i < nslots; i += blockDim.x) {
+    const int start = start_ptr[i], layer = layer_ptr ? layer_ptr[i] : 0;
+    const int ni = live(start);
+    int ahead = 0;
+    for (int j = 0; j < nslots; ++j) {
+      const int nj = live(start_ptr[j]);
+      ahead += nj > ni || (nj == ni && j < i);
+    }
+    if (ahead == pos) placed[0] = i, placed[1] = start, placed[2] = layer;
+  }
+  __syncthreads();
+}
+
 // Four outputs of a row, converted to T and stored at once.
 __device__ __forceinline__ void store4(float* dst, float4 x) {
   *reinterpret_cast<float4*>(dst) = x;
@@ -547,19 +642,26 @@ __device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 x) {
   *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
 }
 
-// One cluster of C blocks per (slot x kv head, tile of 64 query rows) along
-// the chunk axis (grid.y = C, grid.z = the row tiles).  Block b runs the
-// virtual ranks b, b + C, ... in turn; rank v walks the live chunks v, v +
-// VRANKS, ... with an online softmax in registers and leaves its rows in a
-// slot of shared memory; then the cluster merges the VRANKS ranks in rank
-// order through distributed shared memory and writes the output.  A rank's
-// arithmetic and the merge do not depend on C, so the output is the same
-// bits for every C.  Each warp owns a tile of 16 query rows.  T is q's and
-// the output's type (bf16 or float), TC the cache's (T, or int8_t with
-// per-row scales); PT (bf16 q over int8 only): p * v_scale through the
-// warps' P tiles rather than packed in registers inside P.V.
-template <typename T, typename TC, int D, int C, bool PT>
-__global__ void __launch_bounds__(THREADS, (MmaLayout<T, TC, D, PT>::MIN_BLOCKS))
+// One cluster of C blocks per (slot x kv head, tile of QTILE / W query rows)
+// along the chunk axis (grid.y = C, grid.z = the row tiles).  Block b runs
+// the virtual ranks b, b + C, ..., W at a time: its W walkers (each THREADS /
+// W threads, with its own K and V tiles, cp.async groups and named barrier)
+// take ranks b + w * C, b + (w + W) * C, ... in turn; rank v walks the live
+// chunks v, v + VRANKS, ... with an online softmax in registers and leaves
+// its rows in a slot of shared memory; then the cluster merges the VRANKS
+// ranks in rank order through distributed shared memory and writes the
+// output.  A rank's arithmetic and the merge do not depend on C or W, so the
+// output is the same bits for every (C, W).  Each warp of a walker owns a
+// tile of 16 query rows.  With ORDER the block columns of a batch serve its
+// slots longest first (place_longest_first); a slot's bits do not depend on
+// where it runs.  T is q's and the output's type (bf16 or
+// float), TC the cache's (T, or int8_t with per-row scales); PT (bf16 q over
+// int8 only): p * v_scale through the warps' P tiles rather than packed in
+// registers inside P.V; ORDER: the placement is compiled in (a single
+// request runs an instantiation without it: its code alone costs a single
+// request's launch about half a microsecond).
+template <typename T, typename TC, int D, int C, bool PT, int W, bool ORDER>
+__global__ void __launch_bounds__(THREADS, (MmaLayout<T, TC, D, PT, W>::MIN_BLOCKS))
 partial_kernel_mma(
     const T* __restrict__ q,              // [B * Hkv, GS, D]
     const TC* __restrict__ k,             // per slot [L?, Hkv, max_len, D]
@@ -573,46 +675,69 @@ partial_kernel_mma(
     int hkv, int gs, int s_len, int t_reg, int max_len, long long layer_stride,
     long long scale_layer_stride, long long slot_stride, long long scale_slot_stride,
     long long mask_slot_stride, float scale) {
-  using L = MmaLayout<T, TC, D, PT>;
+  using L = MmaLayout<T, TC, D, PT, W>;
   constexpr bool F32 = L::F32, QUANT = L::QUANT, PTILES = L::PTILES;
   static_assert(std::is_same<T, __nv_bfloat16>::value || F32, "bf16 or f32 q");
   static_assert(QUANT || std::is_same<TC, T>::value, "the cache is q's type or int8");
   static_assert(D % 16 == 0 && TILE == 64, "whole mma steps; 8 score tiles a chunk");
-  static_assert(VRANKS % C == 0, "a block runs a whole number of virtual ranks");
-  static_assert(L::slot_bytes(QTILE) <= L::BYTES, "the last virtual rank's slot fits the tiles");
-  constexpr int LDQ = L::LDQ, LDC = L::LDC, LDA = L::LDA;
-  constexpr int NV = VRANKS / C;  // virtual ranks a block runs
-  const int rank = blockIdx.y;    // the block's rank in its cluster (grid.y = C)
-  const int bh = blockIdx.x;  // slot * hkv + kv head
+  static_assert(VRANKS % (C * W) == 0, "a walker runs a whole number of virtual ranks");
+  static_assert(L::slot_bytes(L::QT) <= (W == 1 ? L::BYTES : L::WALKER),
+                "a walker's last virtual rank's slot fits its tiles");
+  constexpr int LDQ = L::LDQ, LDC = L::LDC, LDA = L::LDA, QT = L::QT;
+  constexpr int NV = VRANKS / C;     // virtual ranks a block runs
+  constexpr int NT = THREADS / W;    // threads of a walker
+  const int rank = blockIdx.y;       // the block's rank in its cluster (grid.y = C)
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // the walker, the thread in its walker and the warp in its walker (one
+  // walker: the block, its thread and its warp)
+  const int walker = W == 1 ? 0 : warp / (WARPS / W);
+  const int wt = W == 1 ? tid : tid % NT;
+  const int wwarp = W == 1 ? warp : warp % (WARPS / W);
+  // the block's slot: block column x's, or with the slots longest first
+  // the placed one, kept in shared memory (read again where the output is
+  // written, so no register holds it through the walk)
+  __shared__ int placed[3];  // slot, start, layer
+  const bool place = ORDER && gridDim.x > hkv;
+  if constexpr (ORDER) {
+    if (place) {
+      place_longest_first(placed, blockIdx.x, hkv, start_ptr, layer_ptr, t_reg, max_len);
+    } else if (tid == 0) {
+      placed[0] = blockIdx.x / hkv;  // read after the walk's barriers
+    }
+  }
+  // slot * hkv + kv head
+  const int bh = place ? placed[0] * hkv + (int)blockIdx.x % hkv : (int)blockIdx.x;
   const int slot = bh / hkv;
   const int hk = bh % hkv;
-  const int p0 = blockIdx.z * QTILE;  // this block's query rows
-  const int prow = min(QTILE, gs - p0);
-  const int pm = min(QTILE, gs);  // query rows a virtual rank's slot holds
-  const int start = start_ptr[slot];
+  const int p0 = blockIdx.z * QT;  // this block's query rows
+  const int prow = min(QT, gs - p0);
+  const int pm = min(QT, gs);  // query rows a virtual rank's slot holds
+  const int start = place ? placed[1] : start_ptr[slot];
   const int total = min(start + t_reg, max_len);
   const int nlive = (total + TILE - 1) / TILE;  // chunks past these are never read
-  const long long layer = layer_ptr ? layer_ptr[slot] : 0;
+  const long long layer = place ? placed[2] : layer_ptr ? layer_ptr[slot] : 0;
   mask += slot * mask_slot_stride;
   const size_t head = (size_t)(slot * slot_stride + layer * layer_stride) + (size_t)hk * max_len * D;
   const size_t shead = (size_t)(slot * scale_slot_stride + layer * scale_layer_stride) +
                        (size_t)hk * max_len;
 
   extern __shared__ __align__(16) unsigned char smem_mma[];
-  TC* kt = reinterpret_cast<TC*>(smem_mma);                        // [TILE][LDC]
-  TC* vt = reinterpret_cast<TC*>(smem_mma + L::TILE_BYTES);        // [TILE][LDC]
-  __nv_bfloat16* conv = reinterpret_cast<__nv_bfloat16*>(smem_mma + L::CONV);  // [TILE][D + PAD]
-  T* qs = reinterpret_cast<T*>(smem_mma + L::Q);                   // [QTILE][LDQ]
-  float* ksc = reinterpret_cast<float*>(smem_mma + L::SCALES);     // [TILE] (int8)
-  float* vsc = ksc + TILE;                                         // [TILE] (int8)
+  unsigned char* tiles = smem_mma + walker * L::WALKER;             // this walker's
+  TC* kt = reinterpret_cast<TC*>(tiles);                            // [TILE][LDC] (or swz)
+  TC* vt = reinterpret_cast<TC*>(tiles + L::K_BYTES);               // [TILE][LDC]
+  __nv_bfloat16* conv = reinterpret_cast<__nv_bfloat16*>(tiles + L::CONV);  // [TILE][D + PAD]
+  T* qs = reinterpret_cast<T*>(smem_mma + L::Q);                    // [QT][LDQ]
+  float* ksc = reinterpret_cast<float*>(smem_mma + L::SCALES);      // [TILE] (int8)
+  float* vsc = ksc + TILE;                                          // [TILE] (int8)
   // bf16 q over int8 with PT: this warp's p * v_scale, hi [16][LDP] then lo [16][LDP]
   __nv_bfloat16* pt = reinterpret_cast<__nv_bfloat16*>(smem_mma + L::PTILE) +
-                      (threadIdx.x / 32) * 2 * 16 * L::LDP;
+                      warp * 2 * 16 * L::LDP;
   // the slot of the block's j-th virtual rank (rank + j * C): its
-  // unnormalised P.V [pm][LDA], then row maxima [pm] and row sums [pm]; the
-  // last in the staged bytes, written once the block's chunks are done
+  // unnormalised P.V [pm][LDA], then row maxima [pm] and row sums [pm]; a
+  // walker's last in its tiles (one walker: from the start of the staged
+  // bytes), written once its chunks are done
   auto part_of = [&](int j) {
-    return reinterpret_cast<float*>(j == NV - 1 ? smem_mma
+    return reinterpret_cast<float*>(j >= NV - W ? smem_mma + (j % W) * L::WALKER
                                                 : smem_mma + L::BYTES + j * L::slot_bytes(pm));
   };
 
@@ -627,14 +752,14 @@ partial_kernel_mma(
   // with the P tiles the value scales land with K (p * v_scale is packed
   // right after the softmax); otherwise P.V reads them, so they land with V
   constexpr bool VSC_WITH_K = PTILES;
-  // the K (or V) rows of a chunk and, int8, their scales, as one cp.async
-  // group
+  // the K (or V) rows of a chunk and, int8 (one walker), their scales, a
+  // thread a scale, as one cp.async group of the walker's threads
   auto stage_k = [&](int chunk) {
     const int col0 = chunk * TILE, ncols = min(TILE, total - col0);
-    stage_rows<TC, D, TILE>(k + head + (size_t)col0 * D, ncols, kt, LDC);
+    stage_rows<TC, D, TILE, NT, L::SWZ_K>(k + head + (size_t)col0 * D, ncols, kt, LDC, wt);
     if constexpr (QUANT) {
-      const int i = threadIdx.x % TILE;
-      if (threadIdx.x < TILE) {
+      const int i = tid % TILE;
+      if (tid < TILE) {
         stage_scales(k_scale, ksc, col0, ncols, i);
       } else if (VSC_WITH_K) {
         stage_scales(v_scale, vsc, col0, ncols, i);
@@ -644,17 +769,16 @@ partial_kernel_mma(
   };
   auto stage_v = [&](int chunk) {
     const int col0 = chunk * TILE, ncols = min(TILE, total - col0);
-    stage_rows<TC, D, TILE>(v + head + (size_t)col0 * D, ncols, vt, LDC);
+    stage_rows<TC, D, TILE, NT>(v + head + (size_t)col0 * D, ncols, vt, LDC, wt);
     if constexpr (QUANT && !VSC_WITH_K) {
-      if (threadIdx.x < TILE) stage_scales(v_scale, vsc, col0, ncols, threadIdx.x);
+      if (tid < TILE) stage_scales(v_scale, vsc, col0, ncols, tid);
     }
     cp_async_commit();
   };
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;  // accumulator rows g, g + 8; columns 2t, 2t + 1
-  const bool active = warp * 16 < prow;        // the warp has a live query row
-  const int ra = p0 + warp * 16 + g, rb = ra + 8;  // this thread's two query rows
+  const bool active = wwarp * 16 < prow;        // the warp has a live query row
+  const int ra = p0 + wwarp * 16 + g, rb = ra + 8;  // this thread's two query rows
 
   float o[D / 8][4];
 #pragma unroll
@@ -663,29 +787,42 @@ partial_kernel_mma(
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-  // the block's chunks in turn: those of virtual rank ``rank``, then of rank
-  // + C, ...; rank v's first chunk is v, so a block whose first rank has no
-  // live chunk has none at all
+  // the walker's chunks in turn: those of virtual rank ``first``, then of
+  // first + W * C, ...; rank v's first chunk is v, so a block whose first rank
+  // has no live chunk has none at all, and so has a walker whose first rank
+  // has none.  The whole block stages the q tile, which joins each walker's
+  // first K group.
+  const int first = rank + walker * C;
   if (rank < nlive) {
-    stage_rows<T, D, QTILE>(q + ((size_t)bh * gs + p0) * D, prow, qs, LDQ);
-    stage_k(rank);  // q joins the K group
-    stage_v(rank);
+    stage_rows<T, D, QT, THREADS>(q + ((size_t)bh * gs + p0) * D, prow, qs, LDQ, tid);
+    if (first < nlive) {
+      stage_k(first);
+      stage_v(first);
+    } else {  // the q group, and an empty one in V's place
+      cp_async_commit();
+      cp_async_commit();
+    }
+    if constexpr (W > 1) {  // every walker's q rows landed
+      cp_async_wait<1>();
+      __syncthreads();
+    }
   }
-  for (int chunk = rank; chunk < nlive;) {
+  for (int chunk = first; chunk < nlive;) {
     const int vr = chunk % VRANKS;
-    // the next chunk of this virtual rank, else the first of the block's next
-    // one (nlive: none)
+    // the next chunk of this virtual rank, else the first of the walker's
+    // next one (nlive: none)
     const bool last = chunk + VRANKS >= nlive;  // the virtual rank's last chunk
-    const int next = !last ? chunk + VRANKS : vr + C < VRANKS && vr + C < nlive ? vr + C : nlive;
+    const int next = !last                                          ? chunk + VRANKS
+                     : vr + W * C < VRANKS && vr + W * C < nlive ? vr + W * C
+                                                                  : nlive;
     const bool more = next < nlive;
     const int col0 = chunk * TILE, ncols = min(TILE, total - col0);
     cp_async_wait<1>();  // K (and q); V may still be in flight
-    __syncthreads();
+    walker_sync<NT>(walker);
     if constexpr (QUANT && !F32) {
       convert_i8<D, PTILES ? 2 : 4>(reinterpret_cast<const int8_t*>(kt), ncols, conv);
-      __syncthreads();
+      walker_sync<NT>(walker);
     }
-
     // scores of the warp's 16 rows over the chunk's 64 columns
     float sc[TILE / 8][4];
 #pragma unroll
@@ -698,7 +835,7 @@ partial_kernel_mma(
         // is exact in tf32 (|x| <= 127), so only q carries a lo term there
 #pragma unroll 2
         for (int kk = 0; kk < D / 8; ++kk) {
-          const float* qa = qs + (warp * 16 + g) * LDQ + kk * 8 + t;
+          const float* qa = qs + (wwarp * 16 + g) * LDQ + kk * 8 + t;
           unsigned ah[4], al[4];
           split_tf32(qa[0], ah[0], al[0]);
           split_tf32(qa[8 * LDQ], ah[1], al[1]);
@@ -724,16 +861,19 @@ partial_kernel_mma(
       } else {
         const __nv_bfloat16* kb16 =
             QUANT ? conv : reinterpret_cast<const __nv_bfloat16*>(kt);
-#pragma unroll(PTILES ? 1 : D / 16)
+        // (walkers over a bf16 cache: four k-steps at a time, the most that
+        // their swizzled K addresses leave room for in 168 registers)
+#pragma unroll(PTILES ? 1 : L::SWZ_K ? 4 : D / 16)
         for (int kk = 0; kk < D / 16; ++kk) {
           unsigned a[4];  // rows 0-7 / 8-15 at k 0-7, then at k 8-15
           ldmatrix_x4(a, reinterpret_cast<const __nv_bfloat16*>(qs) +
-                             (warp * 16 + lane % 16) * LDQ + kk * 16 + (lane / 16) * 8);
+                             (wwarp * 16 + lane % 16) * LDQ + kk * 16 + (lane / 16) * 8);
 #pragma unroll
           for (int jp = 0; jp < TILE / 16; ++jp) {
             unsigned b[4];  // key rows 0-7 at k 0-7, k 8-15; key rows 8-15 likewise
-            ldmatrix_x4(b, kb16 + (jp * 16 + lane % 8 + (lane / 16) * 8) * (D + PAD) +
-                               kk * 16 + ((lane / 8) % 2) * 8);
+            const int row = jp * 16 + lane % 8 + (lane / 16) * 8;
+            const int col = kk * 16 + ((lane / 8) % 2) * 8;
+            ldmatrix_x4(b, kb16 + (L::SWZ_K ? swz<D>(row, col) : row * (D + PAD) + col));
             mma_bf16(sc[2 * jp], a, b[0], b[1]);
             mma_bf16(sc[2 * jp + 1], a, b[2], b[3]);
           }
@@ -822,17 +962,17 @@ partial_kernel_mma(
         }
       }
     }
-    __syncthreads();  // every warp is done with the K tile (and its scales)
+    walker_sync<NT>(walker);  // every warp is done with the K tile (and its scales)
     if (more) {
       stage_k(next);  // lands while P.V runs
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();  // V landed
+    walker_sync<NT>(walker);  // V landed
     if constexpr (QUANT && !F32) {
       convert_i8<D, PTILES ? 2 : 4>(reinterpret_cast<const int8_t*>(vt), ncols, conv);
-      __syncthreads();
+      walker_sync<NT>(walker);
     }
 
     if (active) {
@@ -922,7 +1062,7 @@ partial_kernel_mma(
         }
       }
     }
-    __syncthreads();  // every warp is done with the V tile
+    walker_sync<NT>(walker);  // every warp is done with the V tile
     if (last) {
       // the virtual rank's rows below prow to its slot (the last slot
       // overlays the tiles, which no warp reads any more), and a fresh state
@@ -930,7 +1070,7 @@ partial_kernel_mma(
       if (active) {
         float* part = part_of(vr / C);
         float* part_m = part + pm * LDA;
-        const int a = warp * 16 + g, b = a + 8;
+        const int a = wwarp * 16 + g, b = a + 8;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
           if (a < prow)
@@ -993,7 +1133,8 @@ partial_kernel_mma(
       }
     }
     const float inv = 1.f / fmaxf(lsum, 1e-20f);
-    store4(out + ((size_t)bh * gs + p0 + r) * D + c,
+    const int row = ORDER ? placed[0] * hkv + (int)blockIdx.x % hkv : bh;  // slot * hkv + kv head
+    store4(out + ((size_t)row * gs + p0 + r) * D + c,
            make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv));
   }
   if constexpr (C > 1) cluster.sync();  // no block leaves while its peers read its slots
@@ -1030,73 +1171,165 @@ __global__ void __launch_bounds__(D) combine_kernel(
 
 // D = 128: partial_kernel_mma, one launch, a cluster of C blocks per (slot x
 // kv head, query tile) along grid.y.  Shared memory grows by a slot for each
-// virtual rank a block runs after its first; the attribute is set once per
-// instantiation, to what its largest query tile needs (at most the card's
-// opt-in limit).
+// virtual rank a block runs after its walkers' first; the attribute is set
+// once per instantiation, to what its largest query tile needs (at most the
+// card's opt-in limit less its static shared memory).
 constexpr size_t SMEM_OPTIN = 232448;  // a block's shared memory on sm_90, opt-in
 
-template <typename T, typename TC, int D, int C, bool PT>
+// The dynamic shared memory a block may take: the opt-in limit less the
+// instantiation's static shared memory (the block's placed slot).
+template <typename T, typename TC, int D, int C, bool PT, int W, bool ORDER>
+size_t dynamic_limit_mma() {
+  static const size_t limit = [] {
+    cudaFuncAttributes fa = {};
+    return cudaFuncGetAttributes(&fa, partial_kernel_mma<T, TC, D, C, PT, W, ORDER>) ==
+                   cudaSuccess
+               ? SMEM_OPTIN - fa.sharedSizeBytes
+               : 0;
+  }();
+  return limit;
+}
+
+template <typename T, typename TC, int D, int C, bool PT, int W, bool ORDER>
 cudaError_t prepare_mma() {
-  constexpr size_t most = MmaLayout<T, TC, D, PT>::bytes(C, QTILE);
+  using L = MmaLayout<T, TC, D, PT, W>;
+  constexpr size_t most = L::bytes(C, L::QT);
+  const size_t limit = dynamic_limit_mma<T, TC, D, C, PT, W, ORDER>();
   static const cudaError_t attr =
-      cudaFuncSetAttribute(partial_kernel_mma<T, TC, D, C, PT>,
+      cudaFuncSetAttribute(partial_kernel_mma<T, TC, D, C, PT, W, ORDER>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)(most < SMEM_OPTIN ? most : SMEM_OPTIN));
+                           (int)(most < limit ? most : limit));
   return attr;
 }
 
-template <typename T, typename TC, int D, int C, bool PT>
+template <typename T, typename TC, int D, int C, bool PT, int W>
 cudaLaunchConfig_t config_mma(cudaLaunchAttribute* cluster, int pairs, int gs,
                               cudaStream_t stream) {
+  using L = MmaLayout<T, TC, D, PT, W>;
   cluster[0].id = cudaLaunchAttributeClusterDimension;
   cluster[0].val.clusterDim.x = 1;
   cluster[0].val.clusterDim.y = C;
   cluster[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(pairs, C, (gs + QTILE - 1) / QTILE);
+  cfg.gridDim = dim3(pairs, C, (gs + L::QT - 1) / L::QT);
   cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = MmaLayout<T, TC, D, PT>::bytes(C, gs < QTILE ? gs : QTILE);
+  cfg.dynamicSmemBytes = L::bytes(C, gs < L::QT ? gs : L::QT);
   cfg.stream = stream;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
   return cfg;
 }
 
-// Clusters of C blocks the card holds at once at ``gs`` query rows a kv head
-// (0: the shared memory does not fit; negative: an error).
-template <typename T, typename TC, int D, int C, bool PT>
+// Clusters of C blocks of W walkers the card holds at once at ``gs`` query
+// rows a kv head (0: the shared memory does not fit; negative: an error), of
+// the batched grid's instantiation (a single request's holds at least as
+// many).
+template <typename T, typename TC, int D, int C, bool PT, int W>
 int max_clusters_mma(int gs) {
-  const cudaError_t attr = prepare_mma<T, TC, D, C, PT>();
+  const cudaError_t attr = prepare_mma<T, TC, D, C, PT, W, true>();
   if (attr != cudaSuccess) return -(int)attr;
   cudaLaunchAttribute cluster[1];
-  const cudaLaunchConfig_t cfg = config_mma<T, TC, D, C, PT>(cluster, 1, gs, 0);
-  if (cfg.dynamicSmemBytes > SMEM_OPTIN) return 0;
+  const cudaLaunchConfig_t cfg = config_mma<T, TC, D, C, PT, W>(cluster, 1, gs, 0);
+  if (cfg.dynamicSmemBytes > dynamic_limit_mma<T, TC, D, C, PT, W, true>()) return 0;
   int count = 0;
-  const cudaError_t err =
-      cudaOccupancyMaxActiveClusters(&count, partial_kernel_mma<T, TC, D, C, PT>, &cfg);
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(
+      &count, partial_kernel_mma<T, TC, D, C, PT, W, true>, &cfg);
   return err == cudaSuccess ? count : -(int)err;
 }
 
-template <typename T, typename TC, int D, int C, bool PT>
-int launch_mma(const void* q, const void* k, const void* v, const void* k_scale,
-               const void* v_scale, const void* mask, const void* start, const void* layer,
-               void* out, int nslots, int hkv, int gs, int s_len, int t_reg, int max_len,
-               long long layer_stride, long long scale_layer_stride, long long slot_stride,
-               long long scale_slot_stride, long long mask_slot_stride,
-               cudaStream_t stream) {
-  const cudaError_t attr = prepare_mma<T, TC, D, C, PT>();
+// The call's operands as launch_mma takes them.
+struct MmaArgs {
+  const void *q, *k, *v, *k_scale, *v_scale, *mask, *start, *layer;
+  void* out;
+  int nslots, hkv, gs, s_len, t_reg, max_len;
+  long long layer_stride, scale_layer_stride, slot_stride, scale_slot_stride, mask_slot_stride;
+  cudaStream_t stream;
+};
+
+template <typename T, typename TC, int D, int C, bool PT, int W, bool ORDER>
+int launch_mma_order(const MmaArgs& a) {
+  const cudaError_t attr = prepare_mma<T, TC, D, C, PT, W, ORDER>();
   if (attr != cudaSuccess) return (int)attr;
   cudaLaunchAttribute cluster[1];
-  const cudaLaunchConfig_t cfg = config_mma<T, TC, D, C, PT>(cluster, nslots * hkv, gs, stream);
-  if (cfg.dynamicSmemBytes > SMEM_OPTIN) return -1;
+  const cudaLaunchConfig_t cfg =
+      config_mma<T, TC, D, C, PT, W>(cluster, a.nslots * a.hkv, a.gs, a.stream);
+  if (cfg.dynamicSmemBytes > dynamic_limit_mma<T, TC, D, C, PT, W, ORDER>()) return -1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, partial_kernel_mma<T, TC, D, C, PT>, (const T*)q, (const TC*)k, (const TC*)v,
-      (const float*)k_scale, (const float*)v_scale, (const uint8_t*)mask, (const int*)start,
-      (const int*)layer, (T*)out, hkv, gs, s_len, t_reg, max_len, layer_stride,
-      scale_layer_stride, slot_stride, scale_slot_stride, mask_slot_stride,
-      1.0f / sqrtf((float)D));
+      &cfg, partial_kernel_mma<T, TC, D, C, PT, W, ORDER>, (const T*)a.q, (const TC*)a.k,
+      (const TC*)a.v, (const float*)a.k_scale, (const float*)a.v_scale,
+      (const uint8_t*)a.mask, (const int*)a.start, (const int*)a.layer, (T*)a.out, a.hkv,
+      a.gs, a.s_len, a.t_reg, a.max_len, a.layer_stride, a.scale_layer_stride,
+      a.slot_stride, a.scale_slot_stride, a.mask_slot_stride, 1.0f / sqrtf((float)D));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// A single request at (8, 1), the shape the host picks for every single
+// request, runs the instantiation without the placement; every other call
+// the one with it.
+template <typename T, typename TC, int D, int C, bool PT, int W>
+int launch_mma(const MmaArgs& a) {
+  if constexpr (C == VRANKS && W == 1) {
+    if (a.nslots == 1) return launch_mma_order<T, TC, D, C, PT, W, false>(a);
+  }
+  return launch_mma_order<T, TC, D, C, PT, W, true>(a);
+}
+
+// The (cluster, walkers) shapes built for a dtype pair and build: clusters
+// of 8, 4, 2 and 1 with one walker; bf16 q over a bf16 cache also (4, 2);
+// bf16 q over int8 in its register build (8, 1) only.  at_shape calls f(Shape<C, W>{}) at the
+// shape asked for; -1 for one not built.
+template <int C_, int W_>
+struct Shape {
+  static constexpr int C = C_, W = W_;
+};
+
+template <typename T, typename TC, bool PT, typename F>
+int at_shape(int cluster, int walkers, F&& f) {
+  if constexpr (std::is_same<TC, int8_t>::value && std::is_same<T, __nv_bfloat16>::value &&
+                !PT) {
+    return cluster == 8 && walkers == 1 ? f(Shape<8, 1>{}) : -1;
+  } else {
+    if (walkers == 1) {
+      switch (cluster) {
+        case 8: return f(Shape<8, 1>{});
+        case 4: return f(Shape<4, 1>{});
+        case 2: return f(Shape<2, 1>{});
+        case 1: return f(Shape<1, 1>{});
+        default: return -1;
+      }
+    }
+    if constexpr (std::is_same<TC, __nv_bfloat16>::value) {
+      if (walkers == 2 && cluster == 4) return f(Shape<4, 2>{});
+    }
+    return -1;
+  }
+}
+
+template <typename T, typename TC, bool PT>
+struct Pair {
+  using Q = T;
+  using Cache = TC;
+  static constexpr bool P_TILES = PT;
+};
+
+// at_shape for the dtype pair and build the flags name (p_tiles: bf16 q
+// over int8 only): f(Pair<T, TC, PT>{}, Shape<C, W>{}).
+template <typename F>
+int at_pair(int is_bf16, int cache_int8, int p_tiles, int cluster, int walkers, F&& f) {
+  auto with = [&](auto pair) {
+    using P = decltype(pair);
+    return at_shape<typename P::Q, typename P::Cache, P::P_TILES>(
+        cluster, walkers, [&](auto shape) { return f(pair, shape); });
+  };
+  if (p_tiles && !(is_bf16 && cache_int8)) return -1;
+  if (is_bf16 && cache_int8) {
+    return p_tiles ? with(Pair<__nv_bfloat16, int8_t, true>{})
+                   : with(Pair<__nv_bfloat16, int8_t, false>{});
+  }
+  if (is_bf16) return with(Pair<__nv_bfloat16, __nv_bfloat16, false>{});
+  if (cache_int8) return with(Pair<float, int8_t, false>{});
+  return with(Pair<float, float, false>{});
 }
 
 // D = 16: partial_kernel into the scratch partials, then combine_kernel.
@@ -1136,57 +1369,38 @@ extern "C" {
 // Chunk length of the split; the caller sizes head_dim 16's scratch from it.
 int vispec_verify_attention_tile() { return TILE; }
 
-// Clusters of ``cluster`` blocks (8, 4, 2 or 1) of the head_dim-128 kernel
-// for this dtype pair that the card holds at once at ``gs`` query rows a kv
-// head: 0 when the blocks' shared memory does not fit, negative a
-// cudaError_t, -1 for a build that does not exist.  ``p_tiles`` selects,
-// for bf16 q over int8, the build with the P tiles (every cluster size) or
-// the one packing p * v_scale in registers (clusters of 8); the other pairs
-// have one build (p_tiles 0).
-int vispec_verify_attention_max_clusters(int is_bf16, int cache_int8, int cluster, int p_tiles,
-                                         int gs) {
-#define VISPEC_CLUSTERS(T, TC, PT)                                  \
-  switch (cluster) {                                               \
-    case 8: return max_clusters_mma<T, TC, 128, 8, PT>(gs);        \
-    case 4: return max_clusters_mma<T, TC, 128, 4, PT>(gs);        \
-    case 2: return max_clusters_mma<T, TC, 128, 2, PT>(gs);        \
-    case 1: return max_clusters_mma<T, TC, 128, 1, PT>(gs);        \
-    default: return -1;                                            \
-  }
-  if (is_bf16 && cache_int8 && !p_tiles)
-    return cluster == 8 ? max_clusters_mma<__nv_bfloat16, int8_t, 128, 8, false>(gs) : -1;
-  if (p_tiles && !(is_bf16 && cache_int8)) return -1;
-  if (is_bf16) {
-    if (cache_int8) {
-      VISPEC_CLUSTERS(__nv_bfloat16, int8_t, true)
-    } else {
-      VISPEC_CLUSTERS(__nv_bfloat16, __nv_bfloat16, false)
-    }
-  } else {
-    if (cache_int8) {
-      VISPEC_CLUSTERS(float, int8_t, false)
-    } else {
-      VISPEC_CLUSTERS(float, float, false)
-    }
-  }
-#undef VISPEC_CLUSTERS
-  return -1;
+// Clusters of ``cluster`` blocks of ``walkers`` walkers (see at_shape) of
+// the head_dim-128 kernel for this dtype pair that the card holds at once at
+// ``gs`` query rows a kv head: 0 when the blocks' shared memory does not
+// fit, negative a cudaError_t, -1 for a build that does not exist.
+// ``p_tiles`` selects, for bf16 q over int8, the build with the P tiles or
+// the one packing p * v_scale in registers (clusters of 8, one walker); the
+// other pairs have one build (p_tiles 0).
+int vispec_verify_attention_max_clusters(int is_bf16, int cache_int8, int cluster, int walkers,
+                                         int p_tiles, int gs) {
+  return at_pair(is_bf16, cache_int8, p_tiles, cluster, walkers, [&](auto pair, auto shape) {
+    using P = decltype(pair);
+    using S = decltype(shape);
+    return max_clusters_mma<typename P::Q, typename P::Cache, 128, S::C, P::P_TILES, S::W>(gs);
+  });
 }
 
 // Returns a cudaError_t code (0 on success), or -1 for an unsupported
-// head_dim / dtype pair / build, a missing scratch or a shared memory that
-// does not fit.  q and the output are bf16 (is_bf16) or f32; the cache is
-// q's type, or int8 (cache_int8) with scales k_scale / v_scale (null
-// otherwise).  ``nslots`` requests at once: start and layer hold one int32
-// per slot, and slot b's cache, scales and mask begin ``b * *_slot_stride``
-// elements after the given pointers (all strides 0 for a single request).
-// head_dim 128 is one launch of partial_kernel_mma with a cluster of
-// ``cluster`` blocks (8, 4, 2 or 1) per (slot x kv head, 64 query rows), in
-// the build ``p_tiles`` names (see vispec_verify_attention_max_clusters),
-// and takes no scratch (part_m, part_l, part_acc may be null); the output
-// does not depend on the cluster or the build.  head_dim 16 ignores both
-// and writes the partials [nslots * hkv, ceil(max_len / TILE), gs (, D)] to
-// the scratch.  Launches on ``stream``; does not synchronise.
+// head_dim / dtype pair / build / shape, a missing scratch or a shared
+// memory that does not fit.  q and the output are bf16 (is_bf16) or f32;
+// the cache is q's type, or int8 (cache_int8) with scales k_scale / v_scale
+// (null otherwise).  ``nslots`` requests at once: start and layer hold one
+// int32 per slot, and slot b's cache, scales and mask begin ``b *
+// *_slot_stride`` elements after the given pointers (all strides 0 for a
+// single request).  head_dim 128 is one launch of partial_kernel_mma with a
+// cluster of ``cluster`` blocks of ``walkers`` walkers per (slot x kv head,
+// 64 / walkers query rows), in the build ``p_tiles`` names (see
+// vispec_verify_attention_max_clusters), its block columns serving the
+// slots of a batch longest first; it takes no scratch (part_m, part_l,
+// part_acc may be null), and the output does not depend on the shape, the
+// build or the order.  head_dim 16 ignores them and writes the
+// partials [nslots * hkv, ceil(max_len / TILE), gs (, D)] to the scratch.
+// Launches on ``stream``; does not synchronise.
 int vispec_verify_attention(const void* q, const void* k, const void* v,
                             const void* k_scale, const void* v_scale,
                             const void* mask, const void* start,
@@ -1197,51 +1411,34 @@ int vispec_verify_attention(const void* q, const void* k, const void* v,
                             long long scale_layer_stride,
                             long long slot_stride, long long scale_slot_stride,
                             long long mask_slot_stride, int head_dim,
-                            int is_bf16, int cache_int8, int cluster, int p_tiles,
-                            void* stream) {
+                            int is_bf16, int cache_int8, int cluster, int walkers,
+                            int p_tiles, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define VISPEC_MMA(T, TC, C, PT)                                                          \
-  return launch_mma<T, TC, 128, C, PT>(q, k, v, k_scale, v_scale, mask, start, layer, out, \
-                                       nslots, hkv, gs, s_len, t_reg, max_len,             \
-                                       layer_stride, scale_layer_stride, slot_stride,      \
-                                       scale_slot_stride, mask_slot_stride, st);
-#define VISPEC_LAUNCH(T, TC, PT)                                                     \
-  if (head_dim == 128) {                                                             \
-    switch (cluster) {                                                               \
-      case 8: VISPEC_MMA(T, TC, 8, PT)                                               \
-      case 4: VISPEC_MMA(T, TC, 4, PT)                                               \
-      case 2: VISPEC_MMA(T, TC, 2, PT)                                               \
-      case 1: VISPEC_MMA(T, TC, 1, PT)                                               \
-      default: return -1;                                                            \
-    }                                                                                \
-  }                                                                                  \
-  if (head_dim == 16)                                                                \
-    return launch_split<T, TC, 16>(q, k, v, k_scale, v_scale, mask, start, layer,     \
-                                   part_m, part_l, part_acc, out, nslots, hkv, gs,    \
-                                   s_len, t_reg, max_len, layer_stride,               \
-                                   scale_layer_stride, slot_stride,                   \
-                                   scale_slot_stride, mask_slot_stride, st);
-  if (head_dim == 128 && is_bf16 && cache_int8 && !p_tiles) {
-    if (cluster != 8) return -1;
-    VISPEC_MMA(__nv_bfloat16, int8_t, 8, false)
+  if (head_dim == 128) {
+    const MmaArgs a = {q, k, v, k_scale, v_scale, mask, start, layer, out, nslots, hkv, gs,
+                       s_len, t_reg, max_len, layer_stride, scale_layer_stride, slot_stride,
+                       scale_slot_stride, mask_slot_stride, st};
+    return at_pair(is_bf16, cache_int8, p_tiles, cluster, walkers,
+                   [&](auto pair, auto shape) {
+                     using P = decltype(pair);
+                     using S = decltype(shape);
+                     return launch_mma<typename P::Q, typename P::Cache, 128, S::C,
+                                       P::P_TILES, S::W>(a);
+                   });
   }
-  if (head_dim == 128 && p_tiles && !(is_bf16 && cache_int8)) return -1;
+  if (head_dim != 16) return -1;
+#define VISPEC_SPLIT(T, TC)                                                            \
+  return launch_split<T, TC, 16>(q, k, v, k_scale, v_scale, mask, start, layer, part_m, \
+                                 part_l, part_acc, out, nslots, hkv, gs, s_len, t_reg,  \
+                                 max_len, layer_stride, scale_layer_stride, slot_stride, \
+                                 scale_slot_stride, mask_slot_stride, st);
   if (is_bf16) {
-    if (cache_int8) {
-      VISPEC_LAUNCH(__nv_bfloat16, int8_t, true)
-    } else {
-      VISPEC_LAUNCH(__nv_bfloat16, __nv_bfloat16, false)
-    }
-  } else {
-    if (cache_int8) {
-      VISPEC_LAUNCH(float, int8_t, false)
-    } else {
-      VISPEC_LAUNCH(float, float, false)
-    }
+    if (cache_int8) VISPEC_SPLIT(__nv_bfloat16, int8_t)
+    VISPEC_SPLIT(__nv_bfloat16, __nv_bfloat16)
   }
-#undef VISPEC_LAUNCH
-#undef VISPEC_MMA
-  return -1;
+  if (cache_int8) VISPEC_SPLIT(float, int8_t)
+  VISPEC_SPLIT(float, float)
+#undef VISPEC_SPLIT
 }
 
 }  // extern "C"

@@ -20,7 +20,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 # -split-compile=0: the device code's optimisation runs on every core (the
-# attention source has seventeen kernel instantiations)
+# attention source has twenty-three kernel instantiations)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-split-compile=0")
 

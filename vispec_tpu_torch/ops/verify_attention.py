@@ -11,15 +11,20 @@ compiled with ``nvcc`` for ``sm_90a`` at first use (``ops/cuda_build.py``)
 and bound with ``ctypes``.  At head_dim 128 every call is one launch of
 ``partial_kernel_mma`` on tensor cores (bf16 q; float32 q in 3xTF32), over
 q's own cache or an int8 cache: a thread-block cluster per (slot x kv head,
-64 query rows) splits the live chunks over 8 virtual ranks and merges them
-in rank order in its shared memory, so no partials reach device memory.
-The cluster has 8, 4, 2 or 1 blocks, each running 1, 2, 4 or 8 ranks in
-turn; the host picks the size from the call's shapes and the clusters the
-card holds at once (``pick_cluster``), and, for bf16 q over int8, the
-build (``register_build_holds``): p * v_scale through shared-memory P
-tiles (three blocks an SM) or packed in registers inside P.V.  The output
-is the same bits whatever the size and the build.  head_dim 16 runs the CUDA-core ``partial_kernel`` into
-float32 scratch, then ``combine_kernel``.
+query tile) splits the live chunks over 8 virtual ranks and merges them in
+rank order in its shared memory, so no partials reach device memory.  The
+cluster has C = 8, 4, 2 or 1 blocks, each running 8 / C ranks, W at a time:
+a block's W walkers (W = 2: two warps each, with tiles of their own; bf16
+q over a bf16 cache with at most 32 query rows a kv head) each take every
+W-th of its ranks.
+The host picks (C, W) from the call's shapes and the clusters the card
+holds at once (``pick_cluster``), and, for bf16 q over int8, the build
+(``register_build_holds``): p * v_scale through shared-memory P tiles or
+packed in registers inside P.V.  A batch's block columns serve its
+slots longest first (the order computed on the device).  The output is the
+same bits whatever the shape, the build and the order.  head_dim 16 runs
+the CUDA-core ``partial_kernel`` into float32 scratch, then
+``combine_kernel``.
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain version
 (``verify_attention_ref``, ``verify_attention_batched_ref``) for CPU tensors;
@@ -40,8 +45,11 @@ from .kv_cache import dequantize_rows
 HEAD_DIMS = (16, 128)  # the instantiations in the source
 FOLDED_HEAD_DIM = 128  # one launch, no scratch; head_dim 16 runs partial + combine
 CLUSTERS = (8, 4, 2, 1)  # the cluster sizes built at head_dim 128, largest first
+# (cluster, walkers) shapes built with more than one walker: bf16 q over a
+# bf16 cache only
+WALKER_SHAPES = ((4, 2),)
 VRANKS = 8  # virtual ranks a (slot x kv head, query tile) splits its chunks over
-QTILE = 64  # query rows a cluster takes; a kv head's gs rows take ceil(gs / 64)
+QTILE = 64  # query rows a block's warps hold; a walker holds QTILE / W of them
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -57,9 +65,10 @@ def _library() -> ctypes.CDLL:
             p, p, p, p, p, p, p, p, p, p, p, p,  # q k v ks vs mask start layer m l acc out
             i, i, i, i, i, i,  # nslots hkv gs s_len t_reg max_len
             ll, ll, ll, ll, ll,  # layer, scale-layer, slot, scale-slot, mask-slot strides
-            i, i, i, i, i, p]  # head_dim is_bf16 cache_int8 cluster p_tiles stream
+            i, i, i, i, i, i,  # head_dim is_bf16 cache_int8 cluster walkers p_tiles
+            p]  # stream
         lib.vispec_verify_attention.restype = i
-        lib.vispec_verify_attention_max_clusters.argtypes = [i, i, i, i, i]
+        lib.vispec_verify_attention_max_clusters.argtypes = [i, i, i, i, i, i]
         lib.vispec_verify_attention_max_clusters.restype = i
         lib.vispec_verify_attention_tile.argtypes = []
         lib.vispec_verify_attention_tile.restype = i
@@ -154,28 +163,37 @@ def _check_operands(name, q, k_cache, v_cache, tree_mask, k_scale, v_scale,
     return quantized
 
 
-def pick_cluster(nslots: int, hkv: int, gs: int, resident: Dict[int, int]) -> int:
-    """The cluster size of a head_dim-128 call, from its shapes alone (the
-    host never reads tree_start).  ``resident`` maps each size in CLUSTERS to
-    the clusters of it the card holds at once for this dtype pair and gs (0:
-    its shared memory does not fit).  The grid has one cluster per (slot x
-    kv head, 64 query rows).  Of the sizes that keep at least as many blocks
-    resident as the cluster of 8 (a smaller cluster's extra slots of shared
-    memory may cost blocks an SM), the largest whose grid runs in at most two
-    waves is taken, else the one with the fewest waves.  The output does not
-    depend on the size (chip_smoke.py --attention-sweep holds the rule: a
-    cluster of 8 for one request, 4 for the B = 4 bf16 rounds, 8 for B = 4
-    over int8 or in float32, 1 for getkacc's 16 one-row slots)."""
+Shape = Tuple[int, int]  # (cluster size, walkers a block)
+
+
+def pick_cluster(nslots: int, hkv: int, gs: int, resident: Dict[Shape, int]) -> Shape:
+    """The (cluster size, walkers) of a head_dim-128 call, from its shapes
+    alone (the host never reads tree_start).  ``resident`` maps each built
+    shape to the clusters of it the card holds at once for this dtype pair
+    and gs (0: its shared memory does not fit).  The grid has one cluster
+    per (slot x kv head, 64 query rows); W > 1 walkers are taken only where
+    one walker's QTILE / W rows hold all gs.  A block's chain is ceil(8 / C /
+    W) virtual ranks.  Of the shapes that keep at least as many walkers
+    resident as the cluster of 8 (a shape's extra tiles and slots of shared
+    memory may cost blocks an SM), the one with the shortest chain, then
+    the largest cluster, whose grid runs in at most two waves is taken,
+    else the one with the fewest waves.  The output does not depend on the
+    shape (chip_smoke.py --attention-sweep holds the rule: (8, 1) for one
+    request, (4, 2) for the B = 4 rounds over a bf16 cache, (8, 1) for the
+    B = 4 verify over int8 and in float32, (4, 1) for the B = 4 step over
+    int8, (1, 1) for getkacc's 16 one-row slots)."""
     tiles = nslots * hkv * -(-gs // QTILE)
-    if resident.get(VRANKS, 0) <= 0:
+    if resident.get((VRANKS, 1), 0) <= 0:
         raise RuntimeError(f"verify_attention: no cluster of {VRANKS} fits (resident {resident})")
-    full = resident[VRANKS] * VRANKS
-    sizes = [c for c in CLUSTERS if resident.get(c, 0) * c >= full]
-    waves = {c: -(-tiles // resident[c]) for c in sizes}
-    for c in sizes:
-        if waves[c] <= 2:
-            return c
-    return min(sizes, key=lambda c: (waves[c], -c))
+    full = resident[(VRANKS, 1)] * VRANKS
+    shapes = [(c, w) for (c, w), n in resident.items()
+              if n * c * w >= full and (w == 1 or gs <= QTILE // w)]
+    waves = {x: -(-tiles // resident[x]) for x in shapes}
+    order = sorted(shapes, key=lambda x: (-(-VRANKS // x[0] // x[1]), -x[0]))
+    for x in order:
+        if waves[x] <= 2:
+            return x
+    return min(order, key=lambda x: waves[x])
 
 
 def register_build_holds(nslots: int, hkv: int, gs: int, register8: int) -> bool:
@@ -189,66 +207,87 @@ def register_build_holds(nslots: int, hkv: int, gs: int, register8: int) -> bool
     return nslots * hkv * -(-gs // QTILE) <= register8
 
 
-_RESIDENT: Dict[tuple, Dict[int, int]] = {}
-_PICKED: Dict[tuple, Tuple[int, bool]] = {}
+_RESIDENT: Dict[tuple, Dict[Shape, int]] = {}
+_PICKED: Dict[tuple, Tuple[int, int, bool]] = {}
 
 
 def two_builds(q_dtype: torch.dtype, int8: bool) -> bool:
-    """bf16 q over int8 has a P-tile build (every cluster size) and a
-    register build (clusters of 8); the other pairs have one build."""
+    """bf16 q over int8 has a P-tile build (every shape) and a register
+    build (clusters of 8, one walker); the other pairs have one build."""
     return int8 and q_dtype == torch.bfloat16
 
 
+def shapes_built(q_dtype: torch.dtype, int8: bool, p_tiles: bool) -> Tuple[Shape, ...]:
+    """The (cluster, walkers) shapes the source builds for this dtype pair
+    and build: every cluster size with one walker, also WALKER_SHAPES for
+    bf16 q over a bf16 cache, (8, 1) alone for the register build."""
+    if two_builds(q_dtype, int8) and not p_tiles:
+        return ((VRANKS, 1),)
+    one = tuple((c, 1) for c in CLUSTERS)
+    return one + WALKER_SHAPES if q_dtype == torch.bfloat16 and not int8 else one
+
+
 def resident_clusters(device: torch.device, q_dtype: torch.dtype, int8: bool, gs: int,
-                      p_tiles: Optional[bool] = None) -> Dict[int, int]:
-    """{cluster size: clusters the card holds at once} of the head_dim-128
-    kernel for this dtype pair at ``gs`` query rows a kv head (an occupancy
-    query per instantiation, kept); bf16 q over int8: of its P-tile build,
-    or with ``p_tiles=False`` of its register build ({8: n})."""
+                      p_tiles: Optional[bool] = None) -> Dict[Shape, int]:
+    """{(cluster size, walkers): clusters the card holds at once} of the
+    head_dim-128 kernel for this dtype pair at ``gs`` query rows a kv head
+    (an occupancy query per instantiation, kept); bf16 q over int8: of its
+    P-tile build, or with ``p_tiles=False`` of its register build
+    ({(8, 1): n})."""
     pt = two_builds(q_dtype, int8) if p_tiles is None else p_tiles
     key = (device.index, q_dtype, int8, min(gs, QTILE), pt)
     if key not in _RESIDENT:
         lib = _library()
-        sizes = CLUSTERS if pt or not two_builds(q_dtype, int8) else (VRANKS,)
-        counts = {c: lib.vispec_verify_attention_max_clusters(
-            int(q_dtype == torch.bfloat16), int(int8), c, int(pt), gs) for c in sizes}
-        bad = {c: n for c, n in counts.items() if n < 0}
+        counts = {(c, w): lib.vispec_verify_attention_max_clusters(
+            int(q_dtype == torch.bfloat16), int(int8), c, w, int(pt), gs)
+            for c, w in shapes_built(q_dtype, int8, pt)}
+        bad = {x: n for x, n in counts.items() if n < 0}
         if bad:
             raise RuntimeError(f"verify_attention: occupancy query failed {bad}")
         _RESIDENT[key] = counts
     return _RESIDENT[key]
 
 
+def pick_shape(nslots: int, hkv: int, gs: int, resident: Dict[Shape, int],
+               register8: Optional[int] = None) -> Tuple[int, int, bool]:
+    """(cluster size, walkers, P tiles) of a head_dim-128 call from its
+    shapes and the card's resident tables alone: bf16 q over int8
+    (``register8``: the clusters of 8 of its register build the card holds)
+    takes the register build at (8, 1) where ``register_build_holds``, else
+    ``pick_cluster``'s shape of the P-tile build; the other pairs
+    (``register8`` None) ``pick_cluster``'s shape of their one build."""
+    if register8 is not None and register_build_holds(nslots, hkv, gs, register8):
+        return VRANKS, 1, False
+    c, w = pick_cluster(nslots, hkv, gs, resident)
+    return c, w, register8 is not None
+
+
 def cluster_for(device: torch.device, q_dtype: torch.dtype, int8: bool, nslots: int,
-                hkv: int, gs: int) -> Tuple[int, bool]:
-    """(cluster size, P tiles) of this call on this card: bf16 q over int8
-    takes its register build at a cluster of 8 where
-    ``register_build_holds``, else every call takes ``pick_cluster``'s size
-    (of the P-tile build over int8).  Kept per shape."""
+                hkv: int, gs: int) -> Tuple[int, int, bool]:
+    """``pick_shape`` on this card's resident tables (occupancy queries),
+    kept per shape."""
     key = (device.index, q_dtype, int8, nslots, hkv, gs)
     if key not in _PICKED:
-        two = two_builds(q_dtype, int8)
-        if two and register_build_holds(
-                nslots, hkv, gs, resident_clusters(device, q_dtype, int8, gs, False)[VRANKS]):
-            _PICKED[key] = (VRANKS, False)
-        else:
-            _PICKED[key] = (pick_cluster(nslots, hkv, gs,
-                                         resident_clusters(device, q_dtype, int8, gs)), two)
+        register8 = (resident_clusters(device, q_dtype, int8, gs, False)[(VRANKS, 1)]
+                     if two_builds(q_dtype, int8) else None)
+        _PICKED[key] = pick_shape(nslots, hkv, gs,
+                                  resident_clusters(device, q_dtype, int8, gs), register8)
     return _PICKED[key]
 
 
 def _launch(q, k_cache, v_cache, k_scale, v_scale, tree_mask, start, layer,
             nslots: int, has_layer: bool, *, _cluster: Optional[int] = None,
-            _p_tiles: Optional[bool] = None) -> torch.Tensor:
+            _walkers: int = 1, _p_tiles: Optional[bool] = None) -> torch.Tensor:
     """One call over ``nslots`` slots (1 for a single request, whose slot
     strides are then 0): one launch at head_dim 128, a launch pair over
     float32 scratch at 16.  ``start`` and ``layer`` are int32 [nslots] on
     the device; the caches' leading dims are (slot,)? + (layer,)?.  The
-    cluster size and build at head_dim 128 are ``cluster_for``'s, or forced
-    by ``_cluster`` (a size in CLUSTERS) and ``_p_tiles`` (bf16 q over int8:
-    False for the register build, clusters of 8 only; default the P tiles):
-    the tests and chip_smoke.py's sweep force them, and the output is the
-    same bits."""
+    shape and build at head_dim 128 are ``cluster_for``'s, or forced by
+    ``_cluster`` (a size in CLUSTERS) with ``_walkers`` (``shapes_built``)
+    and ``_p_tiles`` (bf16 q over int8: False for the register build, (8, 1)
+    only; default the P tiles).  The tests and chip_smoke.py's sweep force
+    them, and the output is the same bits.  A batch's block columns serve
+    its slots longest first whatever the shape."""
     quantized = k_scale is not None
     h, s, d = q.shape[-3:]
     hkv, max_len = k_cache.shape[-3:-1]
@@ -261,15 +300,17 @@ def _launch(q, k_cache, v_cache, k_scale, v_scale, tree_mask, start, layer,
 
     lib = _library()
     gs = (h // hkv) * s
-    cluster, p_tiles = 0, False
+    cluster, walkers, p_tiles = 0, 1, False
     if d == FOLDED_HEAD_DIM:
         if _cluster is None:
-            cluster, p_tiles = cluster_for(q.device, q.dtype, quantized, nslots, hkv, gs)
+            cluster, walkers, p_tiles = cluster_for(q.device, q.dtype, quantized, nslots, hkv,
+                                                    gs)
         else:
-            cluster = _cluster
+            cluster, walkers = _cluster, _walkers
             p_tiles = two_builds(q.dtype, quantized) if _p_tiles is None else _p_tiles
-        if cluster not in CLUSTERS:
-            raise ValueError(f"verify_attention: cluster {cluster} not in {CLUSTERS}")
+        if (cluster, walkers) not in shapes_built(q.dtype, quantized, p_tiles):
+            raise ValueError(f"verify_attention: shape {(cluster, walkers)} not in "
+                             f"{shapes_built(q.dtype, quantized, p_tiles)}")
     scratch = [None, None, None]
     if d != FOLDED_HEAD_DIM:
         nc = -(-max_len // lib.vispec_verify_attention_tile())
@@ -288,7 +329,7 @@ def _launch(q, k_cache, v_cache, k_scale, v_scale, tree_mask, start, layer,
         out.data_ptr(), nslots, hkv, gs, s, tree_mask.shape[-1], max_len,
         layer_stride, scale_stride, slot_stride, scale_slot_stride,
         mask_slot_stride, d, int(q.dtype == torch.bfloat16), int(quantized), cluster,
-        int(p_tiles), torch.cuda.current_stream(q.device).cuda_stream)
+        walkers, int(p_tiles), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"verify_attention: kernel launch failed "
                            f"(CUDA error {err})")
