@@ -34,6 +34,7 @@ import torch
 from ..configs import DraftConfig, LlamaConfig, SpecConfig
 from ..ops import kv_cache as kv
 from ..ops import rng
+from ..utils import profiling
 from . import loop as spec_loop
 from .spec_model import (PaddedPrompt, _bucket, _Readback, output_rows,
                          padded_text_embeds, plan_prompt)
@@ -189,11 +190,13 @@ def _rounds_chunk(round_fn, states: spec_loop.SpecState, eos_id, max_new_tokens,
     if states.done.shape[0] == 1:
         state = spec_loop.map_states(lambda x: x[0], states)
         for _ in range(n_rounds):
-            state = round_fn(state, eos, caps.reshape(-1)[0])
+            with profiling.span("engine.round"):
+                state = round_fn(state, eos, caps.reshape(-1)[0])
             counts.append(state.new_token[None])
         return spec_loop.map_states(lambda x: x[None], state), torch.stack(counts)
     for _ in range(n_rounds):
-        states = round_fn(states, eos, caps)
+        with profiling.span("engine.round"):
+            states = round_fn(states, eos, caps)
         counts.append(states.new_token)
     return states, torch.stack(counts)
 

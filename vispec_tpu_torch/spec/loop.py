@@ -48,6 +48,7 @@ from ..ops.kv_cache import take_rows
 from ..ops.sampling import (mark_seen, process_logits, sample_categorical,
                             sample_probs_dyn, update_seen)
 from ..ops.tree import Tree, greedy_accept, path_to_root, sampling_accept
+from ..utils import profiling
 
 
 def target_forward(tparams, tcfg, embeds, pos, cache, mask, region=None,
@@ -554,12 +555,13 @@ def decode_round(
 
     w_e, w_h = draft_mod.ensure_fuse_mats(dparams, dcfg, mesh)
     fuse_w = (w_e, w_h, state.fuse_b)
-    seed, draft_cache = draft_mod.append_accepted(
-        dparams, dcfg, accept_hidden, tok_next, acc + 1, state.last_img,
-        state.draft_cache, fuse_w=fuse_w, mesh=mesh)
-    new_tree, draft_cache = draft_mod.expand_tree(
-        dparams, dcfg, spec, seed, bonus, state.last_img,
-        _rank_head(tparams, dparams), draft_cache, fuse_w=fuse_w, mesh=mesh)
+    with profiling.span("round.draft"):
+        seed, draft_cache = draft_mod.append_accepted(
+            dparams, dcfg, accept_hidden, tok_next, acc + 1, state.last_img,
+            state.draft_cache, fuse_w=fuse_w, mesh=mesh)
+        new_tree, draft_cache = draft_mod.expand_tree(
+            dparams, dcfg, spec, seed, bonus, state.last_img,
+            _rank_head(tparams, dparams), draft_cache, fuse_w=fuse_w, mesh=mesh)
 
     new_state = state._replace(
         tree=new_tree, target_cache=target_cache, draft_cache=draft_cache,

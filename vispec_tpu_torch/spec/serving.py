@@ -60,6 +60,7 @@ from ..ops import kv_cache as kv
 from ..ops import rng
 from ..ops.sampling import seen_mask
 from ..parallel import sharding
+from ..utils import profiling
 from . import batch as batch_mod
 from . import loop as spec_loop
 from .spec_model import _bucket, _Readback, output_rows, padded_text_embeds
@@ -335,8 +336,8 @@ class ServingEngine:
         self._eos_ewma = 0.0
         # mid-flight admissions serialize their prefill with decode on the
         # one device; "rounds" counts the batched rounds dispatched
-        self.stats = {"admissions": 0, "admit_dispatch_s": 0.0, "wall_s": 0.0,
-                      "rounds": 0}
+        self.stats = {"admissions": 0, "admit_dispatch_s": 0.0, "rounds": 0}
+        profiling.SPANS.clear()  # a record holds one session's spans
 
     def submit(self, request, max_new_tokens: Optional[int] = None) -> int:
         """Enqueue a request (token list, or dict with ``input_ids`` and
@@ -397,6 +398,7 @@ class ServingEngine:
         self._emitted[rid] = 0
         self._req_cap[rid] = min(cap, self.max_new)
         self._queue.append((rid, request))
+        profiling.start("engine.queue", rid)
         return rid
 
     def cancel(self, rid: int) -> bool:
@@ -445,19 +447,21 @@ class ServingEngine:
         free = [s for s in range(self.b) if s not in self._active]
         while self._queue and free:
             rid, request = self._queue.popleft()
+            profiling.stop("engine.queue", rid)
             t_adm = time.perf_counter()
-            try:
-                s1 = self._prefill_one(request, rid)
-            except (ValueError, KeyError, TypeError) as e:
-                # a malformed request fails that request, not the engine
-                self.results[rid] = np.zeros(0, np.int64)
-                self.errors[rid] = f"{type(e).__name__}: {e}"
-                self._failed_now.append(rid)
-                continue
-            if self._states is None:
-                self._states = self._empty_stacked(s1)
-            slot = free.pop(0)
-            admit(self._states, s1, slot)
+            with profiling.span("engine.admit", rid):
+                try:
+                    s1 = self._prefill_one(request, rid)
+                except (ValueError, KeyError, TypeError) as e:
+                    # a malformed request fails that request, not the engine
+                    self.results[rid] = np.zeros(0, np.int64)
+                    self.errors[rid] = f"{type(e).__name__}: {e}"
+                    self._failed_now.append(rid)
+                    continue
+                if self._states is None:
+                    self._states = self._empty_stacked(s1)
+                slot = free.pop(0)
+                admit(self._states, s1, slot)
             if self._chunks:
                 # only mid-flight admissions stall other slots' decode
                 self.stats["admissions"] += 1
@@ -496,6 +500,10 @@ class ServingEngine:
 
         ``on_tokens(rid, token_ids)`` streams each request's newly generated
         tokens once per chunk."""
+        with profiling.span("engine.step"):
+            return self._step(on_tokens)
+
+    def _step(self, on_tokens) -> List[int]:
         m = self.m
         while self._cancel_req:  # deferred cancels: no chunk is in flight here
             rid = self._cancel_req.pop()
@@ -577,9 +585,7 @@ class ServingEngine:
         if not prompts:
             return []
         self.start_session()
-        t_run0 = time.perf_counter()
         rids = [self.submit(p) for p in prompts]
         while self.pending():
             self.step(on_tokens=on_tokens)
-        self.stats["wall_s"] = time.perf_counter() - t_run0
         return [self.results[r] for r in rids]

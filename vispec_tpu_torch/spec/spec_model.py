@@ -54,6 +54,7 @@ from ..ops.attention import causal_mask
 from ..ops.quant import quantize_draft_params, quantize_target_params
 from ..ops.sampling import seen_mask
 from ..parallel import sharding
+from ..utils import profiling
 from . import loop as spec_loop
 
 
@@ -686,13 +687,14 @@ class SpecModel:
         if (self.llava_cfg is None and self.qwen_cfg is None) or self.vparams is None:
             raise ValueError("pixel_values given to a model without a vision tower "
                              "(construct it with llava_cfg or qwen_cfg, and vparams)")
-        if self.qwen_cfg is not None:
-            feats, token, grids, spgs = self._qwen_vision(images, sizes, video,
-                                                          second_per_grid_ts)
-        else:
-            feats = torch.cat([self._encode_image(img, isz)
-                               for img, isz in zip(images, sizes)])
-            token = self.image_token_index
+        with profiling.span("admit.tower"):
+            if self.qwen_cfg is not None:
+                feats, token, grids, spgs = self._qwen_vision(images, sizes, video,
+                                                              second_per_grid_ts)
+            else:
+                feats = torch.cat([self._encode_image(img, isz)
+                                   for img, isz in zip(images, sizes)])
+                token = self.image_token_index
         image_mask = ids == token
         positions = np.nonzero(image_mask)[0]
         if positions.size != feats.shape[0]:
