@@ -1102,6 +1102,151 @@ def phase_batch_exact(dev):
         torch.cuda.empty_cache()
 
 
+GRAPH_TOKENS = 24  # new tokens a request in round_graph_exact
+
+
+def _graph_or_eager(graph: bool):
+    """Rounds replay where the runner engages (``graph``) or all run eager."""
+    from unittest import mock
+
+    from vispec_tpu_torch.spec import round_graph
+
+    if graph:
+        return contextlib.nullcontext()
+    return mock.patch.object(round_graph.RoundGraph, "engages", lambda *a: False)
+
+
+def _engine_run(model, reqs, graph: bool, batch_size=4, **kw):
+    """Serve ``reqs`` ((request, cap) pairs, more than the slots: admissions
+    land in the graph's buffers between chunks) through a fresh engine,
+    replaying the captured round or (``graph`` False) eager; returns
+    (outputs, engine)."""
+    kw.setdefault("pad_bucket", (128, 256, 512))
+    eng = model.serving_engine(batch_size=batch_size, chunk_rounds=4, **kw)
+    with _graph_or_eager(graph):
+        eng.start_session()
+        rids = [eng.submit(r, max_new_tokens=c) for r, c in reqs]
+        while eng.pending():
+            eng.step()
+    return [eng.results[r].tolist() for r in rids], eng
+
+
+def phase_round_graph_exact(dev):
+    """The decode round replayed as a CUDA graph (``spec/round_graph.py``)
+    against the eager round, one B = 4 engine each over the same six
+    requests: the same tokens in float32 with TF32 off (Vicuna-7B widths at
+    2 layers: ViSpec, Medusa, int8 KV + int4 draft + int8 target, and
+    per-request sampling at T = 1 from the slots' keys), on the trained toy
+    checkpoint (B = 3, tau as recorded), and in bf16 at ``DEPTH_LAYERS``.
+    On the bf16 engine: replays under CUDA's sync debug mode "error", and
+    torch.profiler's attention launches over a replayed chunk equal the
+    wrappers' counts; host ms a round, eager against replayed."""
+    from vispec_tpu_torch.spec import batch, round_graph
+
+    reqs = [(p, GRAPH_TOKENS) for p, _ in _serving_requests(6, seed=11)]
+
+    def compare(label, model, reqs, batch_size=4, **kw):
+        eager, _ = _engine_run(model, reqs, False, batch_size, **kw)
+        graphed, eng = _engine_run(model, reqs, True, batch_size, **kw)
+        g = eng._graph
+        row = {"phase": "round_graph_exact", "case": label, "B": batch_size,
+               "requests": len(reqs), "per_request_equal": [a == b for a, b in
+                                                            zip(graphed, eager)],
+               "rounds": eng.stats["rounds"], "graph_rounds": eng.stats["graph_rounds"],
+               "captures": g.captures,
+               "captured_launches": {f"{f.__name__}.{a}": n for (f, a), n in
+                                     g.launches.items()}}
+        row["ok"] = (all(row["per_request_equal"]) and g.captures == 1
+                     and 0 < row["graph_rounds"] < row["rounds"])
+        emit(row)
+        assert row["ok"], f"round_graph_exact ({label}): graph != eager"
+        return eng, row
+
+    model = _full_width_model(dev, 2, torch.float32, seed=1)
+    compare("vispec_f32", model, reqs)
+    sampled = [({"input_ids": p, "temperature": 1.0, "top_k": 0}, c) for p, c in reqs]
+    compare("sampled_t1_f32", model, sampled, per_request_sampling=True, top_k=8)
+    med = _medusa_model(model, _medusa_params(model))
+    compare("medusa_f32", med, reqs)
+    del model, med
+    torch.cuda.empty_cache()
+    qmodel = _full_width_model(dev, 2, torch.float32, seed=2, quantize_kv=True,
+                               quantize_draft="int4")
+    qmodel.quantize_target_inplace()
+    _, qrow = compare("int8kv_int4draft_int8target_f32", qmodel, reqs)
+    assert qrow["captured_launches"].get("verify_attention_batched.launches_int8", 0) > 0
+    assert qrow["captured_launches"].get("q4_matmul.launches", 0) > 0
+    del qmodel
+    torch.cuda.empty_cache()
+    tau = _tau_model(dev)
+    prompts = [(np.random.default_rng(100 + s).integers(1, 90, 16).tolist(), 40)
+               for s in range(6)]
+    eng, _ = compare("tau_fixture", tau, prompts, batch_size=3, pad_bucket=128)
+    z = np.load(os.path.join(ROOT, "tests", "data", "tau_fixture.npz"))
+    taus = [a + 1 for r in eng.acceptance.values() for a in r]
+    emit({"phase": "round_graph_exact", "case": "tau_fixture_tau",
+          "tau": float(np.mean(taus)), "recorded_tau": float(z["__tau__"])})
+    del tau, eng
+    model = _full_width_model(dev, DEPTH_LAYERS, torch.bfloat16, seed=0)
+    eng, _ = compare(f"vispec_bf16_{DEPTH_LAYERS}_layers", model, reqs)
+    # replays without a host sync: the engine's buffers, already captured
+    eng.start_session()
+    for p, c in reqs[:4]:
+        eng.submit(p, max_new_tokens=c)
+    eng.step()
+    g, captures, replayed = eng._graph, eng._graph.captures, eng._graph.replayed
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad(), round_graph.replaying(g):
+            batch.batched_decode_rounds_chunk(
+                model.tparams, model.dparams, model.tcfg, model.dcfg, model.spec,
+                eng.sampling, eng._states, model.eos_token_id, eng._caps, n_rounds=2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert g.captures == captures and g.replayed == replayed + 2, "replays recaptured"
+    steps = []
+
+    def step():
+        before = eng.stats["graph_rounds"]
+        eng.step()
+        steps.append(eng.stats["graph_rounds"] - before)
+
+    prof = _profile(step)  # asserts the traced attention launches == the counters
+    assert steps[-1] > 0, "the profiled step replayed no round"
+
+    def host_ms_a_round(graph):
+        """[host ms a round, ms a round to the device's end], medians of
+        three chunks of 4 rounds (the eager rounds' new state is dropped:
+        the graph's buffers stay as captured)."""
+        with _graph_or_eager(graph):
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.no_grad(), round_graph.replaying(g):
+                    batch.batched_decode_rounds_chunk(
+                        model.tparams, model.dparams, model.tcfg, model.dcfg, model.spec,
+                        eng.sampling, eng._states, model.eos_token_id, eng._caps,
+                        n_rounds=4)
+                host = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                times.append([1e3 * host / 4, 1e3 * (time.perf_counter() - t0) / 4])
+        return np.median(np.asarray(times), axis=0).tolist()
+
+    turns = [host_ms_a_round(True), host_ms_a_round(False), host_ms_a_round(True)]
+    emit({"phase": "round_graph_exact", "case": "bf16_replays", "sync_debug_error": "passed",
+          "profiled_step_rounds": steps[-1], "attention_launches": prof["attention_launches"],
+          "kernel_launches_per_round": prof["kernel_launches"] / steps[-1],
+          "device_idle_share": prof["device_idle_share"],
+          "ms_a_round_replayed_eager_replayed": turns, "captures": g.captures,
+          "ok": g.captures == captures})
+    del model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_tau_fixture_batch(dev):
     """The trained toy checkpoint through ``ServingEngine(batch_size=3)``:
     the six tau prompts equal ``specgenerate`` per prompt, and in at least
@@ -4652,6 +4797,7 @@ def main():
     phase_full_width_exact(dev)
     phase_quant_exact(dev)
     phase_batch_exact(dev)
+    phase_round_graph_exact(dev)
     phase_sampling_device(dev)
     phase_sampling_exact(dev)
     phase_tau_fixture_sampling(dev)

@@ -36,6 +36,7 @@ from ..ops import kv_cache as kv
 from ..ops import rng
 from ..utils import profiling
 from . import loop as spec_loop
+from . import round_graph
 from .spec_model import (PaddedPrompt, _bucket, _Readback, output_rows,
                          padded_text_embeds, plan_prompt)
 
@@ -177,23 +178,35 @@ def prepare_requests(dcfg: DraftConfig, requests: Sequence, max_len: int, slack:
     return out
 
 
+def _unit(round_fn):
+    """``round_fn`` over a batch of one through the single-request round
+    (and its kernel), as the JAX package squeezes its unit batch."""
+    def one(states, eos, caps):
+        state = round_fn(spec_loop.map_states(lambda x: x[0], states), eos,
+                         caps.reshape(-1)[0])
+        return spec_loop.map_states(lambda x: x[None], state)
+    return one
+
+
 def _rounds_chunk(round_fn, states: spec_loop.SpecState, eos_id, max_new_tokens,
-                  n_rounds: int):
+                  n_rounds: int, mesh=None, weights=()):
     """``n_rounds`` rounds of ``round_fn(state, eos, caps)`` queued back to
     back with no host read; returns (states, cumulative counters
-    ``[n_rounds, B]``).  A batch of one takes the single-request round (and
-    its kernel), as the JAX package squeezes its unit batch."""
+    ``[n_rounds, B]``).  Inside ``round_graph.replaying(graph)`` the rounds
+    replay a captured round where ``graph`` engages (CUDA tensors, no
+    ``mesh``), its first chunk eager; ``weights`` are the trees the round
+    reads besides the state."""
+    if states.done.shape[0] == 1:
+        round_fn = _unit(round_fn)
+    graph = round_graph.current()
+    if graph is not None and graph.engages(states, mesh):
+        if graph.warm:
+            return graph.rounds(round_fn, states, eos_id, max_new_tokens, n_rounds, weights)
+        graph.warm = True
     device = states.done.device
     eos = torch.as_tensor(eos_id, dtype=torch.int32, device=device)
     caps = torch.as_tensor(max_new_tokens, dtype=torch.int32, device=device)
     counts = []
-    if states.done.shape[0] == 1:
-        state = spec_loop.map_states(lambda x: x[0], states)
-        for _ in range(n_rounds):
-            with profiling.span("engine.round"):
-                state = round_fn(state, eos, caps.reshape(-1)[0])
-            counts.append(state.new_token[None])
-        return spec_loop.map_states(lambda x: x[None], state), torch.stack(counts)
     for _ in range(n_rounds):
         with profiling.span("engine.round"):
             states = round_fn(states, eos, caps)
@@ -217,7 +230,8 @@ def batched_decode_rounds_chunk(
     def one(state, eos, caps):
         return spec_loop.decode_round(tparams, dparams, tcfg, dcfg, spec, sampling, state,
                                       eos, caps, mesh)
-    return _rounds_chunk(one, states, eos_id, max_new_tokens, n_rounds)
+    return _rounds_chunk(one, states, eos_id, max_new_tokens, n_rounds, mesh,
+                         (tparams, dparams))
 
 
 def batched_medusa_rounds_chunk(
@@ -234,7 +248,8 @@ def batched_medusa_rounds_chunk(
     def one(state, eos, caps):
         return spec_loop.medusa_decode_round(tparams, mparams, tcfg, spec, sampling, state,
                                              eos, caps, mesh)
-    return _rounds_chunk(one, states, eos_id, max_new_tokens, n_rounds)
+    return _rounds_chunk(one, states, eos_id, max_new_tokens, n_rounds, mesh,
+                         (tparams, mparams))
 
 
 def apply_count_diffs(counts_np, prev, accepts, slot_keys) -> None:
@@ -291,16 +306,18 @@ def drain_batch(
     accepts: List[List[int]] = [[] for _ in range(b)]
     slot_keys = [(j, j) for j in range(b)]
     rounds = 0
+    graph = round_graph.RoundGraph()
     while rounds < budget:
         ch = pick_chunk_rounds(chunk_rounds, prev, rounds_in, caps, live)
-        if mparams is not None:
-            states, counts = batched_medusa_rounds_chunk(
-                tparams, mparams, tcfg, spec, sampling, states, eos_id, budget,
-                n_rounds=ch, mesh=mesh)
-        else:
-            states, counts = batched_decode_rounds_chunk(
-                tparams, dparams, tcfg, dcfg, spec, sampling, states, eos_id, budget,
-                n_rounds=ch, mesh=mesh)
+        with round_graph.replaying(graph):
+            if mparams is not None:
+                states, counts = batched_medusa_rounds_chunk(
+                    tparams, mparams, tcfg, spec, sampling, states, eos_id, budget,
+                    n_rounds=ch, mesh=mesh)
+            else:
+                states, counts = batched_decode_rounds_chunk(
+                    tparams, dparams, tcfg, dcfg, spec, sampling, states, eos_id, budget,
+                    n_rounds=ch, mesh=mesh)
         vals = np.asarray(_Readback(torch.cat(
             [counts.reshape(-1), states.done.to(torch.int32)])).values())
         apply_count_diffs(vals[:ch * b].reshape(ch, b), prev, accepts, slot_keys)

@@ -63,6 +63,7 @@ from ..parallel import sharding
 from ..utils import profiling
 from . import batch as batch_mod
 from . import loop as spec_loop
+from . import round_graph
 from .spec_model import _bucket, _Readback, output_rows, padded_text_embeds
 
 def admit(states: spec_loop.SpecState, state1: spec_loop.SpecState, slot: int) -> None:
@@ -143,6 +144,10 @@ class ServingEngine:
                              f"{self.pad}, slack {self.slack}")
         self.max_out = output_rows(spec, self.max_new)
         self._n_prefills = 0
+        # the rounds' CUDA graph (``round_graph``) over the slot-stacked
+        # state, which sessions share: captured once, in the first session
+        self._graph = round_graph.RoundGraph()
+        self._states: Optional[spec_loop.SpecState] = None  # allocated at first admit
 
         # Admission prefills run in small caches (pad-bucket rows, not
         # max_len): a prefill writes only the prompt rows and the first
@@ -314,7 +319,8 @@ class ServingEngine:
     def start_session(self) -> None:
         """Reset the live-serving state (called lazily by submit/run_all)."""
         self._queue: deque = deque()  # (rid, request) awaiting a slot
-        self._states: Optional[spec_loop.SpecState] = None  # allocated at first admit
+        if self._states is not None:
+            self._states.done.fill_(True)  # every slot drained, in the graph's buffer
         self._active: Dict[int, int] = {}  # slot -> rid
         self.results: Dict[int, np.ndarray] = {}  # rid -> generated ids
         self.acceptance: Dict[int, List[int]] = {}
@@ -335,8 +341,10 @@ class ServingEngine:
         # queued-admission chunk cap in _pick_chunk
         self._eos_ewma = 0.0
         # mid-flight admissions serialize their prefill with decode on the
-        # one device; "rounds" counts the batched rounds dispatched
-        self.stats = {"admissions": 0, "admit_dispatch_s": 0.0, "rounds": 0}
+        # one device; "rounds" counts the batched rounds dispatched,
+        # "graph_rounds" those of them replayed from the captured round
+        self.stats = {"admissions": 0, "admit_dispatch_s": 0.0, "rounds": 0,
+                      "graph_rounds": 0}
         profiling.SPANS.clear()  # a record holds one session's spans
 
     def submit(self, request, max_new_tokens: Optional[int] = None) -> int:
@@ -526,15 +534,18 @@ class ServingEngine:
         if not self._active:
             return failed
         chunk = self._pick_chunk()
-        if m.mparams is not None:
-            states, counts = batch_mod.batched_medusa_rounds_chunk(
-                m.tparams, m.mparams, m.tcfg, m.spec, self.sampling, self._states,
-                m.eos_token_id, self._caps, n_rounds=chunk, mesh=m.mesh)
-        else:
-            states, counts = batch_mod.batched_decode_rounds_chunk(
-                m.tparams, m.dparams, m.tcfg, m.dcfg, m.spec, self.sampling,
-                self._states, m.eos_token_id, self._caps, n_rounds=chunk, mesh=m.mesh)
+        replayed = self._graph.replayed
+        with round_graph.replaying(self._graph):
+            if m.mparams is not None:
+                states, counts = batch_mod.batched_medusa_rounds_chunk(
+                    m.tparams, m.mparams, m.tcfg, m.spec, self.sampling, self._states,
+                    m.eos_token_id, self._caps, n_rounds=chunk, mesh=m.mesh)
+            else:
+                states, counts = batch_mod.batched_decode_rounds_chunk(
+                    m.tparams, m.dparams, m.tcfg, m.dcfg, m.spec, self.sampling,
+                    self._states, m.eos_token_id, self._caps, n_rounds=chunk, mesh=m.mesh)
         self._states = states
+        self.stats["graph_rounds"] += self._graph.replayed - replayed
         for slot in self._active:
             self._slot_rounds[slot] += chunk
         # one host read per chunk: counters, done flags, lengths and outputs
